@@ -1,0 +1,155 @@
+"""Negacyclic NTT plans (host tables) and the stacked-limb reference NTT.
+
+Port of ``repro.core.ntt``: ``bitrev_indices``, ``TwiddleSeeds``,
+``NTTPlan``/``make_plan`` (the per-stage OTF seed+step scalars and the
+Montgomery-form forward psi table) and ``ntt_stacked``, the table-twiddle
+forward transform keygen runs. The reference's u64 REDC and the 16-bit-limb REDC
+used here return the same words (the reference itself switches to the limb
+engine without x64), so keys are bit-identical.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import modmul
+from repro_torch.core.modmul import MontgomeryConstants
+from repro_torch.core.primes import NTTPrime, primitive_2nth_root
+
+
+def bitrev_indices(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def _pow_table(base: int, n: int, q: int) -> np.ndarray:
+    """[base^0, ..., base^(n-1)] mod q via doubling."""
+    t = np.array([1], dtype=np.uint64)
+    step = base % q
+    while len(t) < n:
+        t = np.concatenate([t, (t * np.uint64(step)) % np.uint64(q)])
+        step = step * step % q
+    return t[:n]
+
+
+@dataclasses.dataclass(frozen=True)
+class TwiddleSeeds:
+    """Per-stage (seed, step) scalars of the OTF twiddle generator."""
+
+    q: int
+    logn: int
+    fwd_base: tuple[int, ...]   # B_s = psi^{N/(2m)}, m = 2^s
+    fwd_step: tuple[int, ...]   # W_s = psi^{N/m}
+    inv_base: tuple[int, ...]   # GS stage h = N >> (s+1): psi^{-N/(2h)}
+    inv_step: tuple[int, ...]
+    n_inv: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NTTPlan:
+    """Everything one prime needs for a negacyclic NTT/INTT of size N."""
+
+    prime: NTTPrime
+    mont: MontgomeryConstants
+    n: int
+    psi: int
+    seeds: TwiddleSeeds
+    psi_brv_mont: np.ndarray       # Psi[j] = psi^{bitrev(j)} * R mod q
+    n_inv_mont: int
+
+
+@functools.lru_cache(maxsize=128)
+def make_plan(prime: NTTPrime, n: int) -> NTTPlan:
+    q = prime.q
+    logn = n.bit_length() - 1
+    psi = primitive_2nth_root(q, 2 * n)
+    psi_inv = pow(psi, -1, q)
+    r = (1 << 32) % q
+
+    psi_brv = _pow_table(psi, n, q)[bitrev_indices(n)]
+
+    def to_mont(t):
+        return (t * np.uint64(r)) % np.uint64(q)
+
+    fwd_base, fwd_step, inv_base, inv_step = [], [], [], []
+    for s in range(logn):
+        m = 1 << s
+        fwd_base.append(pow(psi, n // (2 * m), q))
+        fwd_step.append(pow(psi, n // m, q))
+    for s in range(logn):
+        h = n >> (s + 1)
+        inv_base.append(pow(psi_inv, n // (2 * h), q))
+        inv_step.append(pow(psi_inv, n // h, q))
+
+    seeds = TwiddleSeeds(q=q, logn=logn, fwd_base=tuple(fwd_base),
+                         fwd_step=tuple(fwd_step), inv_base=tuple(inv_base),
+                         inv_step=tuple(inv_step), n_inv=pow(n, -1, q))
+    return NTTPlan(prime=prime, mont=MontgomeryConstants.make(prime), n=n,
+                   psi=psi, seeds=seeds, psi_brv_mont=to_mont(psi_brv),
+                   n_inv_mont=(seeds.n_inv * r) % q)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackedPlans:
+    """Per-limb constants of same-N plans stacked along a limb axis."""
+
+    n: int
+    n_limbs: int
+    q: np.ndarray                   # (L,) int64
+    qinv_neg: np.ndarray            # (L,) int64
+    r2: np.ndarray                  # (L,) int64
+    psi_brv_mont: np.ndarray        # (L, N) int64
+
+    def rows(self, arr: np.ndarray, ndim: int, device) -> torch.Tensor:
+        """(L,) -> (L, 1, ..., 1) int64 tensor broadcasting against an
+        (L, ..., N) residue stack."""
+        return torch.as_tensor(arr, device=device).reshape(
+            (self.n_limbs,) + (1,) * (ndim - 1))
+
+
+def stack_plans(plans) -> StackedPlans:
+    n = plans[0].n
+    if any(p.n != n for p in plans):
+        raise ValueError("stacked plans must share N")
+    return StackedPlans(
+        n=n, n_limbs=len(plans),
+        q=np.array([p.prime.q for p in plans], np.int64),
+        qinv_neg=np.array([p.mont.qinv_neg for p in plans], np.int64),
+        r2=np.array([p.mont.r2 for p in plans], np.int64),
+        psi_brv_mont=np.stack([p.psi_brv_mont for p in plans]).astype(
+            np.int64))
+
+
+def ntt_stacked(a: torch.Tensor, sp: StackedPlans) -> torch.Tensor:
+    """Forward negacyclic NTT of all limbs at once: a (L, ..., N) int64
+    residues -> same shape, bit-reversed order per limb (CT DIT, merged
+    psi, table twiddles) — the schedule of the reference ``ntt_stacked``."""
+    n = sp.n
+    batch = tuple(a.shape[1:-1])
+    L = sp.n_limbs
+    dev = a.device
+    psi = torch.as_tensor(sp.psi_brv_mont, device=dev)
+    bshape = (L,) + (1,) * (len(batch) + 2)
+    q = torch.as_tensor(sp.q, device=dev).reshape(bshape)
+    qinv = torch.as_tensor(sp.qinv_neg, device=dev).reshape(bshape)
+    x = a.reshape((L,) + batch + (1, n))
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        x = x.reshape((L,) + batch + (m, 2, t))
+        s = psi[:, m:2 * m].reshape((L,) + (1,) * len(batch) + (m, 1))
+        u = x[..., 0, :]
+        v = modmul.mulmod_montgomery_limb_t(x[..., 1, :], s, q, qinv)
+        x = torch.stack([modmul.addmod(u, v, q), modmul.submod(u, v, q)],
+                        dim=-2)
+        x = x.reshape((L,) + batch + (2 * m, t))
+        m *= 2
+    return x.reshape((L,) + batch + (n,))

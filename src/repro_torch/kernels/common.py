@@ -1,0 +1,227 @@
+"""Per-limb kernel constants and the plain OTF-twiddle NTT/INTT stage loops.
+
+Port of the client half of ``repro.kernels.common``:
+
+  * ``plan_consts`` — per-(prime, N) OTF twiddle seeds and doubling factors;
+  * ``stacked_kernel_consts`` — the (L, K) uint32 seed table, same layout
+    as the reference (``OFF_Q``/``OFF_QINV``/``OFF_NINV``, then per forward
+    stage [base, factors...], then per inverse stage). The CUDA kernels
+    read exactly this table;
+  * ``stacked_digit_consts`` — per-limb (2^22, 2^44) radix constants;
+  * ``gen_twiddles_t`` / ``ntt_stages_t`` / ``intt_stages_t`` — the plain
+    PyTorch stage loops (int64 residues), the schedule the CUDA stage loops
+    in ``csrc/client_common.cuh`` follow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import modmul, rns
+from repro_torch.core.modmul import MontgomeryConstants
+from repro_torch.core.ntt import NTTPlan, make_plan
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanConsts:
+    """Per-(prime, N) constants for in-kernel NTT/INTT: per-stage seeds and
+    the doubling factors A_{k+1} = [A_k, A_k * f_k] (Montgomery form)."""
+
+    q: int
+    n: int
+    logn: int
+    mont: MontgomeryConstants
+    fwd_base_mont: tuple[int, ...]
+    fwd_factors: tuple[tuple[int, ...], ...]
+    inv_base_mont: tuple[int, ...]
+    inv_factors: tuple[tuple[int, ...], ...]
+    n_inv_mont: int
+
+
+def plan_consts(plan: NTTPlan) -> PlanConsts:
+    """Memoised by plan content: (prime, N) determines every constant."""
+    return _plan_consts(plan.prime, plan.n)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_consts(prime, n: int) -> PlanConsts:
+    return _build_plan_consts(make_plan(prime, n))
+
+
+def _build_plan_consts(plan: NTTPlan) -> PlanConsts:
+    q = plan.prime.q
+    n = plan.n
+    logn = n.bit_length() - 1
+    r = (1 << 32) % q
+    s = plan.seeds
+
+    def factors(step: int, m: int) -> tuple[int, ...]:
+        # step^(m/2), step^(m/4), ..., step^1 (Montgomery form)
+        out = []
+        e = m // 2
+        while e >= 1:
+            out.append((pow(step, e, q) * r) % q)
+            e //= 2
+        return tuple(out)
+
+    fwd_base, fwd_f, inv_base, inv_f = [], [], [], []
+    for st in range(logn):
+        fwd_base.append((s.fwd_base[st] * r) % q)
+        fwd_f.append(factors(s.fwd_step[st], 1 << st))
+    for st in range(logn):
+        inv_base.append((s.inv_base[st] * r) % q)
+        inv_f.append(factors(s.inv_step[st], n >> (st + 1)))
+    return PlanConsts(q=q, n=n, logn=logn, mont=plan.mont,
+                      fwd_base_mont=tuple(fwd_base), fwd_factors=tuple(fwd_f),
+                      inv_base_mont=tuple(inv_base), inv_factors=tuple(inv_f),
+                      n_inv_mont=plan.n_inv_mont)
+
+
+# (L, K) table layout per limb row:
+#   [0] q   [1] -q^{-1} mod 2^32   [2] N^{-1} (Montgomery form)
+#   then per forward stage s = 0..logn-1:  base_s, f_0..f_{s-1}
+#   then per inverse stage t = 0..logn-1:  base_t, f_0..f_{logn-2-t}
+OFF_Q = 0
+OFF_QINV = 1
+OFF_NINV = 2
+_OFF_STAGES = 3
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackedKernelConsts:
+    """(L, K) uint32 table of per-limb kernel constants + column offsets."""
+
+    n: int
+    logn: int
+    n_limbs: int
+    fwd_off: tuple[int, ...]
+    inv_off: tuple[int, ...]
+    n_scalars: int
+    table: np.ndarray            # (L, n_scalars) uint32
+
+    def fwd_nfac(self, s: int) -> int:
+        return s
+
+    def inv_nfac(self, st: int) -> int:
+        return self.logn - 1 - st
+
+
+def stacked_kernel_consts(plans) -> StackedKernelConsts:
+    """Memoised by plan content ((prime, N) per limb)."""
+    return _stacked_kc(tuple((p.prime, p.n) for p in plans))
+
+
+@functools.lru_cache(maxsize=64)
+def _stacked_kc(keys) -> StackedKernelConsts:
+    pcs = [_plan_consts(prime, n) for prime, n in keys]
+    n, logn = pcs[0].n, pcs[0].logn
+    if any(pc.n != n for pc in pcs):
+        raise ValueError("stacked plans must share N")
+    fwd_off, inv_off = [], []
+    cur = _OFF_STAGES
+    for s in range(logn):
+        fwd_off.append(cur)
+        cur += 1 + s
+    for st in range(logn):
+        inv_off.append(cur)
+        cur += 1 + (logn - 1 - st)
+    table = np.zeros((len(pcs), cur), np.uint32)
+    for i, pc in enumerate(pcs):
+        table[i, OFF_Q] = pc.q
+        table[i, OFF_QINV] = pc.mont.qinv_neg
+        table[i, OFF_NINV] = pc.n_inv_mont
+        for s in range(logn):
+            o = fwd_off[s]
+            table[i, o] = pc.fwd_base_mont[s]
+            table[i, o + 1:o + 1 + s] = pc.fwd_factors[s]
+        for st in range(logn):
+            o = inv_off[st]
+            nf = logn - 1 - st
+            table[i, o] = pc.inv_base_mont[st]
+            table[i, o + 1:o + 1 + nf] = pc.inv_factors[st]
+    table.setflags(write=False)
+    return StackedKernelConsts(n=n, logn=logn, n_limbs=len(pcs),
+                               fwd_off=tuple(fwd_off), inv_off=tuple(inv_off),
+                               n_scalars=cur, table=table)
+
+
+def host_table(a: np.ndarray, device) -> torch.Tensor:
+    """Copy of a (read-only, memoised) host table as a tensor on `device`."""
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def stacked_digit_consts(q_list) -> tuple:
+    """((c22, c44), ...) Montgomery-form radix constants per limb."""
+    return tuple(rns.digit_consts(int(q)) for q in q_list)
+
+
+# ---------------------------------------------------------------------------
+# plain stage loops (int64 residues; per-limb scalars read from the table)
+# ---------------------------------------------------------------------------
+
+
+def gen_twiddles_t(table: np.ndarray, off: int, nfac: int, q: int,
+                   qinv_neg: int, row: int, device) -> torch.Tensor:
+    """[base * step^bitrev(i)]_{i < 2^nfac} by nfac Montgomery doublings,
+    base/factors read from columns [off, off + nfac] of limb row `row`."""
+    a = torch.tensor([int(table[row, off])], dtype=torch.int64,
+                     device=device)
+    for j in range(nfac):
+        prod = modmul.mulmod_montgomery_limb_t(
+            a, int(table[row, off + 1 + j]), q, qinv_neg)
+        a = torch.cat([a, prod])
+    return a
+
+
+def ntt_stages_t(x: torch.Tensor, kc: StackedKernelConsts, row: int
+                 ) -> torch.Tensor:
+    """Forward negacyclic NTT on (rows, N) int64 residues with limb `row`'s
+    constants: CT DIT, merged psi, natural order in, bit-reversed out."""
+    n = kc.n
+    q = int(kc.table[row, OFF_Q])
+    qinv = int(kc.table[row, OFF_QINV])
+    rows = x.shape[0]
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        s = m.bit_length() - 1
+        tw = gen_twiddles_t(kc.table, kc.fwd_off[s], kc.fwd_nfac(s), q, qinv,
+                            row, x.device)
+        x = x.reshape(rows, m, 2, t)
+        u = x[:, :, 0, :]
+        v = modmul.mulmod_montgomery_limb_t(x[:, :, 1, :], tw[None, :, None],
+                                            q, qinv)
+        x = torch.stack([modmul.addmod(u, v, q), modmul.submod(u, v, q)],
+                        dim=2).reshape(rows, n)
+        m *= 2
+    return x
+
+
+def intt_stages_t(x: torch.Tensor, kc: StackedKernelConsts, row: int
+                  ) -> torch.Tensor:
+    """Inverse negacyclic NTT on (rows, N): GS, bit-reversed in, natural
+    order out, N^-1 folded in at the end."""
+    n = kc.n
+    q = int(kc.table[row, OFF_Q])
+    qinv = int(kc.table[row, OFF_QINV])
+    rows = x.shape[0]
+    h, t = n // 2, 1
+    st = 0
+    while h >= 1:
+        tw = gen_twiddles_t(kc.table, kc.inv_off[st], kc.inv_nfac(st), q,
+                            qinv, row, x.device)
+        x = x.reshape(rows, h, 2, t)
+        u, v = x[:, :, 0, :], x[:, :, 1, :]
+        even = modmul.addmod(u, v, q)
+        odd = modmul.mulmod_montgomery_limb_t(
+            modmul.submod(u, v, q), tw[None, :, None], q, qinv)
+        x = torch.cat([even, odd], dim=-1).reshape(rows, h * 2 * t)
+        t *= 2
+        h //= 2
+        st += 1
+    return modmul.mulmod_montgomery_limb_t(
+        x.reshape(rows, n), int(kc.table[row, OFF_NINV]), q, qinv)

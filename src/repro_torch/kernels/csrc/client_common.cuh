@@ -1,0 +1,499 @@
+// Shared device code of the client megakernels (encode_encrypt.cu,
+// decrypt_decode.cu): uint32 Montgomery REDC, Philox-4x32-10, the df32
+// error-free transforms, the exact Delta-scale digit split, the two-limb
+// CRT, the NTT/INTT stage loops with on-the-fly twiddle doubling from the
+// (L, K) seed table, and the df32 SpecialFFT stage loop.
+//
+// Every function returns exactly the words / floats of its plain PyTorch
+// counterpart in repro_torch (and of the JAX reference): the float code is
+// written operation for operation in the reference's order and must be
+// compiled with --fmad=false (no multiply-add contraction), IEEE division
+// and no flush-to-zero. Rounding to nearest-even is rintf, never roundf.
+//
+// Work layout: a block body walks its index ranges with a stride of the
+// block size and separates dependent phases with RT_SYNC(). The NTT and
+// FFT rows (256 KB / 512 KB at N = 2^16) live in global memory (scratch or
+// the output buffers themselves, L2-resident per block); only a stage's
+// NTT twiddles (at most N/2 words = 128 KB) sit in dynamic shared memory.
+//
+// The same header compiles as plain C++ (no __CUDACC__): one thread per
+// block, RT_SYNC a no-op. Each phase is race-free by construction, so that
+// host build computes what the kernel computes; the port's tests use it to
+// check this source's arithmetic against the plain versions on a CPU.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define RT_FN __device__ __forceinline__
+#define RT_BODY __device__
+#define RT_TID (threadIdx.x)
+#define RT_NT (blockDim.x)
+#define RT_SYNC() __syncthreads()
+RT_FN uint32_t rt_mulhi(uint32_t a, uint32_t b) { return __umulhi(a, b); }
+RT_FN int rt_popc(uint32_t x) { return __popc(x); }
+#else
+#define RT_FN static inline
+#define RT_BODY static
+#define RT_TID 0u
+#define RT_NT 1u
+#define RT_SYNC() ((void)0)
+RT_FN uint32_t rt_mulhi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+RT_FN int rt_popc(uint32_t x) { return __builtin_popcount(x); }
+#endif
+
+namespace rt {
+
+// ---------------------------------------------------------------------------
+// (L, K) seed-table layout (kernels/common.py: OFF_Q, OFF_QINV, OFF_NINV,
+// then per forward stage s: [base, f_0..f_{s-1}], then per inverse stage
+// t: [base, f_0..f_{logn-2-t}])
+// ---------------------------------------------------------------------------
+constexpr int OFF_Q = 0;
+constexpr int OFF_QINV = 1;
+constexpr int OFF_NINV = 2;
+
+RT_FN int fwd_off(int s) { return 3 + s * (s + 1) / 2; }
+RT_FN int inv_off(int logn, int t) {
+  return 3 + logn * (logn + 1) / 2 + t * logn - t * (t - 1) / 2;
+}
+
+// ---------------------------------------------------------------------------
+// modular arithmetic on uint32 residues (q < 2^31)
+// ---------------------------------------------------------------------------
+RT_FN uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
+  uint32_t s = a + b;
+  return s >= q ? s - q : s;
+}
+
+RT_FN uint32_t submod(uint32_t a, uint32_t b, uint32_t q) {
+  return a >= b ? a - b : a + (q - b);
+}
+
+// REDC(a * b) = a*b*2^-32 mod q with one conditional subtraction: the words
+// modmul.mulmod_montgomery_limb_t returns (its 16-bit-limb products are the
+// exact 64-bit product; here one mul.lo / mul.hi pair each).
+RT_FN uint32_t redc_mul(uint32_t a, uint32_t b, uint32_t q, uint32_t qinv) {
+  uint32_t t_lo = a * b;
+  uint32_t t_hi = rt_mulhi(a, b);
+  uint32_t m = t_lo * qinv;
+  uint32_t u = t_hi + rt_mulhi(m, q) + (t_lo != 0u ? 1u : 0u);
+  return u >= q ? u - q : u;
+}
+
+// signed value in (-q, q) -> residue
+RT_FN uint32_t to_residue(int32_t x, uint32_t q) {
+  return (uint32_t)(x < 0 ? x + (int32_t)q : x);
+}
+
+// ---------------------------------------------------------------------------
+// Philox-4x32-10: counter (index, stream, word ^ seed2, seed3), key
+// (seed0, seed1); first output word (core/prng.py random_u32)
+// ---------------------------------------------------------------------------
+struct Seed {
+  uint32_t w0, w1, w2, w3;
+};
+
+RT_FN uint32_t philox_word(uint32_t idx, uint32_t stream, uint32_t word,
+                           Seed sd) {
+  uint32_t c0 = idx, c1 = stream, c2 = word ^ sd.w2, c3 = sd.w3;
+  uint32_t k0 = sd.w0, k1 = sd.w1;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    uint32_t lo0 = 0xD2511F53u * c0, hi0 = rt_mulhi(0xD2511F53u, c0);
+    uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = rt_mulhi(0xCD9E8D57u, c2);
+    uint32_t n0 = hi1 ^ c1 ^ k0;
+    uint32_t n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// ZO(0.5): +1 below 2^30, -1 below 2^31, else 0
+RT_FN int32_t zo(uint32_t u) {
+  return u < (1u << 30) ? 1 : (u < (1u << 31) ? -1 : 0);
+}
+
+// centered binomial, eta = 21
+RT_FN int32_t cbd(uint32_t a, uint32_t b) {
+  return rt_popc(a & 0x1FFFFFu) - rt_popc(b & 0x1FFFFFu);
+}
+
+// ---------------------------------------------------------------------------
+// df32 error-free transforms (core/dfloat.py), reference operation order
+// ---------------------------------------------------------------------------
+struct df {
+  float hi, lo;
+};
+struct dfc {
+  df re, im;
+};
+
+RT_FN void two_sum(float a, float b, float &s, float &e) {
+  s = a + b;
+  float bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+RT_FN df quick_two_sum(float a, float b) {
+  float s = a + b;
+  df r;
+  r.hi = s;
+  r.lo = b - (s - a);
+  return r;
+}
+
+RT_FN void two_prod(float a, float b, float &p, float &e) {
+  const float c = 4097.0f;  // Veltkamp splitter 2^12 + 1
+  p = a * b;
+  float ca = c * a;
+  float a_hi = ca - (ca - a);
+  float a_lo = a - a_hi;
+  float cb = c * b;
+  float b_hi = cb - (cb - b);
+  float b_lo = b - b_hi;
+  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
+}
+
+RT_FN df df_add(df x, df y) {
+  float s, e;
+  two_sum(x.hi, y.hi, s, e);
+  e = e + x.lo + y.lo;
+  return quick_two_sum(s, e);
+}
+
+RT_FN df df_sub(df x, df y) {
+  df ny;
+  ny.hi = -y.hi;
+  ny.lo = -y.lo;
+  return df_add(x, ny);
+}
+
+RT_FN df df_mul(df x, df y) {
+  float p, e;
+  two_prod(x.hi, y.hi, p, e);
+  e = e + x.hi * y.lo + x.lo * y.hi;
+  return quick_two_sum(p, e);
+}
+
+RT_FN dfc dfc_add(dfc a, dfc b) {
+  dfc r;
+  r.re = df_add(a.re, b.re);
+  r.im = df_add(a.im, b.im);
+  return r;
+}
+
+RT_FN dfc dfc_sub(dfc a, dfc b) {
+  dfc r;
+  r.re = df_sub(a.re, b.re);
+  r.im = df_sub(a.im, b.im);
+  return r;
+}
+
+RT_FN dfc dfc_mul(dfc a, dfc b) {
+  df ac = df_mul(a.re, b.re);
+  df bd = df_mul(a.im, b.im);
+  df ad = df_mul(a.re, b.im);
+  df bc = df_mul(a.im, b.re);
+  dfc r;
+  r.re = df_sub(ac, bd);
+  r.im = df_add(ad, bc);
+  return r;
+}
+
+// four float planes (re_hi, re_lo, im_hi, im_lo) of one row
+struct Planes {
+  float *rh, *rl, *ih, *il;
+};
+
+RT_FN dfc load_dfc(Planes p, int i) {
+  dfc z;
+  z.re.hi = p.rh[i];
+  z.re.lo = p.rl[i];
+  z.im.hi = p.ih[i];
+  z.im.lo = p.il[i];
+  return z;
+}
+
+RT_FN void store_dfc(Planes p, int i, dfc z) {
+  p.rh[i] = z.re.hi;
+  p.rl[i] = z.re.lo;
+  p.ih[i] = z.im.hi;
+  p.il[i] = z.im.lo;
+}
+
+// twiddle i of the packed (4, n) table
+RT_FN dfc load_tw(const float *tw, int n, int i) {
+  dfc w;
+  w.re.hi = tw[i];
+  w.re.lo = tw[n + i];
+  w.im.hi = tw[2 * n + i];
+  w.im.lo = tw[3 * n + i];
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// exact Delta-scale rounding and digit split (dfloat.df_round_rne,
+// dfloat.expansion3_digits)
+// ---------------------------------------------------------------------------
+RT_FN bool is_odd_int(float x) {
+  float half = x * 0.5f;
+  return (x - 2.0f * floorf(half)) == 1.0f;
+}
+
+// digits of RNE(hi + lo): value = d0 + d1*2^22 + d2*2^44
+RT_FN void round_digits(float hi, float lo, int32_t &d0, int32_t &d1,
+                        int32_t &d2) {
+  float s, err;
+  two_sum(hi, lo, s, err);
+  float rs = rintf(s);
+  float t = s - rs;
+  float f, e;
+  two_sum(t, err, f, e);
+  float fr = rintf(f);
+  float d = f - fr;
+  float g, h;
+  two_sum(d, e, g, h);
+  bool up = (g > 0.5f) || ((g == 0.5f) && (h > 0.0f));
+  bool up_tie = (g == 0.5f) && (h == 0.0f);
+  bool dn = (g < -0.5f) || ((g == -0.5f) && (h < 0.0f));
+  bool dn_tie = (g == -0.5f) && (h == 0.0f);
+  bool odd = is_odd_int(rs) != is_odd_int(fr);
+  float adj = ((up || (up_tie && odd)) ? 1.0f : 0.0f) -
+              ((dn || (dn_tie && odd)) ? 1.0f : 0.0f);
+  float a, b;
+  two_sum(fr, adj, a, b);
+  float s1, c;
+  two_sum(rs, a, s1, c);
+  // expansion3_digits(s1, c, b)
+  const float r44 = 17592186044416.0f;         // 2^44
+  const float r44i = 5.684341886080802e-14f;   // 2^-44
+  const float r22 = 4194304.0f;                // 2^22
+  const float r22i = 2.384185791015625e-07f;   // 2^-22
+  float fd2 = rintf(s1 * r44i);
+  float s0 = s1 - fd2 * r44;
+  float u, e2;
+  two_sum(c, b, u, e2);
+  float t1, e1;
+  two_sum(s0, u, t1, e1);
+  float t2, t3;
+  two_sum(e1, e2, t2, t3);
+  float fd1 = rintf(t1 * r22i);
+  float fd0 = ((t1 - fd1 * r22) + t2) + t3;
+  d0 = (int32_t)fd0;
+  d1 = (int32_t)fd1;
+  d2 = (int32_t)fd2;
+}
+
+// ---------------------------------------------------------------------------
+// NTT / INTT stage loops over npoly rows in global memory
+// ---------------------------------------------------------------------------
+
+// tw[0 .. 2^nfac) = [base * step^bitrev(i)] by nfac Montgomery doublings,
+// base and factors read from col[0 .. nfac] (gen_twiddles_t).
+RT_FN void gen_twiddles(uint32_t *tw, const uint32_t *col, int nfac,
+                        uint32_t q, uint32_t qinv) {
+  if (RT_TID == 0) tw[0] = col[0];
+  RT_SYNC();
+  for (int k = 0; k < nfac; ++k) {
+    const int h = 1 << k;
+    const uint32_t f = col[1 + k];
+    for (int i = RT_TID; i < h; i += RT_NT) tw[i + h] = redc_mul(tw[i], f, q, qinv);
+    RT_SYNC();
+  }
+}
+
+struct Rows {
+  uint32_t *p[4];
+};
+
+// forward negacyclic NTT, CT DIT, natural order in, bit-reversed out
+// (common.ntt_stages_t); trow: this limb's (K,) seed-table row.
+RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
+                   uint32_t *tw) {
+  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
+  const int half = 1 << (logn - 1);
+  for (int s = 0; s < logn; ++s) {
+    const int logt = logn - 1 - s;  // t = N / 2^(s+1)
+    gen_twiddles(tw, trow + fwd_off(s), s, q, qinv);
+    for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
+      uint32_t *r = x.p[idx >> (logn - 1)];
+      const int k = idx & (half - 1);
+      const int j = k >> logt;
+      const int p0 = (j << (logt + 1)) + (k & ((1 << logt) - 1));
+      const int p1 = p0 + (1 << logt);
+      const uint32_t u = r[p0];
+      const uint32_t v = redc_mul(r[p1], tw[j], q, qinv);
+      r[p0] = addmod(u, v, q);
+      r[p1] = submod(u, v, q);
+    }
+    RT_SYNC();
+  }
+}
+
+// inverse negacyclic NTT, GS, bit-reversed in, natural order out, N^-1
+// folded in (common.intt_stages_t)
+RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
+                   uint32_t *tw) {
+  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
+  const int half = 1 << (logn - 1);
+  for (int st = 0; st < logn; ++st) {  // h = N >> (st+1) groups, t = 2^st
+    gen_twiddles(tw, trow + inv_off(logn, st), logn - 1 - st, q, qinv);
+    for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
+      uint32_t *r = x.p[idx >> (logn - 1)];
+      const int k = idx & (half - 1);
+      const int j = k >> st;
+      const int p0 = (j << (st + 1)) + (k & ((1 << st) - 1));
+      const int p1 = p0 + (1 << st);
+      const uint32_t u = r[p0], v = r[p1];
+      r[p0] = addmod(u, v, q);
+      r[p1] = redc_mul(submod(u, v, q), tw[j], q, qinv);
+    }
+    RT_SYNC();
+  }
+  const uint32_t ninv = trow[OFF_NINV];
+  for (int idx = RT_TID; idx < npoly << logn; idx += RT_NT) {
+    uint32_t *r = x.p[idx >> logn];
+    const int i = idx & ((1 << logn) - 1);
+    r[i] = redc_mul(r[i], ninv, q, qinv);
+  }
+  RT_SYNC();
+}
+
+// ---------------------------------------------------------------------------
+// df32 SpecialFFT stage loops on one row of n complex values
+// (fft_df.fft_stage_pipeline); tw: the packed (4, n) table of the direction
+// ---------------------------------------------------------------------------
+
+// encode direction: GS stages, length n .. 2 (offset of stage s is
+// n - n/2^s), then the 1/n scale (the caller applies it elementwise:
+// ifft_scale)
+RT_FN void fft_inv_stages(Planes x, int logns, const float *tw) {
+  const int n = 1 << logns;
+  for (int s = 0; s < logns; ++s) {
+    const int loglh = logns - 1 - s;  // lenh = length / 2
+    const int off = n - (n >> s);
+    for (int idx = RT_TID; idx < n / 2; idx += RT_NT) {
+      const int g = idx >> loglh;
+      const int i = idx & ((1 << loglh) - 1);
+      const int p0 = (g << (loglh + 1)) + i;
+      const int p1 = p0 + (1 << loglh);
+      const dfc u = load_dfc(x, p0), v = load_dfc(x, p1);
+      const dfc w = load_tw(tw, n, off + i);
+      store_dfc(x, p0, dfc_add(u, v));
+      store_dfc(x, p1, dfc_mul(dfc_sub(u, v), w));
+    }
+    RT_SYNC();
+  }
+}
+
+RT_FN dfc ifft_scale(dfc z, int logns) {
+  df sc;
+  sc.hi = 1.0f / (float)(1 << logns);  // 1/n is a power of two: lo = 0
+  sc.lo = 0.0f;
+  dfc r;
+  r.re = df_mul(z.re, sc);
+  r.im = df_mul(z.im, sc);
+  return r;
+}
+
+// decode direction: CT stages, length 2 .. n (offset of stage s is
+// 2^s - 1), input already bit-reversed
+RT_FN void fft_fwd_stages(Planes x, int logns, const float *tw) {
+  const int n = 1 << logns;
+  for (int s = 0; s < logns; ++s) {  // lenh = 2^s
+    const int off = (1 << s) - 1;
+    for (int idx = RT_TID; idx < n / 2; idx += RT_NT) {
+      const int g = idx >> s;
+      const int i = idx & ((1 << s) - 1);
+      const int p0 = (g << (s + 1)) + i;
+      const int p1 = p0 + (1 << s);
+      const dfc u = load_dfc(x, p0);
+      const dfc v = dfc_mul(load_dfc(x, p1), load_tw(tw, n, off + i));
+      store_dfc(x, p0, dfc_add(u, v));
+      store_dfc(x, p1, dfc_sub(u, v));
+    }
+    RT_SYNC();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// two-limb CRT -> centered value / scale as a df32 pair
+// (rns.crt2_centered_u32 + rns.centered_to_df; native 64-bit integers give
+// the reference's u32 word-pair results, fl64(Q) reduction included)
+// ---------------------------------------------------------------------------
+struct Crt2 {
+  uint32_t q0, q1, g0_mont, g1_mont, qinv0, qinv1;
+  uint64_t qq, half;  // fl64(q0*q1) and its floor half
+};
+
+RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
+  const uint32_t t0 = redc_mul(m0, k.g0_mont, k.q0, k.qinv0);
+  const uint32_t t1 = redc_mul(m1, k.g1_mont, k.q1, k.qinv1);
+  uint64_t v = (uint64_t)t0 * k.q1 + (uint64_t)t1 * k.q0;  // < 2Q < 2^63
+  if (v >= k.qq) v -= k.qq;
+  const bool gt = v > k.half;
+  const bool geq = v >= k.qq;
+  const bool neg = gt && !geq;
+  const uint64_t mag = neg ? k.qq - v : ((gt && geq) ? v - k.qq : v);
+  const float sign = neg ? -1.0f : 1.0f;
+  const uint32_t hi = (uint32_t)(mag >> 32), lo = (uint32_t)mag;
+  const float s = sign * inv_scale;
+  const float w0 = (float)(lo & 0xFFFFu) * s;
+  const float w1 = (float)(lo >> 16) * 65536.0f * s;
+  const float w2 = (float)(hi & 0xFFFFu) * 4294967296.0f * s;
+  const float w3 = (float)(hi >> 16) * 281474976710656.0f * s;
+  // terms4_to_df(w3, w2, w1, w0)
+  float a, e1, e2, e3, hi_f;
+  two_sum(w1, w0, a, e1);
+  two_sum(w2, a, a, e2);
+  two_sum(w3, a, hi_f, e3);
+  const float lo_f = (e3 + e2) + e1;
+  return quick_two_sum(hi_f, lo_f);
+}
+
+}  // namespace rt
+
+#if defined(__CUDACC__)
+#include <cuda_runtime.h>
+
+#include <mutex>
+
+namespace rt {
+
+// Dynamic shared memory above 48 KB has to be allowed per kernel and
+// device, and the allowance persists: raise it once per device, to the
+// largest size asked so far, instead of on every launch.
+struct SmemAllowance {
+  static constexpr int kDevices = 64;
+  std::mutex mu;
+  int bytes[kDevices] = {};
+};
+
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes,
+                                      SmemAllowance &state) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(state.mu);
+  if (dev < SmemAllowance::kDevices && state.bytes[dev] >= (int)bytes)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < SmemAllowance::kDevices)
+    state.bytes[dev] = (int)bytes;
+  return err;
+}
+
+}  // namespace rt
+#endif

@@ -1,0 +1,196 @@
+// encode+encrypt megakernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/client_stream.py
+// :_encode_encrypt_kernel (pallas_call in encode_encrypt_stream), df32
+// datapath: df32 SpecialIFFT, bit-reversal, exact RNE Delta-scale into
+// balanced base-2^22 digits, then per limb: RNS reduction, NTT, Philox
+// (v, e0, e1) keyed by (seed, nonce0 + row), c0 = v*b + e0 + pt,
+// c1 = v*a + e1. Output words are bit-identical to the plain version
+// (client_stream.encode_encrypt_stream_plain) and to the JAX reference.
+//
+// Two kernels launched back to back on the caller's stream by one entry
+// point, because the two phases want different grids:
+//   1. encode_rows_kernel, grid (B): one block per batch row runs the
+//      SpecialIFFT stages on a copy of the row's four planes (global
+//      scratch), then bit-reverses, scales by 1/n and Delta and writes the
+//      three digit rows (B, 3, N) int32 to global scratch;
+//   2. encrypt_limbs_kernel, grid (L, B): one block per (limb, row) builds
+//      the limb's plaintext residues, draws (v, e0, e1) (limb-independent
+//      Philox streams, regenerated per limb as the reference's blocks do),
+//      runs one NTT stage loop over the four rows pt, v, e0, e1 and writes
+//      c0/c1. pt and e0 are transformed in place in the c0/c1 output rows,
+//      v and e1 in a (B, L, 2, N) scratch.
+//
+// What bounds it on an H100: at the paper profile (N = 2^16, L = 24) the
+// kernel must write 2*B*L*N*4 bytes of ciphertext (201 MB at B = 16), but
+// the integer work the function needs (per limb 3 NTTs of 16 stages, since
+// pt + e0 can share one, and 5 Philox-10 words per coefficient per row) is
+// larger: operations, not bytes, bound it. This kernel does more than
+// that: 4 NTTs per limb, and the Philox words regenerated per limb. This
+// first version is simple rather than fast: the NTT rows (256 KB each)
+// do not fit a block's 227 KB of shared memory, so every butterfly stage
+// reads and writes global memory (kept in the 50 MB L2 as far as it goes)
+// with a block barrier between stages; only the stage's twiddles
+// (<= 128 KB) sit in shared memory. Phase 1 fills only B of 132 SMs.
+#include "client_common.cuh"
+
+namespace {
+
+struct EncArgs {
+  const float *rh, *rl, *ih, *il;  // (B, ns) slot planes
+  const float *tw;                 // (4, ns) packed inverse twiddles
+  const int32_t *rev;              // (ns,) bit-reversal permutation
+  const uint32_t *table;           // (L, K) seed table
+  const uint32_t *digit_mont;      // (L, 2): 2^22, 2^44 mod q (Montgomery)
+  const uint32_t *pk_b, *pk_a;     // (L, N) Montgomery form
+  uint32_t *c0, *c1;               // (B, L, N)
+  float *fft;                      // (B, 4, ns) scratch
+  int32_t *digits;                 // (B, 3, N) scratch
+  uint32_t *ntt;                   // (B, L, 2, N) scratch
+  int n_limbs, logn, n_scalars;
+  float delta;
+  rt::Seed seed;
+  uint32_t nonce0;
+};
+
+RT_BODY void encode_row(const EncArgs &a, int b) {
+  const int logns = a.logn - 1;
+  const int ns = 1 << logns;
+  const int n = 1 << a.logn;
+  float *f = a.fft + (size_t)b * 4 * ns;
+  rt::Planes x = {f, f + ns, f + 2 * ns, f + 3 * ns};
+  const size_t row = (size_t)b * ns;
+  for (int i = RT_TID; i < ns; i += RT_NT) {
+    x.rh[i] = a.rh[row + i];
+    x.rl[i] = a.rl[row + i];
+    x.ih[i] = a.ih[row + i];
+    x.il[i] = a.il[row + i];
+  }
+  RT_SYNC();
+  rt::fft_inv_stages(x, logns, a.tw);
+  // bit-reversal + 1/n, then coefficient k = re (k < ns) ++ im (k >= ns)
+  int32_t *dg = a.digits + (size_t)b * 3 * n;
+  for (int k = RT_TID; k < n; k += RT_NT) {
+    const int j = k < ns ? k : k - ns;
+    const rt::dfc z = rt::ifft_scale(rt::load_dfc(x, a.rev[j]), logns);
+    const rt::df c = k < ns ? z.re : z.im;
+    int32_t d0, d1, d2;
+    rt::round_digits(c.hi * a.delta, c.lo * a.delta, d0, d1, d2);
+    dg[k] = d0;
+    dg[n + k] = d1;
+    dg[2 * n + k] = d2;
+  }
+}
+
+RT_BODY void encrypt_limb(const EncArgs &a, int l, int b, uint32_t *tw) {
+  const int n = 1 << a.logn;
+  const uint32_t *trow = a.table + (size_t)l * a.n_scalars;
+  const uint32_t q = trow[rt::OFF_Q], qinv = trow[rt::OFF_QINV];
+  const uint32_t c22 = a.digit_mont[2 * l], c44 = a.digit_mont[2 * l + 1];
+  const size_t off = ((size_t)b * a.n_limbs + l) * n;
+  uint32_t *pt = a.c0 + off;   // pt, then c0
+  uint32_t *e0 = a.c1 + off;   // e0, then c1
+  uint32_t *v = a.ntt + 2 * off;
+  uint32_t *e1 = v + n;
+  const int32_t *dg = a.digits + (size_t)b * 3 * n;
+  const uint32_t nonce = a.nonce0 + (uint32_t)b;
+  const uint32_t sv = 0x10000u + 16u * nonce;   // STREAM_ENC_V + 16*nonce
+  const uint32_t s0 = 0x20000u + 16u * nonce;   // STREAM_ENC_E0
+  const uint32_t s1 = 0x30000u + 16u * nonce;   // STREAM_ENC_E1
+  for (int i = RT_TID; i < n; i += RT_NT) {
+    const uint32_t r0 = rt::to_residue(dg[i], q);
+    const uint32_t m1 = rt::redc_mul(rt::to_residue(dg[n + i], q), c22, q, qinv);
+    const uint32_t m2 =
+        rt::redc_mul(rt::to_residue(dg[2 * n + i], q), c44, q, qinv);
+    pt[i] = rt::addmod(rt::addmod(r0, m1, q), m2, q);
+    const uint32_t ui = (uint32_t)i;
+    v[i] = rt::to_residue(rt::zo(rt::philox_word(ui, sv, 0u, a.seed)), q);
+    e0[i] = rt::to_residue(rt::cbd(rt::philox_word(ui, s0, 0u, a.seed),
+                                   rt::philox_word(ui, s0, 1u, a.seed)),
+                           q);
+    e1[i] = rt::to_residue(rt::cbd(rt::philox_word(ui, s1, 0u, a.seed),
+                                   rt::philox_word(ui, s1, 1u, a.seed)),
+                           q);
+  }
+  RT_SYNC();
+  rt::Rows rows = {{pt, e0, v, e1}};
+  rt::ntt_fwd(rows, 4, a.logn, trow, tw);
+  const uint32_t *pkb = a.pk_b + (size_t)l * n;
+  const uint32_t *pka = a.pk_a + (size_t)l * n;
+  for (int i = RT_TID; i < n; i += RT_NT) {
+    const uint32_t vh = v[i];
+    const uint32_t c0 =
+        rt::addmod(rt::addmod(rt::redc_mul(vh, pkb[i], q, qinv), e0[i], q),
+                   pt[i], q);
+    const uint32_t c1 = rt::addmod(rt::redc_mul(vh, pka[i], q, qinv), e1[i], q);
+    pt[i] = c0;
+    e0[i] = c1;
+  }
+}
+
+}  // namespace
+
+#if defined(__CUDACC__)
+
+namespace {
+
+__global__ void __launch_bounds__(1024) encode_rows_kernel(EncArgs a) {
+  encode_row(a, blockIdx.x);
+}
+
+__global__ void __launch_bounds__(1024) encrypt_limbs_kernel(EncArgs a) {
+  extern __shared__ uint32_t tw_smem[];
+  encrypt_limb(a, blockIdx.x, blockIdx.y, tw_smem);
+}
+
+}  // namespace
+
+extern "C" int encode_encrypt_stream_launch(
+    const float *rh, const float *rl, const float *ih, const float *il,
+    const float *tw, const int32_t *rev, const uint32_t *table,
+    const uint32_t *digit_mont, const uint32_t *pk_b, const uint32_t *pk_a,
+    uint32_t *c0, uint32_t *c1, float *fft_scratch, int32_t *digit_scratch,
+    uint32_t *ntt_scratch, int batch, int n_limbs, int logn, int n_scalars,
+    float delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
+    uint32_t seed3, uint32_t nonce0, void *stream) {
+  EncArgs a = {rh,     rl,          ih,          il,   tw,   rev,
+               table,  digit_mont,  pk_b,        pk_a, c0,   c1,
+               fft_scratch, digit_scratch, ntt_scratch, n_limbs, logn,
+               n_scalars, delta, {seed0, seed1, seed2, seed3}, nonce0};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 1024;
+  encode_rows_kernel<<<batch, threads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sizeof(uint32_t) << (logn - 1);  // one stage's twiddles
+  static rt::SmemAllowance allowance;
+  err = rt::allow_dynamic_smem(encrypt_limbs_kernel, smem, allowance);
+  if (err != cudaSuccess) return (int)err;
+  encrypt_limbs_kernel<<<dim3(n_limbs, batch), threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+#else  // host build of the same block bodies (one thread per block)
+
+#include <vector>
+
+extern "C" int encode_encrypt_stream_host(
+    const float *rh, const float *rl, const float *ih, const float *il,
+    const float *tw, const int32_t *rev, const uint32_t *table,
+    const uint32_t *digit_mont, const uint32_t *pk_b, const uint32_t *pk_a,
+    uint32_t *c0, uint32_t *c1, float *fft_scratch, int32_t *digit_scratch,
+    uint32_t *ntt_scratch, int batch, int n_limbs, int logn, int n_scalars,
+    float delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
+    uint32_t seed3, uint32_t nonce0) {
+  EncArgs a = {rh,     rl,          ih,          il,   tw,   rev,
+               table,  digit_mont,  pk_b,        pk_a, c0,   c1,
+               fft_scratch, digit_scratch, ntt_scratch, n_limbs, logn,
+               n_scalars, delta, {seed0, seed1, seed2, seed3}, nonce0};
+  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
+  for (int b = 0; b < batch; ++b) encode_row(a, b);
+  for (int b = 0; b < batch; ++b)
+    for (int l = 0; l < n_limbs; ++l) encrypt_limb(a, l, b, tw_smem.data());
+  return 0;
+}
+
+#endif

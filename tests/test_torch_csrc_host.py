@@ -1,0 +1,141 @@
+"""The CUDA kernels' source, compiled for the CPU, against the plain path.
+
+``csrc/client_common.cuh`` keeps the kernels' arithmetic and block bodies
+in code that also compiles as plain C++ (one thread per block, barriers as
+no-ops; every phase is race-free, so that build computes what the kernel
+computes). Here g++ builds ``encode_encrypt.cu`` / ``decrypt_decode.cu``
+that way, with ``-ffp-contract=off`` (the host twin of ``--fmad=false``),
+and the results must equal the plain PyTorch versions word for word. The
+CUDA build itself, its launch and its agreement on the card are checked by
+``chip_smoke.py``. Skips where no C++ compiler is installed.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng, rns
+from repro_torch.fhe_client.client import FHEClient
+from repro_torch.kernels import build, client_stream, common
+
+_P = ctypes.c_void_p
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler for the host build of the kernels")
+    out = tmp_path_factory.mktemp("csrc_host")
+    libs = {}
+    procs = []
+    for src in ("encode_encrypt.cu", "decrypt_decode.cu"):
+        lib = out / src.replace(".cu", ".so")
+        procs.append((src, lib, subprocess.Popen(
+            [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+             "-fno-fast-math", "-shared", "-fPIC", "-I", str(build.CSRC),
+             "-o", str(lib), str(build.CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, lib, proc in procs:
+        log = proc.communicate(timeout=300)[0]
+        assert proc.returncode == 0, log
+        libs[src] = ctypes.CDLL(str(lib))
+    enc = libs["encode_encrypt.cu"].encode_encrypt_stream_host
+    enc.argtypes = [_P] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] + \
+        [ctypes.c_uint32] * 5
+    enc.restype = ctypes.c_int
+    dec = libs["decrypt_decode.cu"].decrypt_decode_stream_host
+    dec.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 10 + \
+        [ctypes.c_int] * 3 + [ctypes.c_uint32] * 6 + [ctypes.c_ulonglong] * 2
+    dec.restype = ctypes.c_int
+    return enc, dec
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+@pytest.mark.parametrize("profile,batch,nonce0", [
+    ("tiny", 3, 0xFFFFFFFF), ("test", 2, 9)])
+def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
+    enc, dec = host_libs
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx, p = client.ctx, client.ctx.params
+    L, n, ns = p.n_limbs, p.n, p.n_slots
+    rng = np.random.default_rng(5)
+    msgs = (rng.standard_normal((batch, ns))
+            + 1j * rng.standard_normal((batch, ns))) * 0.5
+    planes = client.encrypt_operands(msgs)
+    pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
+    ref0, ref1 = client_stream.encode_encrypt_stream_plain(
+        planes, pkb, pka, ctx, client.seed, nonce0)
+
+    kc, tw, _, rev = client_stream.stream_consts(ctx, L, inverse=True)
+    keep = [np.ascontiguousarray(t.numpy()) for t in planes]
+    tw = np.ascontiguousarray(tw)
+    rev32 = rev.astype(np.int32)
+    table = np.ascontiguousarray(kc.table)
+    dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:L]), np.uint32)
+    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
+    c0 = np.zeros((batch, L, n), np.uint32)
+    c1 = np.zeros_like(c0)
+    fft = np.zeros((batch, 4, ns), np.float32)
+    dig = np.zeros((batch, 3, n), np.int32)
+    ntt = np.zeros((batch, L, 2, n), np.uint32)
+    err = enc(*(_ptr(a) for a in keep), _ptr(tw), _ptr(rev32), _ptr(table),
+              _ptr(dm), _ptr(b_np), _ptr(a_np), _ptr(c0), _ptr(c1),
+              _ptr(fft), _ptr(dig), _ptr(ntt), batch, L, p.logn,
+              kc.n_scalars, float(p.delta), *prng.seed_words(client.seed),
+              nonce0)
+    assert err == 0
+    np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
+    np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
+
+    # decrypt the (B, L, N) batch through its 2-limb row-strided view
+    scale = torch.full((batch,), p.delta, dtype=torch.float32)
+    want = client_stream.decrypt_decode_stream_plain(
+        ref0[:, :2], ref1[:, :2], client.keys.sk.s_mont, ctx, scale)
+    kc2, tw2, _, _ = client_stream.stream_consts(ctx, 2, inverse=False)
+    tw2 = np.ascontiguousarray(tw2)
+    table2 = np.ascontiguousarray(kc2.table)
+    s_np = client.keys.sk.s_mont.numpy().copy()
+    sc = scale.numpy().copy()
+    outs = [np.zeros((batch, ns), np.float32) for _ in range(4)]
+    m = np.zeros((batch, 2, n), np.uint32)
+    k = rns.crt2_consts(ctx.q_list[0], ctx.q_list[1])
+    err = dec(_ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(sc), _ptr(tw2),
+              _ptr(rev32), _ptr(table2), *(_ptr(o) for o in outs), _ptr(m),
+              batch, p.logn, kc2.n_scalars, ctx.q_list[0], ctx.q_list[1],
+              k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
+              (k["q_w"][0] << 32) | k["q_w"][1],
+              (k["half_w"][0] << 32) | k["half_w"][1])
+    assert err == 0
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("profile", ["tiny", "test", "paper"])
+def test_kernel_table_offsets_match_host_layout(profile):
+    """The kernels compute the seed-table and FFT-twiddle stage offsets in
+    closed form (csrc/client_common.cuh: fwd_off, inv_off, and the stage
+    offsets of fft_inv_stages / fft_fwd_stages); they must equal the host
+    tables' offsets the wrappers upload."""
+    from repro_torch.core.context import get_context
+    ctx = get_context(profile)
+    L, ns = ctx.params.n_limbs, ctx.params.n_slots
+    for inverse in (True, False):
+        kc, _, offsets, _ = client_stream.stream_consts(ctx, L, inverse)
+        lg = kc.logn
+        assert kc.fwd_off == tuple(3 + s * (s + 1) // 2 for s in range(lg))
+        assert kc.inv_off == tuple(
+            3 + lg * (lg + 1) // 2 + t * lg - t * (t - 1) // 2
+            for t in range(lg))
+        stages = range(ns.bit_length() - 1)
+        want = (tuple(ns - (ns >> s) for s in stages) if inverse
+                else tuple((1 << s) - 1 for s in stages))
+        assert tuple(offsets) == want

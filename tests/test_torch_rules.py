@@ -1,0 +1,156 @@
+"""Rules of the port that no parity test would catch.
+
+  * ``repro_torch`` imports neither ``jax`` nor any ``repro`` module: checked
+    by importing every module in a subprocess where ``jax`` is poisoned, and
+    by walking every module's AST;
+  * the kernel build keeps the float code IEEE-exact (``--fmad=false``, no
+    fast math);
+  * the client runs on the card unless told otherwise, rejects scales the
+    df32 datapath cannot take exactly, and refuses the configurations not
+    ported yet;
+  * keys round-trip through ``keys_from_numpy``; the private-inference
+    loop packs, encrypts, decrypts and unpacks activation rows;
+  * the plain path never touches a CUDA launch counter.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.fhe_client.client import (FHEClient, keys_from_numpy,
+                                           simulate_private_inference)
+from repro_torch.kernels import build, client_stream
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+MODULES = sorted(PORT.rglob("*.py"))
+
+
+def _module_name(path: Path) -> str:
+    rel = path.relative_to(SRC).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        parts.pop()
+    return ".".join(parts)
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: _module_name(p))
+def test_no_jax_or_repro_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def test_import_with_jax_poisoned():
+    names = [_module_name(p) for p in MODULES]
+    code = (
+        "import sys\n"
+        "for bad in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[bad] = None\n"
+        "import importlib\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok', len(" + repr(names) + "))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_nvcc_flags_are_ieee_exact():
+    flags = build.NVCC_FLAGS
+    assert "--fmad=false" in flags
+    assert "-prec-div=true" in flags and "-ftz=false" in flags
+    assert not any("fast_math" in f or "fast-math" in f for f in flags)
+    assert "arch=compute_90a,code=sm_90a" in flags
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FHEClient("tiny")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"fourier": "host"}, {"pipeline": "staged"}, {"datapath": "f64"}])
+def test_unported_configurations_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FHEClient("tiny", device="cpu", **kwargs)
+
+
+@pytest.fixture(scope="module")
+def tiny_client():
+    return FHEClient("tiny", device="cpu")
+
+
+@pytest.mark.parametrize("scale", [3.0 * 2 ** 38, 2.0 ** 40 + 1, -2.0 ** 40])
+def test_non_power_of_two_scale_rejected(tiny_client, scale):
+    cts = tiny_client.encode_encrypt_batch(np.zeros((1, 32), complex))
+    cts.scale = scale
+    with pytest.raises(ValueError, match="power-of-two"):
+        tiny_client.decrypt_decode_batch(cts)
+
+
+def test_keys_from_numpy_round_trip(tiny_client):
+    sk, pk = tiny_client.keys.sk, tiny_client.keys.pk
+    arrays = [t.numpy().view(np.uint32) for t in (sk.s_mont, pk.b_mont,
+                                                  pk.a_mont)]
+    keys = keys_from_numpy(*arrays, sk.s_coeffs.numpy(), "cpu")
+    for got, want in ((keys.sk.s_mont, sk.s_mont), (keys.pk.b_mont, pk.b_mont),
+                      (keys.pk.a_mont, pk.a_mont),
+                      (keys.sk.s_coeffs, sk.s_coeffs)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    other = FHEClient("tiny", seed=99, device="cpu")
+    other.load_keys(*arrays, sk.s_coeffs.numpy())
+    msgs = np.full((2, 32), 0.25 + 0.5j)
+    out = other.decrypt_decode_batch(
+        tiny_client.encode_encrypt_batch(msgs).truncated(2))
+    assert np.max(np.abs(out - msgs)) < 2.0 ** -19
+
+
+def test_plain_path_counts_no_launch(tiny_client):
+    client_stream.reset_launches()
+    msgs = np.full((3, 32), -0.125j)
+    tiny_client.decrypt_decode_batch(
+        tiny_client.encode_encrypt_batch(msgs).truncated(2))
+    assert client_stream.LAUNCHES == {"encode_encrypt_stream": 0,
+                                      "decrypt_decode_stream": 0}
+
+
+def test_cuda_wrappers_refuse_cpu_tensors(tiny_client):
+    planes = tiny_client.encrypt_operands(np.zeros((1, 32), complex))
+    with pytest.raises(ValueError, match="CUDA"):
+        client_stream.encode_encrypt_stream_cuda(
+            planes, tiny_client.keys.pk.b_mont, tiny_client.keys.pk.a_mont,
+            tiny_client.ctx, tiny_client.seed, 0)
+
+
+def test_simulate_private_inference(tiny_client):
+    """Rows wider than one ciphertext (F=100 > 64 slots) split over two
+    ciphertexts and come back within the df32 datapath's precision."""
+    x = np.random.default_rng(0).uniform(-1, 1, (3, 100))
+    y, info = simulate_private_inference(
+        tiny_client, lambda a: 2.0 * a[:, :7], x, out_features=7)
+    assert y.shape == (3, 7)
+    assert info["roundtrip_err"] < 2.0 ** -19
+    np.testing.assert_allclose(y, 2.0 * x[:, :7], atol=2.0 ** -17)
+    assert tiny_client.ciphertext_bytes() == 2 * 3 * 64 * 4
