@@ -10,15 +10,21 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      once; rebuilt when a source changes) and prints the build time and
      ptxas' register / spill report;
   3. holds each kernel against its plain PyTorch version on the same CUDA
-     tensors, bit for bit: ``test`` at B=16, ``paper`` at B=4 and B=16;
-  4. drives the main path at the ``paper`` profile (N=2^16, 24 limbs,
+     tensors, bit for bit: ``test`` at B=16, ``paper`` at B=4 and B=16.
+     The megakernels K5/K6 take the client's operands; the staged kernels
+     K1 (NTT, INTT), K2, K3 and K4 (SpecialFFT, SpecialIFFT) take the real
+     intermediates of a staged round trip;
+  4. drives both client paths at the ``paper`` profile (N=2^16, 24 limbs,
      Delta=2^55), B=16: ``encode_encrypt_batch`` -> ``truncated(2)`` ->
-     ``decrypt_decode_batch``, with every launch counter set to 0 just
-     before and read just after; each kernel must have launched, and the
-     round trip must keep >= 19.29 bits (the JAX quickstart's bar);
-  5. profiles three main-path round trips (device time by CUDA kernel,
-     device busy / idle share), then times both directions at ``paper``,
-     B=1 and B=16 (CUDA events, after warm-up), and the plain versions at
+     ``decrypt_decode_batch``, first the default megakernel path, then
+     ``pipeline='staged'``, each with every launch counter set to 0 just
+     before and read just after. Each kernel of the path must have
+     launched, the round trip must keep >= 19.29 bits (the JAX quickstart's
+     bar), and the staged ciphertexts must equal the megakernel client's
+     for the same seed and nonce base, word for word;
+  5. profiles three round trips of each path (device time by CUDA kernel,
+     device busy / idle share), then times every kernel at ``paper``, B=1
+     and B=16 (CUDA events, after warm-up), and the plain versions at
      B=16;
   6. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound), then, as the last line, ``{"ok": true, "device": ...}``.
@@ -40,7 +46,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 BOOT_PREC_BITS = 19.29
 MAIN_PROFILE, MAIN_BATCH = "paper", 16
+CHECKS = (("test", 16), ("paper", 4), ("paper", 16))
 SEED = 20261017
+DEVICE = "cuda"
 
 # Peaks of one H100 SXM at its 1.98 GHz boost clock and 700 W, per
 # instruction: HBM 3.35 TB/s; float32 outside the tensor cores 33.5e12
@@ -117,6 +125,56 @@ def _bytes_decrypt_decode(p, batch: int) -> float:
                  + 4 * ns * 4 + ns * 4 + 4 * batch * ns * 4)
 
 
+def _seed_cols(p) -> int:
+    return 3 + p.logn * (p.logn + 1)        # seed-table columns
+
+
+def _cost_ntt_limbs(p, rows: int, inverse: bool):
+    """(bytes, int32 ops, f32 ops) of K1 on (L, rows, N): logN * N/2
+    butterflies per (limb, row), N^-1 per coefficient (inverse), the
+    twiddles (N - 1 doublings) once per limb."""
+    n, logn, L = p.n, p.logn, p.n_limbs
+    per_row = logn * (n // 2) * I32_NTT_BUTTERFLY + (n * I32_REDC
+                                                     if inverse else 0)
+    i32 = L * rows * per_row + L * (n - 1) * I32_REDC
+    return float(2 * L * rows * n * 4 + L * _seed_cols(p) * 4), float(i32), 0.0
+
+
+def _cost_encrypt_limbs(p, batch: int):
+    """K2 on (B, L, N): the five Philox words once per (row, coefficient),
+    three NTTs and the pointwise ops per (row, limb), twiddles per limb."""
+    n, logn, L = p.n, p.logn, p.n_limbs
+    per_row = n * (5 * I32_PHILOX + 20)
+    per_row_limb = (n * (3 * I32_TO_RESIDUE + 2 * I32_REDC + 3 * I32_ADDMOD)
+                    + 3 * logn * (n // 2) * I32_NTT_BUTTERFLY)
+    i32 = batch * (per_row + L * per_row_limb) + L * (n - 1) * I32_REDC
+    nbytes = (batch * L * n * 4 + 2 * L * n * 4 + L * _seed_cols(p) * 4
+              + 2 * batch * L * n * 4)
+    return float(nbytes), float(i32), 0.0
+
+
+def _cost_decrypt_limbs(p, batch: int):
+    """K3 on a (B, 2, N) view: c0 + c1*s, one INTT and N^-1 per (row,
+    limb), twiddles per limb."""
+    n, logn = p.n, p.logn
+    per_row_limb = (n * (2 * I32_REDC + I32_ADDMOD)
+                    + logn * (n // 2) * I32_NTT_BUTTERFLY)
+    i32 = batch * 2 * per_row_limb + 2 * (n - 1) * I32_REDC
+    nbytes = (2 * batch * 2 * n * 4 + 2 * n * 4 + batch * 2 * n * 4
+              + 2 * _seed_cols(p) * 4)
+    return float(nbytes), float(i32), 0.0
+
+
+def _cost_fft_rows(p, rows: int, inverse: bool):
+    """K4 on four (rows, n_slots) planes: log2(n) * n/2 butterflies of 168
+    f32 ops per row, plus the 1/n scale (two df multiplies per slot)."""
+    ns = p.n_slots
+    logns = ns.bit_length() - 1
+    f32 = rows * (logns * (ns // 2) * F32_FFT_BUTTERFLY
+                  + (ns * 48 if inverse else 0))
+    return float(2 * rows * 4 * ns * 4 + 4 * ns * 4), 0.0, float(f32)
+
+
 def _bound_ms(nbytes: float, i32: float, f32: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(i32 / I32_OPS_PER_S, f32 / F32_OPS_PER_S)
@@ -168,9 +226,103 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# the staged kernels by counter name: (id, CUDA source, TPU kernel body)
+STAGED = {
+    "ntt_limbs": ("K1", "ntt_limbs.cu", "ntt_butterfly.py:70"),
+    "intt_limbs": ("K1", "ntt_limbs.cu", "ntt_butterfly.py:76"),
+    "encrypt_limbs": ("K2", "client_pointwise.cu", "client_pointwise.py:264"),
+    "decrypt_limbs": ("K3", "client_pointwise.cu", "client_pointwise.py:321"),
+    "special_fft": ("K4", "fft_df.cu", "fft_df.py:158"),
+    "special_ifft": ("K4", "fft_df.cu", "fft_df.py:158"),
+}
+
+
+def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
+    """One staged round trip, step by step through the CUDA wrappers: the
+    client's ``_encrypt_core_dev32_impl`` / ``_decrypt_core_dev32_impl``
+    with each kernel's input kept. With `errs` (a dict by kernel), each
+    kernel is also run as its plain version on the same input and must
+    agree bit for bit. Returns the kernels' inputs and outputs."""
+    import torch
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.core import encoder, modmul, rns
+    from repro_torch.kernels import (client_pointwise, fft_df,
+                                     ntt_butterfly)
+    ctx, p = client.ctx, client.ctx.params
+    L, ns = p.n_limbs, p.n_slots
+    plans = ctx.plans[:L]
+    pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
+    s_mont = client.keys.sk.s_mont
+
+    def check(name, got, want):
+        if errs is None:
+            return
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+        errs[name] = max(errs[name], e)
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            _fail(f"{name} differs from its plain version at {p.logn=} "
+                  f"B={len(msgs)} (max abs err {e})")
+
+    def plain(f, *args):
+        return f(*args) if errs is not None else None
+
+    x = {"enc_planes": client.encrypt_operands(msgs)}
+    y = fft_df.fft_rows_cuda(x["enc_planes"], p.m, True)
+    check("special_ifft", y,
+          plain(fft_df.fft_rows_plain, x["enc_planes"], p.m, True))
+    w = dfl.dfc_from_planes(fft_df.bitrev_planes(y))
+    digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
+                                        p.delta)
+    x["residues"] = modmul.i64_to_u32(rns.digits_to_residues_stacked(
+        *digits, ctx.q_list[:L])).contiguous()
+    x["pt_ntt"] = ntt_butterfly.limb_rows_cuda(x["residues"], plans, False)
+    check("ntt_limbs", x["pt_ntt"],
+          plain(ntt_butterfly.limb_rows_plain, x["residues"], plans, False))
+    back = ntt_butterfly.limb_rows_cuda(x["pt_ntt"], plans, True)
+    check("intt_limbs", back,
+          plain(ntt_butterfly.limb_rows_plain, x["pt_ntt"], plans, True))
+    if not torch.equal(back, x["residues"]):
+        _fail("INTT(NTT(x)) != x on the card")
+    x["pt"] = x["pt_ntt"].transpose(0, 1).contiguous()
+    c0, c1 = client_pointwise.encrypt_limbs_cuda(x["pt"], pkb, pka, ctx,
+                                                 client.seed, nonce0)
+    check("encrypt_limbs", (c0, c1),
+          plain(client_pointwise.encrypt_limbs_plain, x["pt"], pkb, pka,
+                ctx, client.seed, nonce0))
+    x["c0"], x["c1"] = c0, c1
+    m = client_pointwise.decrypt_limbs_cuda(c0[:, :2], c1[:, :2], s_mont,
+                                            ctx)
+    check("decrypt_limbs", m,
+          plain(client_pointwise.decrypt_limbs_plain, c0[:, :2], c1[:, :2],
+                s_mont, ctx))
+    sign, vh, vl = rns.crt2_centered_u32(
+        modmul.u32_to_i64(m[:, 0]), modmul.u32_to_i64(m[:, 1]),
+        ctx.q_list[0], ctx.q_list[1])
+    scale = torch.full((len(msgs), 1), p.delta, dtype=torch.float32,
+                       device=m.device)
+    v = rns.centered_to_df(sign, vh, vl, 1.0 / scale)
+    x["dec_planes"] = fft_df.bitrev_planes(
+        (v.hi[:, :ns], v.lo[:, :ns], v.hi[:, ns:], v.lo[:, ns:]))
+    out = fft_df.fft_rows_cuda(x["dec_planes"], p.m, False)
+    check("special_fft", out,
+          plain(fft_df.fft_rows_plain, x["dec_planes"], p.m, False))
+    # the chain is the client's staged path: same words as the client
+    client.nonce = nonce0
+    cts = client.encode_encrypt_batch(msgs)
+    planes = client.decrypt_planes(cts.truncated(2))
+    torch.cuda.synchronize()
+    if not (torch.equal(cts.c0, c0) and torch.equal(cts.c1, c1)
+            and all(_same_bits(a, b) for a, b in zip(planes, out))):
+        _fail("the step-by-step staged chain differs from the client's")
+    return x
+
+
 def _profile_main_path(client, msgs, iters: int = 3) -> None:
-    """Device time by CUDA kernel and the device's busy share over a
-    window of `iters` main-path round trips (torch.profiler / CUPTI)."""
+    """Device time by CUDA kernel or copy and the device's busy share over
+    a window of `iters` main-path round trips (torch.profiler / CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -187,8 +339,13 @@ def _profile_main_path(client, msgs, iters: int = 3) -> None:
             round_trip()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
+        # device activities only (kernels, copies): a CPU op's device time
+        # is its kernels' again
+        if ev.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -200,9 +357,10 @@ def _profile_main_path(client, msgs, iters: int = 3) -> None:
         print("profile: the profiler saw no device time (not measured)",
               flush=True)
         return
-    print(f"profile: paper B={len(msgs)} round trip {per_trip:.3f} ms host "
-          f"clock, device busy {busy:.3f} ms ({100 * busy / per_trip:.1f}%, "
-          f"idle {100 * (1 - busy / per_trip):.1f}%)", flush=True)
+    print(f"profile: {client.pipeline} {MAIN_PROFILE} B={len(msgs)} round "
+          f"trip {per_trip:.3f} ms host clock, device busy {busy:.3f} ms "
+          f"({100 * busy / per_trip:.1f}%, idle "
+          f"{100 * (1 - busy / per_trip):.1f}%)", flush=True)
     for ms, cnt, name in sorted(rows, reverse=True)[:12]:
         print(f"  device {ms:9.3f} ms  x{cnt:<3d} {name[:90]}", flush=True)
 
@@ -215,7 +373,9 @@ def main() -> int:
         return 2
     from repro_torch.core.encoder import boot_precision_bits
     from repro_torch.fhe_client.client import FHEClient
-    from repro_torch.kernels import build, client_stream
+    from repro_torch.kernels import (build, client_pointwise,
+                                     client_stream, fft_df, ntt_butterfly,
+                                     ops)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -241,17 +401,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
     clients = {}
 
-    def client_for(profile):
-        if profile not in clients:
-            clients[profile] = FHEClient(profile, seed=SEED, device=dev)
-        return clients[profile]
+    def client_for(profile, pipeline="megakernel"):
+        if (profile, pipeline) not in clients:
+            clients[profile, pipeline] = FHEClient(
+                profile, seed=SEED, device=dev, pipeline=pipeline)
+        return clients[profile, pipeline]
 
     # --- 3. kernel vs plain, on the card ------------------------------------
     errs = {"encode_encrypt_stream": 0.0, "decrypt_decode_stream": 0.0}
-    for profile, batch in (("test", 16), ("paper", 4), ("paper", 16)):
+    errs.update({name: 0.0 for name in STAGED})
+    for profile, batch in CHECKS:
         c = client_for(profile)
         ctx, p = c.ctx, c.ctx.params
         planes = c.encrypt_operands(_messages(p.n_slots, batch, batch))
@@ -278,66 +440,127 @@ def main() -> int:
         if not all(_same_bits(a, b) for a, b in zip(kp, rp)):
             _fail(f"decrypt_decode_stream differs from its plain version "
                   f"at {profile} B={batch} (max abs err {e})")
-        print(f"kernel == plain (bit-identical): {profile} B={batch}",
-              flush=True)
+        staged = _staged_chain(client_for(profile, "staged"),
+                               _messages(p.n_slots, batch, batch), 123,
+                               errs)
+        if not (torch.equal(staged["c0"], k0)
+                and torch.equal(staged["c1"], k1)):
+            _fail(f"staged and megakernel ciphertexts differ at {profile} "
+                  f"B={batch}")
+        print(f"kernel == plain (bit-identical), K5 K6 K1 K2 K3 K4: "
+              f"{profile} B={batch}", flush=True)
 
-    # --- 4. the main path at paper, B=16 ----------------------------------
-    c = client_for(MAIN_PROFILE)
-    p = c.ctx.params
-    msgs = _messages(p.n_slots, MAIN_BATCH, 1)
-    client_stream.reset_launches()
-    t0 = time.perf_counter()
-    cts = c.encode_encrypt_batch(msgs)
-    out = c.decrypt_decode_batch(cts.truncated(2))
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    launches = dict(client_stream.LAUNCHES)
-    if any(v == 0 for v in launches.values()):
-        _fail(f"a kernel of the main path never launched: {launches}")
+    # --- 4. the main paths at paper, B=16 ---------------------------------
     import numpy as np
-    if out.shape != msgs.shape or not np.all(np.isfinite(out)):
-        _fail(f"decoded output has shape {out.shape} or non-finite values")
-    if tuple(cts.c0.shape) != (MAIN_BATCH, p.n_limbs, p.n):
-        _fail(f"ciphertext shape {tuple(cts.c0.shape)}")
-    bits = boot_precision_bits(msgs, out)
-    print(f"main path: paper B={MAIN_BATCH} round trip {bits:.2f} bits "
-          f"(bar {BOOT_PREC_BITS}), {e2e_s * 1e3:.1f} ms host clock "
-          f"incl. transfers, launches {launches}", flush=True)
-    if not bits >= BOOT_PREC_BITS:
-        _fail(f"round-trip precision {bits} < {BOOT_PREC_BITS}")
+    runs = {}
+    for pipeline, needed in (
+            ("megakernel", ("encode_encrypt_stream",
+                            "decrypt_decode_stream")),
+            ("staged", ("ntt_limbs", "encrypt_limbs", "decrypt_limbs",
+                        "special_fft", "special_ifft"))):
+        c = client_for(MAIN_PROFILE, pipeline)
+        p = c.ctx.params
+        msgs = _messages(p.n_slots, MAIN_BATCH, 1)
+        c.nonce = 1000
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        cts = c.encode_encrypt_batch(msgs)
+        out = c.decrypt_decode_batch(cts.truncated(2))
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = ops.launches()
+        if any(launches[k] == 0 for k in needed):
+            _fail(f"a kernel of the {pipeline} path never launched: "
+                  f"{launches}")
+        if out.shape != msgs.shape or not np.all(np.isfinite(out)):
+            _fail(f"decoded output has shape {out.shape} or non-finite "
+                  f"values")
+        if tuple(cts.c0.shape) != (MAIN_BATCH, p.n_limbs, p.n):
+            _fail(f"ciphertext shape {tuple(cts.c0.shape)}")
+        bits = boot_precision_bits(msgs, out)
+        used = {k: v for k, v in launches.items() if v}
+        print(f"main path ({pipeline}): {MAIN_PROFILE} B={MAIN_BATCH} round "
+              f"trip {bits:.2f} bits (bar {BOOT_PREC_BITS}), "
+              f"{e2e_s * 1e3:.1f} ms host clock incl. transfers, launches "
+              f"{used}", flush=True)
+        if not bits >= BOOT_PREC_BITS:
+            _fail(f"round-trip precision {bits} < {BOOT_PREC_BITS}")
+        runs[pipeline] = (c, msgs, cts, out, launches)
+    (mc, msgs, mcts, mout, mega_launches) = runs["megakernel"]
+    (sc, _, scts, sout, staged_launches) = runs["staged"]
+    if not (torch.equal(scts.c0, mcts.c0) and torch.equal(scts.c1, mcts.c1)):
+        _fail("staged c0/c1 differ from the megakernel client's for the "
+              "same seed and nonce base")
+    print(f"staged == megakernel ciphertexts (word for word); decoded "
+          f"planes max abs diff {float(np.max(np.abs(sout - mout)))}",
+          flush=True)
 
-    _profile_main_path(c, msgs)
+    _profile_main_path(mc, msgs)
+    _profile_main_path(sc, msgs)
 
     # --- 5. times -------------------------------------------------------------
-    times = {}
+    p = mc.ctx.params
+    ctx = mc.ctx
+    plans = ctx.plans[:p.n_limbs]
+    pkb, pka = mc.keys.pk.b_mont, mc.keys.pk.a_mont
+    s_mont = mc.keys.sk.s_mont
+    times, bounds = {}, {}
     for batch in (1, MAIN_BATCH):
-        planes = c.encrypt_operands(_messages(p.n_slots, batch, 2))
-        pkb, pka = c.keys.pk.b_mont, c.keys.pk.a_mont
+        planes = mc.encrypt_operands(_messages(p.n_slots, batch, 2))
         k0, k1 = client_stream.encode_encrypt_stream_cuda(
-            planes, pkb, pka, c.ctx, c.seed, 0)
+            planes, pkb, pka, ctx, mc.seed, 0)
         scale = torch.full((batch,), p.delta, dtype=torch.float32,
                            device=dev)
-        s_mont = c.keys.sk.s_mont
-        times[("enc", batch)] = _cuda_ms(
-            lambda: client_stream.encode_encrypt_stream_cuda(
-                planes, pkb, pka, c.ctx, c.seed, 0), iters=5)
-        times[("dec", batch)] = _cuda_ms(
-            lambda: client_stream.decrypt_decode_stream_cuda(
-                k0[:, :2], k1[:, :2], s_mont, c.ctx, scale), iters=5)
-        if batch == MAIN_BATCH:
-            times[("enc_plain", batch)] = _cuda_ms(
+        x = _staged_chain(sc, _messages(p.n_slots, batch, 2), 0)
+        calls = {
+            "encode_encrypt_stream": (
+                lambda: client_stream.encode_encrypt_stream_cuda(
+                    planes, pkb, pka, ctx, mc.seed, 0),
                 lambda: client_stream.encode_encrypt_stream_plain(
-                    planes, pkb, pka, c.ctx, c.seed, 0), iters=1, warmup=1)
-            times[("dec_plain", batch)] = _cuda_ms(
+                    planes, pkb, pka, ctx, mc.seed, 0),
+                (_bytes_encode_encrypt(p, batch),
+                 *_ops_encode_encrypt(p, batch))),
+            "decrypt_decode_stream": (
+                lambda: client_stream.decrypt_decode_stream_cuda(
+                    k0[:, :2], k1[:, :2], s_mont, ctx, scale),
                 lambda: client_stream.decrypt_decode_stream_plain(
-                    k0[:, :2], k1[:, :2], s_mont, c.ctx, scale), iters=1,
-                warmup=1)
-    bounds = {}
-    for batch in (1, MAIN_BATCH):
-        bounds[("enc", batch)] = _bound_ms(_bytes_encode_encrypt(p, batch),
-                                           *_ops_encode_encrypt(p, batch))
-        bounds[("dec", batch)] = _bound_ms(_bytes_decrypt_decode(p, batch),
-                                           *_ops_decrypt_decode(p, batch))
+                    k0[:, :2], k1[:, :2], s_mont, ctx, scale),
+                (_bytes_decrypt_decode(p, batch),
+                 *_ops_decrypt_decode(p, batch))),
+        }
+        for name, inverse, key in (("ntt_limbs", False, "residues"),
+                                   ("intt_limbs", True, "pt_ntt")):
+            calls[name] = (
+                lambda i=inverse, k=key: ntt_butterfly.limb_rows_cuda(
+                    x[k], plans, i),
+                lambda i=inverse, k=key: ntt_butterfly.limb_rows_plain(
+                    x[k], plans, i),
+                _cost_ntt_limbs(p, batch, inverse))
+        calls["encrypt_limbs"] = (
+            lambda: client_pointwise.encrypt_limbs_cuda(
+                x["pt"], pkb, pka, ctx, mc.seed, 0),
+            lambda: client_pointwise.encrypt_limbs_plain(
+                x["pt"], pkb, pka, ctx, mc.seed, 0),
+            _cost_encrypt_limbs(p, batch))
+        calls["decrypt_limbs"] = (
+            lambda: client_pointwise.decrypt_limbs_cuda(
+                x["c0"][:, :2], x["c1"][:, :2], s_mont, ctx),
+            lambda: client_pointwise.decrypt_limbs_plain(
+                x["c0"][:, :2], x["c1"][:, :2], s_mont, ctx),
+            _cost_decrypt_limbs(p, batch))
+        for name, inverse, key in (("special_fft", False, "dec_planes"),
+                                   ("special_ifft", True, "enc_planes")):
+            calls[name] = (
+                lambda i=inverse, k=key: fft_df.fft_rows_cuda(x[k], p.m, i),
+                lambda i=inverse, k=key: fft_df.fft_rows_plain(x[k], p.m,
+                                                               i),
+                _cost_fft_rows(p, batch, inverse))
+        for name, (kernel, plain_fn, cost) in calls.items():
+            times[name, batch] = _cuda_ms(kernel, iters=5)
+            bounds[name, batch] = _bound_ms(*cost)
+            if batch == MAIN_BATCH:
+                times[name + "_plain", batch] = _cuda_ms(plain_fn, iters=1,
+                                                         warmup=1)
     for (what, batch), ms in sorted(times.items(), key=str):
         b = bounds.get((what, batch))
         bound = f", bound {b[0]:.4f} ms ({b[1]})" if b else ""
@@ -345,29 +568,38 @@ def main() -> int:
               f"[{card}]", flush=True)
 
     # --- 6. result lines ------------------------------------------------------
-    b_enc, b_dec = bounds[("enc", MAIN_BATCH)], bounds[("dec", MAIN_BATCH)]
+    def entry(name, id_, source, replaces, launches):
+        b = bounds[name, MAIN_BATCH]
+        return {"name": name, "id": id_, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "matched_plain": True, "launches": launches,
+                "max_abs_err": errs[name], "ms": times[name, MAIN_BATCH],
+                "plain_ms": times[name + "_plain", MAIN_BATCH],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
     kernels = [
-        {"name": "encode_encrypt_stream", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/encode_encrypt.cu",
-         "replaces": "src/repro/kernels/client_stream.py:96",
-         "cuda_kernels": ["encode_rows_kernel", "encrypt_limbs_kernel"],
-         "matched_plain": True,
-         "launches": launches["encode_encrypt_stream"],
-         "max_abs_err": errs["encode_encrypt_stream"],
-         "ms": times[("enc", MAIN_BATCH)],
-         "plain_ms": times[("enc_plain", MAIN_BATCH)],
-         "bound_ms": b_enc[0], "bound_by": b_enc[1], "library_ms": None},
-        {"name": "decrypt_decode_stream", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/decrypt_decode.cu",
-         "replaces": "src/repro/kernels/client_stream.py:200",
-         "cuda_kernels": ["decrypt_limbs_kernel", "decode_rows_kernel"],
-         "matched_plain": True,
-         "launches": launches["decrypt_decode_stream"],
-         "max_abs_err": errs["decrypt_decode_stream"],
-         "ms": times[("dec", MAIN_BATCH)],
-         "plain_ms": times[("dec_plain", MAIN_BATCH)],
-         "bound_ms": b_dec[0], "bound_by": b_dec[1], "library_ms": None},
+        entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
+              "client_stream.py:96", mega_launches["encode_encrypt_stream"]),
+        entry("decrypt_decode_stream", "K6", "decrypt_decode.cu",
+              "client_stream.py:200", mega_launches["decrypt_decode_stream"]),
     ]
+    for fwd, inv in (("ntt_limbs", "intt_limbs"),
+                     ("encrypt_limbs", None), ("decrypt_limbs", None),
+                     ("special_fft", "special_ifft")):
+        id_, source, replaces = STAGED[fwd]
+        k = entry(fwd, id_, source, replaces, staged_launches[fwd]
+                  + (staged_launches[inv] if inv else 0))
+        if inv:
+            # the top-level numbers are the forward direction's
+            k["launches_by_direction"] = {fwd: staged_launches[fwd],
+                                          inv: staged_launches[inv]}
+            k["inverse"] = entry(inv, *STAGED[inv], staged_launches[inv])
+            del k["inverse"]["launches"]
+        kernels.append(k)
+    print("library_ms: none; no single PyTorch call computes a negacyclic "
+          "NTT, a Philox RLWE encrypt, or the rotation-group-ordered df32 "
+          "SpecialFFT", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,7 +1,8 @@
 """Exact RNS digit reduction and two-limb CRT on the uint32 datapath.
 
 Port of the df32 half of ``repro.core.rns``: balanced base-2^22 digits ->
-per-limb residues (``digits_to_residue``), the two-limb CRT to a centered
+per-limb residues (``digits_to_residue``, or every limb at once:
+``digits_to_residues_stacked``), the two-limb CRT to a centered
 (sign, hi, lo) word pair (``crt2_centered_u32``, reducing modulo fl64(Q)
 as the reference does) and the exact /scale collapse to a df32 pair
 (``centered_to_df``). Residues are int64 tensors holding uint32 values.
@@ -41,6 +42,23 @@ def digits_to_residue(d0, d1, d2, q, qinv_neg, c22_mont, c44_mont):
     m2 = modmul.mulmod_montgomery_limb_t(_digit_residue(d2, q), c44_mont,
                                          q, qinv_neg)
     return modmul.addmod(modmul.addmod(r0, m1, q), m2, q)
+
+
+def digits_to_residues_stacked(d0, d1, d2, q_list) -> torch.Tensor:
+    """All limbs at once: digits (..., N) -> (L, ..., N) int64 residues,
+    each limb's constants broadcast along the leading axis."""
+    shape = (len(q_list),) + (1,) * d0.dim()
+    r = 1 << 32
+
+    def col(values):
+        return torch.tensor(values, dtype=torch.int64,
+                            device=d0.device).reshape(shape)
+
+    q = col([int(qi) for qi in q_list])
+    qinv = col([(-pow(int(qi), -1, r)) % r for qi in q_list])
+    c22 = col([digit_consts(int(qi))[0] for qi in q_list])
+    c44 = col([digit_consts(int(qi))[1] for qi in q_list])
+    return digits_to_residue(d0[None], d1[None], d2[None], q, qinv, c22, c44)
 
 
 @functools.lru_cache(maxsize=64)

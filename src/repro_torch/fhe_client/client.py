@@ -1,11 +1,20 @@
 """FHE client: batched CKKS encode+encrypt and decrypt+decode on the card.
 
-Port of ``repro.fhe_client.client.FHEClient`` in its default configuration
-(``fourier='device'``, ``pipeline='megakernel'``, ``datapath='df32'``):
-each direction is one CUDA megakernel launch (``kernels.ops``), with the
-plain PyTorch version taking its place for CPU tensors. Messages are packed
-as in the reference; ciphertexts from the same seed and nonce base are
-bit-identical to the JAX client's.
+Port of ``repro.fhe_client.client.FHEClient`` with ``fourier='device'``
+and ``datapath='df32'``, in both of the reference's pipelines:
+
+  * ``pipeline='megakernel'`` (the default): each direction is one CUDA
+    megakernel launch (K5, K6);
+  * ``pipeline='staged'``: the same client operation split into separate
+    launches, with plain eager torch glue between them on the card.
+    encode: SpecialIFFT (K4) -> Delta-scale digits and RNS -> limb-folded
+    NTT (K1) -> folded encrypt (K2); decode: folded decrypt + INTT (K3) ->
+    CRT and /Delta -> SpecialFFT (K4).
+
+``kernels.ops`` sends CUDA tensors to the kernels and CPU tensors to their
+plain PyTorch versions. Messages are packed as in the reference;
+ciphertexts from the same seed and nonce base are bit-identical to the JAX
+client's, and the two pipelines give the same ciphertexts.
 
 The client runs on ``device`` (default ``cuda``; no silent CPU fall-back:
 the tests pass ``device='cpu'`` explicitly).
@@ -18,17 +27,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import encoder, encryptor
+from repro_torch.core import dfloat as dfl
+from repro_torch.core import encoder, encryptor, modmul, rns
 from repro_torch.core.context import CKKSContext, get_context
 from repro_torch.core.encryptor import CiphertextBatch
 from repro_torch.kernels import ops as kops
+
+PIPELINES = ("staged", "megakernel")
 
 # configurations of the reference client that the port has not ported yet,
 # and the ROADMAP.md item that will port each
 _NOT_PORTED = {
     "fourier": ("device", "fourier='host' (ROADMAP.md queue 1, item 6)"),
-    "pipeline": ("megakernel",
-                 "pipeline='staged' (ROADMAP.md queue 1, item 6)"),
     "datapath": ("df32", "datapath='f64' (ROADMAP.md queue 1, item 6; "
                  "queue 2, the f64 branches of K5/K6)"),
 }
@@ -61,21 +71,25 @@ def keys_from_numpy(s_mont, b_mont, a_mont, s_coeffs, device) -> ClientKeys:
 class FHEClient:
     """Client-side encode/encrypt + decode/decrypt over model activations.
 
-    ``profile`` is a profile name or a ``CKKSParams``. Only the reference's
-    default configuration is ported; any other ``fourier``, ``pipeline``
-    or ``datapath`` raises ``NotImplementedError`` naming the ROADMAP item
-    that will port it.
+    ``profile`` is a profile name or a ``CKKSParams``. ``pipeline`` is
+    ``'megakernel'`` (default) or ``'staged'``; ``fourier='host'`` and
+    ``datapath='f64'`` are not ported yet and raise ``NotImplementedError``
+    naming the ROADMAP item that will port them.
     """
 
     def __init__(self, profile="test", seed: int | None = None, device=None,
                  fourier: str = "device", pipeline: str | None = None,
                  datapath: str | None = None):
-        for name, value in (("fourier", fourier), ("pipeline", pipeline),
-                            ("datapath", datapath)):
+        for name, value in (("fourier", fourier), ("datapath", datapath)):
             ported, todo = _NOT_PORTED[name]
             if value is not None and value != ported:
                 raise NotImplementedError(f"{name}={value!r} is not ported "
                                           f"yet: {todo}")
+        pipeline = "megakernel" if pipeline is None else pipeline
+        if pipeline not in PIPELINES:
+            raise ValueError(f"pipeline must be one of {PIPELINES}, got "
+                             f"{pipeline!r}")
+        self.pipeline = pipeline
         if device is None:
             device = torch.device("cuda")
         self.device = torch.device(device)
@@ -171,6 +185,67 @@ class FHEClient:
         self._nonce += int(count)
         return base
 
+    # --- the cores of the two pipelines ---------------------------------------
+
+    def _encrypt_core_mega32_impl(self, rh, rl, ih, il, nonce0: int):
+        """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N): one
+        megakernel launch (K5)."""
+        return kops.encode_encrypt_stream(
+            (rh, rl, ih, il), self.keys.pk.b_mont, self.keys.pk.a_mont,
+            self.ctx, self.seed, nonce0)
+
+    def _decrypt_core_mega32_impl(self, c0, c1, scale):
+        """(B, 2, N) ciphertext views -> four (B, n_slots) float32 decoded
+        planes: one megakernel launch (K6)."""
+        return kops.decrypt_decode_stream(c0, c1, self.keys.sk.s_mont,
+                                          self.ctx, scale)
+
+    def _encrypt_core_dev32_impl(self, rh, rl, ih, il, nonce0: int):
+        """The staged encode+encrypt: SpecialIFFT (K4), df32 Delta-scale
+        digits, RNS reduction of every limb, limb-folded NTT (K1), fused
+        encrypt (K2). The glue between the kernels is eager torch."""
+        ctx = self.ctx
+        p = ctx.params
+        w = dfl.dfc_from_planes(kops.special_ifft_planes((rh, rl, ih, il),
+                                                         p.m))
+        digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
+                                            p.delta)
+        residues = rns.digits_to_residues_stacked(
+            *digits, ctx.q_list[:p.n_limbs])                  # (L, B, N)
+        pt = kops.ntt_limbs(modmul.i64_to_u32(residues), ctx)
+        return kops.encrypt_fused(pt.transpose(0, 1), self.keys.pk.b_mont,
+                                  self.keys.pk.a_mont, ctx, seed=self.seed,
+                                  nonce0=nonce0)              # (B, L, N)
+
+    def _decrypt_core_dev32_impl(self, c0, c1, scale):
+        """The staged decrypt+decode: fused decrypt + INTT (K3), uint32
+        two-limb CRT and exact /scale pair, SpecialFFT (K4)."""
+        ctx = self.ctx
+        ns = ctx.params.n_slots
+        m = kops.decrypt_fused(c0, c1, self.keys.sk.s_mont, ctx)
+        sign, vh, vl = rns.crt2_centered_u32(
+            modmul.u32_to_i64(m[:, 0]), modmul.u32_to_i64(m[:, 1]),
+            ctx.q_list[0], ctx.q_list[1])
+        x = rns.centered_to_df(sign, vh, vl, 1.0 / scale.reshape(-1, 1))
+        planes = (x.hi[:, :ns], x.lo[:, :ns], x.hi[:, ns:], x.lo[:, ns:])
+        return kops.special_fft_planes(planes, ctx.params.m)
+
+    @property
+    def encrypt_impl(self):
+        """Encrypt core ``f(rh, rl, ih, il, nonce0) -> (c0, c1)`` of the
+        configured pipeline (row-independent over the batch)."""
+        if self.pipeline == "megakernel":
+            return self._encrypt_core_mega32_impl
+        return self._encrypt_core_dev32_impl
+
+    @property
+    def decrypt_impl(self):
+        """Decrypt core ``f(c0, c1, scale) -> four planes`` of the
+        configured pipeline."""
+        if self.pipeline == "megakernel":
+            return self._decrypt_core_mega32_impl
+        return self._decrypt_core_dev32_impl
+
     # --- the two client operations -------------------------------------------
 
     def encode_encrypt_batch(self, messages: np.ndarray) -> CiphertextBatch:
@@ -179,18 +254,14 @@ class FHEClient:
         if np.shape(messages)[0] == 0:
             raise ValueError("encode_encrypt_batch needs a non-empty batch")
         nonce0 = self.take_nonces(np.shape(messages)[0])
-        c0, c1 = kops.encode_encrypt_stream(
-            self.encrypt_operands(messages), self.keys.pk.b_mont,
-            self.keys.pk.a_mont, self.ctx, self.seed, nonce0)
+        c0, c1 = self.encrypt_impl(*self.encrypt_operands(messages), nonce0)
         return CiphertextBatch(c0=c0, c1=c1, n_limbs=p.n_limbs,
                                scale=p.delta)
 
     def decrypt_planes(self, cts: CiphertextBatch) -> tuple:
         """CiphertextBatch (first 2 limbs used) -> four (B, n_slots)
         float32 decoded planes on the device."""
-        c0, c1, scale = self.decrypt_operands(cts)
-        return kops.decrypt_decode_stream(c0, c1, self.keys.sk.s_mont,
-                                          self.ctx, scale)
+        return self.decrypt_impl(*self.decrypt_operands(cts))
 
     def decrypt_decode_batch(self, cts: CiphertextBatch) -> np.ndarray:
         """CiphertextBatch -> (B, n_slots) complex messages."""

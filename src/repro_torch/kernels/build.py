@@ -48,6 +48,13 @@ ENTRY_POINTS = {
         "decrypt_decode.cu",
         [_P, _P, ctypes.c_longlong] + [_P] * 10 + [_I32] * 3 + [_U32] * 6
         + [ctypes.c_ulonglong] * 2 + [_P]),
+    "ntt_limbs_launch": ("ntt_limbs.cu", [_P] * 3 + [_I32] * 5 + [_P]),
+    "encrypt_limbs_launch": (
+        "client_pointwise.cu", [_P] * 7 + [_I32] * 4 + [_U32] * 5 + [_P]),
+    "decrypt_limbs_launch": (
+        "client_pointwise.cu",
+        [_P, _P, ctypes.c_longlong] + [_P] * 3 + [_I32] * 4 + [_P]),
+    "fft_rows_launch": ("fft_df.cu", [_P] * 9 + [_I32] * 3 + [_P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,9 +1,20 @@
-"""Plain per-limb stages of the client datapath (encrypt and decrypt).
+"""Per-limb stages of the client datapath, and the limb-folded encrypt
+(K2) and decrypt (K3) kernels.
 
-Port of the stage functions of ``repro.kernels.client_pointwise`` that the
-megakernels run: the Philox samplers keyed by one stream per batch row
-(``sample_vee_k``), the df32 RNS digit stage, and the per-limb encrypt and
-decrypt stages. Residues are int64 tensors holding uint32 values.
+Port of ``repro.kernels.client_pointwise``:
+
+  * the stage functions the kernels run: the Philox samplers keyed by one
+    stream per batch row (``sample_vee_k``), the df32 RNS digit stage, and
+    the per-limb encrypt and decrypt stages (int64 tensors holding uint32
+    values);
+  * ``encrypt_limbs_cuda`` launches ``csrc/client_pointwise.cu``'s K2
+    (replaces the TPU kernel ``_encrypt_kernel_folded``),
+    ``decrypt_limbs_cuda`` its K3 (replaces ``_decrypt_kernel_folded``);
+    ``encrypt_limbs_plain`` / ``decrypt_limbs_plain`` are the same
+    functions composed from the stages, limb by limb. Both take and return
+    int32 tensors holding uint32 words; each CUDA wrapper counts its
+    launches in ``LAUNCHES``. ``ops.encrypt_fused`` / ``decrypt_fused``
+    pick one by the tensors' device.
 """
 
 from __future__ import annotations
@@ -15,6 +26,13 @@ from repro_torch.core.encryptor import (STREAM_ENC_E0, STREAM_ENC_E1,
                                         STREAM_ENC_V)
 from repro_torch.core.modmul import MASK32
 from repro_torch.kernels import common
+
+LAUNCHES = {"encrypt_limbs": 0, "decrypt_limbs": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _zo_k(seed128: int, stream: torch.Tensor, n: int):
@@ -74,3 +92,99 @@ def decrypt_limb_stage(c0_l, c1_l, s_l, kc: common.StackedKernelConsts,
     qinv = int(kc.table[limb, common.OFF_QINV])
     c1s = modmul.mulmod_montgomery_limb_t(c1_l, s_l, q, qinv)
     return common.intt_stages_t(modmul.addmod(c0_l, c1s, q), kc, limb)
+
+
+# ---------------------------------------------------------------------------
+# K2: limb-folded encrypt
+# ---------------------------------------------------------------------------
+
+
+def nonce_column(nonce0: int, batch: int, device) -> torch.Tensor:
+    """Row r encrypts under nonce0 + r, wrapped mod 2^32."""
+    return (int(nonce0) + torch.arange(batch, dtype=torch.int64,
+                                       device=device)
+            ).reshape(batch, 1) & MASK32
+
+
+def encrypt_limbs_plain(pt, b_mont, a_mont, ctx, seed: int, nonce0: int):
+    """pt: (B, L, N) int32 NTT-domain plaintext words; b_mont/a_mont:
+    (>= L, N) public-key rows -> (c0, c1), each (B, L, N) int32."""
+    batch, n_limbs, n = pt.shape
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
+    vee = sample_vee_k(seed, nonce_column(nonce0, batch, pt.device), n)
+    b = modmul.u32_to_i64(b_mont)
+    a = modmul.u32_to_i64(a_mont)
+    c0 = torch.empty_like(pt)
+    c1 = torch.empty_like(pt)
+    for l in range(n_limbs):
+        c0_l, c1_l = encrypt_limb_stage(vee, modmul.u32_to_i64(pt[:, l]),
+                                        b[l], a[l], kc, l)
+        c0[:, l] = modmul.i64_to_u32(c0_l)
+        c1[:, l] = modmul.i64_to_u32(c1_l)
+    return c0, c1
+
+
+def encrypt_limbs_cuda(pt, b_mont, a_mont, ctx, seed: int, nonce0: int):
+    """CUDA launch of K2; same inputs and outputs as
+    ``encrypt_limbs_plain``."""
+    dev = pt.device
+    if dev.type != "cuda":
+        raise ValueError("encrypt_limbs_cuda needs CUDA tensors")
+    batch, n_limbs, n = pt.shape
+    common.check_tensor(pt, "pt", torch.int32, (batch, n_limbs, n), dev)
+    common.check_grid_rows(batch)
+    common.check_key_rows(b_mont, "b_mont", n_limbs, n, dev)
+    common.check_key_rows(a_mont, "a_mont", n_limbs, n, dev)
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
+    c0 = torch.empty_like(pt)
+    c1 = torch.empty_like(pt)
+    v_scratch = torch.empty_like(pt)
+    common.launch("encrypt_limbs_launch", dev, pt.data_ptr(),
+                  b_mont.data_ptr(), a_mont.data_ptr(),
+                  common.device_seed_table(kc, dev).data_ptr(),
+                  c0.data_ptr(), c1.data_ptr(), v_scratch.data_ptr(), batch,
+                  n_limbs, kc.logn, kc.n_scalars, *prng.seed_words(seed),
+                  int(nonce0) & MASK32)
+    LAUNCHES["encrypt_limbs"] += 1
+    return c0, c1
+
+
+# ---------------------------------------------------------------------------
+# K3: limb-folded decrypt
+# ---------------------------------------------------------------------------
+
+
+def decrypt_limbs_plain(c0, c1, s_mont, ctx):
+    """c0/c1: (B, L_dec, N) int32 ciphertext words (any strides); s_mont:
+    (>= L_dec, N) -> coefficient-domain residues (B, L_dec, N) int32."""
+    batch, n_limbs, n = c0.shape
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
+    m = torch.empty((batch, n_limbs, n), dtype=torch.int32, device=c0.device)
+    for l in range(n_limbs):
+        m[:, l] = modmul.i64_to_u32(decrypt_limb_stage(
+            modmul.u32_to_i64(c0[:, l]), modmul.u32_to_i64(c1[:, l]),
+            modmul.u32_to_i64(s_mont[l]), kc, l))
+    return m
+
+
+def decrypt_limbs_cuda(c0, c1, s_mont, ctx):
+    """CUDA launch of K3; same function as ``decrypt_limbs_plain``. c0/c1
+    may be the L_dec-limb view of a (B, L, N) batch (rows of any stride,
+    each row's limbs contiguous)."""
+    dev = c0.device
+    if dev.type != "cuda":
+        raise ValueError("decrypt_limbs_cuda needs CUDA tensors")
+    batch, n_limbs, n = c0.shape
+    common.check_limb_views(c0, c1, n_limbs, n, dev)
+    if c1.shape[1] != n_limbs:
+        raise ValueError("c0 and c1 must hold the same limbs")
+    common.check_grid_rows(batch)
+    common.check_key_rows(s_mont, "s_mont", n_limbs, n, dev)
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
+    m = torch.empty((batch, n_limbs, n), dtype=torch.int32, device=dev)
+    common.launch("decrypt_limbs_launch", dev, c0.data_ptr(), c1.data_ptr(),
+                  c0.stride(0), s_mont.data_ptr(),
+                  common.device_seed_table(kc, dev).data_ptr(), m.data_ptr(),
+                  batch, n_limbs, kc.logn, kc.n_scalars)
+    LAUNCHES["decrypt_limbs"] += 1
+    return m

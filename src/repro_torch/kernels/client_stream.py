@@ -31,7 +31,7 @@ from repro_torch.core import encoder, modmul, prng, rns
 from repro_torch.core.context import CKKSContext, get_context
 from repro_torch.core.modmul import MASK32
 from repro_torch.core.ntt import bitrev_indices
-from repro_torch.kernels import build, client_pointwise, common, fft_df
+from repro_torch.kernels import client_pointwise, common, fft_df
 
 LAUNCHES = {"encode_encrypt_stream": 0, "decrypt_decode_stream": 0}
 
@@ -61,23 +61,20 @@ def _bitrev(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _device_tables(params, n_limbs: int, inverse: bool, device: str):
     ctx = get_context(params)
-    kc, tw, offsets, rev = stream_consts(ctx, n_limbs, inverse)
+    p = ctx.params
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
     dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:n_limbs]),
                     np.uint32)
-    return tuple(common.host_table(a, device) for a in (
-        tw, rev, rev.astype(np.int32), kc.table.view(np.int32),
-        dm.view(np.int32)))
+    return (fft_df.device_twiddles(p.n_slots, p.m, inverse, device),
+            fft_df.device_bitrev(p.n_slots, device).to(torch.int32),
+            common.device_seed_table(kc, device),
+            common.host_table(dm.view(np.int32), device))
 
 
 def device_tables(ctx: CKKSContext, n_limbs: int, inverse: bool, device):
-    """(tw, rev int64, rev int32, seed table int32, digit consts int32) of
-    one direction as tensors on `device`, uploaded once per device."""
+    """(tw, rev int32, seed table int32, digit consts int32) of one
+    direction as tensors on `device`, uploaded once per device."""
     return _device_tables(ctx.params, n_limbs, inverse, str(device))
-
-
-def _bitrev_planes(z: dfl.DFComplex, rev: torch.Tensor) -> dfl.DFComplex:
-    return dfl.dfc_from_planes(tuple(p[..., rev]
-                                     for p in dfl.dfc_to_planes(z)))
 
 
 # ---------------------------------------------------------------------------
@@ -94,17 +91,14 @@ def encode_encrypt_stream_plain(planes, pk_b_mont, pk_a_mont,
     p = ctx.params
     dev = planes[0].device
     batch = planes[0].shape[0]
-    L, n, ns = p.n_limbs, p.n, p.n_slots
-    kc, _, offsets, _ = stream_consts(ctx, L, inverse=True)
-    tw, rev = device_tables(ctx, L, True, dev)[:2]
-    z = dfl.dfc_from_planes(tuple(planes))
-    z = fft_df.fft_stage_pipeline(z, tw, offsets, n=ns, inverse=True)
-    w = _bitrev_planes(z, rev)
+    L, n = p.n_limbs, p.n
+    kc = stream_consts(ctx, L, inverse=True)[0]
+    w = dfl.dfc_from_planes(fft_df.bitrev_planes(
+        fft_df.fft_rows_plain(planes, p.m, inverse=True)))
     digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
                                         p.delta)
-    nonce = (nonce0 + torch.arange(batch, dtype=torch.int64, device=dev)
-             ).reshape(batch, 1) & MASK32
-    vee = client_pointwise.sample_vee_k(seed, nonce, n)
+    vee = client_pointwise.sample_vee_k(
+        seed, client_pointwise.nonce_column(nonce0, batch, dev), n)
     digit_mont = common.stacked_digit_consts(ctx.q_list[:L])
     b_mont = modmul.u32_to_i64(pk_b_mont)
     a_mont = modmul.u32_to_i64(pk_a_mont)
@@ -120,18 +114,6 @@ def encode_encrypt_stream_plain(planes, pk_b_mont, pk_a_mont,
     return c0, c1
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
                                ctx: CKKSContext, seed: int, nonce0: int):
     """CUDA launch of ``encode_encrypt.cu`` on the current stream; same
@@ -143,12 +125,12 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
     batch = planes[0].shape[0]
     L, n, ns = p.n_limbs, p.n, p.n_slots
     for i, t in enumerate(planes):
-        _check(t, f"planes[{i}]", torch.float32, (batch, ns), dev)
-    _check(pk_b_mont, "pk_b_mont", torch.int32, (L, n), dev)
-    _check(pk_a_mont, "pk_a_mont", torch.int32, (L, n), dev)
+        common.check_tensor(t, f"planes[{i}]", torch.float32, (batch, ns), dev)
+    common.check_tensor(pk_b_mont, "pk_b_mont", torch.int32, (L, n), dev)
+    common.check_tensor(pk_a_mont, "pk_a_mont", torch.int32, (L, n), dev)
     kc = stream_consts(ctx, L, inverse=True)[0]
     encoder._check_pow2_delta(p.delta)
-    tw_t, _, rev_t, table_t, dm_t = device_tables(ctx, L, True, dev)
+    tw_t, rev_t, table_t, dm_t = device_tables(ctx, L, True, dev)
     c0 = torch.empty((batch, L, n), dtype=torch.int32, device=dev)
     c1 = torch.empty_like(c0)
     fft_scratch = torch.empty((batch, 4, ns), dtype=torch.float32,
@@ -157,19 +139,14 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
     ntt_scratch = torch.empty((batch, L, 2, n), dtype=torch.int32,
                               device=dev)
     sw = prng.seed_words(seed)
-    fn = build.load()["encode_encrypt_stream_launch"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in planes), tw_t.data_ptr(),
-                 rev_t.data_ptr(), table_t.data_ptr(), dm_t.data_ptr(),
-                 pk_b_mont.data_ptr(), pk_a_mont.data_ptr(), c0.data_ptr(),
-                 c1.data_ptr(), fft_scratch.data_ptr(),
-                 digit_scratch.data_ptr(), ntt_scratch.data_ptr(), batch, L,
-                 p.logn, kc.n_scalars, float(p.delta), *sw,
-                 int(nonce0) & MASK32, stream)
-    if err != 0:
-        raise RuntimeError(f"encode_encrypt_stream launch failed: CUDA "
-                           f"error {err}")
+    common.launch("encode_encrypt_stream_launch", dev,
+                  *(t.data_ptr() for t in planes), tw_t.data_ptr(),
+                  rev_t.data_ptr(), table_t.data_ptr(), dm_t.data_ptr(),
+                  pk_b_mont.data_ptr(), pk_a_mont.data_ptr(), c0.data_ptr(),
+                  c1.data_ptr(), fft_scratch.data_ptr(),
+                  digit_scratch.data_ptr(), ntt_scratch.data_ptr(), batch, L,
+                  p.logn, kc.n_scalars, float(p.delta), *sw,
+                  int(nonce0) & MASK32)
     LAUNCHES["encode_encrypt_stream"] += 1
     return c0, c1
 
@@ -183,10 +160,8 @@ def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale):
     """(B, >=2, N) int32 ciphertext stacks, (L, N) secret key, (B,) float32
     power-of-two scales -> four (B, n_slots) float32 slot planes."""
     p = ctx.params
-    dev = c0.device
     ns = p.n_slots
-    kc, _, offsets, _ = stream_consts(ctx, 2, inverse=False)
-    tw, rev = device_tables(ctx, 2, False, dev)[:2]
+    kc = stream_consts(ctx, 2, inverse=False)[0]
     m = [client_pointwise.decrypt_limb_stage(
             modmul.u32_to_i64(c0[:, l]), modmul.u32_to_i64(c1[:, l]),
             modmul.u32_to_i64(s_mont[l]), kc, l)
@@ -195,11 +170,9 @@ def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale):
                                          ctx.q_list[1])
     inv = 1.0 / scale.reshape(-1, 1)
     x = rns.centered_to_df(sign, vh, vl, inv)
-    z = dfl.DFComplex(dfl.DF(x.hi[:, :ns], x.lo[:, :ns]),
-                      dfl.DF(x.hi[:, ns:], x.lo[:, ns:]))
-    z = _bitrev_planes(z, rev)
-    z = fft_df.fft_stage_pipeline(z, tw, offsets, n=ns, inverse=False)
-    return tuple(t.contiguous() for t in dfl.dfc_to_planes(z))
+    planes = (x.hi[:, :ns], x.lo[:, :ns], x.hi[:, ns:], x.lo[:, ns:])
+    return fft_df.fft_rows_plain(fft_df.bitrev_planes(planes), p.m,
+                                 inverse=False)
 
 
 def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
@@ -212,23 +185,11 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
         raise ValueError("decrypt_decode_stream_cuda needs CUDA tensors")
     n, ns = p.n, p.n_slots
     batch = c0.shape[0]
-    for name, t in (("c0", c0), ("c1", c1)):
-        if t.device != dev or t.dtype != torch.int32:
-            raise TypeError(f"{name} must be an int32 tensor on {dev}")
-        if t.dim() != 3 or t.shape[0] != batch or t.shape[1] < 2 \
-                or t.shape[2] != n:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"({batch}, >=2, {n})")
-        if t.stride(2) != 1 or t.stride(1) != n:
-            raise ValueError(f"{name}: each row's limbs must be contiguous")
-    if c0.stride(0) != c1.stride(0):
-        raise ValueError("c0 and c1 must share their row stride")
-    if s_mont.dim() != 2 or s_mont.shape[0] < 2:
-        raise ValueError("s_mont must be (L >= 2, N)")
-    _check(s_mont, "s_mont", torch.int32, (s_mont.shape[0], n), dev)
-    _check(scale, "scale", torch.float32, (batch,), dev)
+    common.check_limb_views(c0, c1, 2, n, dev)
+    common.check_key_rows(s_mont, "s_mont", 2, n, dev)
+    common.check_tensor(scale, "scale", torch.float32, (batch,), dev)
     kc = stream_consts(ctx, 2, inverse=False)[0]
-    tw_t, _, rev_t, table_t, _ = device_tables(ctx, 2, False, dev)
+    tw_t, rev_t, table_t, _ = device_tables(ctx, 2, False, dev)
     outs = [torch.empty((batch, ns), dtype=torch.float32, device=dev)
             for _ in range(4)]
     m_scratch = torch.empty((batch, 2, n), dtype=torch.int32, device=dev)
@@ -236,17 +197,12 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
     k = rns.crt2_consts(q0, q1)
     qq = (k["q_w"][0] << 32) | k["q_w"][1]
     half = (k["half_w"][0] << 32) | k["half_w"][1]
-    fn = build.load()["decrypt_decode_stream_launch"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(c0.data_ptr(), c1.data_ptr(), c0.stride(0),
-                 s_mont.data_ptr(), scale.data_ptr(), tw_t.data_ptr(),
-                 rev_t.data_ptr(), table_t.data_ptr(),
-                 *(o.data_ptr() for o in outs), m_scratch.data_ptr(), batch,
-                 p.logn, kc.n_scalars, q0, q1, k["g0_mont"], k["g1_mont"],
-                 k["qinv0"], k["qinv1"], qq, half, stream)
-    if err != 0:
-        raise RuntimeError(f"decrypt_decode_stream launch failed: CUDA "
-                           f"error {err}")
+    common.launch("decrypt_decode_stream_launch", dev, c0.data_ptr(),
+                  c1.data_ptr(), c0.stride(0), s_mont.data_ptr(),
+                  scale.data_ptr(), tw_t.data_ptr(), rev_t.data_ptr(),
+                  table_t.data_ptr(), *(o.data_ptr() for o in outs),
+                  m_scratch.data_ptr(), batch, p.logn, kc.n_scalars, q0, q1,
+                  k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"], qq,
+                  half)
     LAUNCHES["decrypt_decode_stream"] += 1
     return tuple(outs)

@@ -2,15 +2,21 @@
 
 Port of the client half of ``repro.kernels.common``:
 
+  * ``FourierConfig`` / ``FOURIER_MODES`` — the mode switch of the
+    reconfigurable Fourier engine (``ops.fourier``);
   * ``plan_consts`` — per-(prime, N) OTF twiddle seeds and doubling factors;
   * ``stacked_kernel_consts`` — the (L, K) uint32 seed table, same layout
     as the reference (``OFF_Q``/``OFF_QINV``/``OFF_NINV``, then per forward
     stage [base, factors...], then per inverse stage). The CUDA kernels
-    read exactly this table;
+    read exactly this table (``device_seed_table``: its int32 copy on a
+    device);
   * ``stacked_digit_consts`` — per-limb (2^22, 2^44) radix constants;
   * ``gen_twiddles_t`` / ``ntt_stages_t`` / ``intt_stages_t`` — the plain
     PyTorch stage loops (int64 residues), the schedule the CUDA stage loops
-    in ``csrc/client_common.cuh`` follow.
+    in ``csrc/client_common.cuh`` follow;
+  * what every CUDA wrapper shares: ``route`` (kernel or plain version by
+    device), the argument checks, and ``launch`` (the C entry point on the
+    current stream, raising on a CUDA error).
 """
 
 from __future__ import annotations
@@ -24,6 +30,26 @@ import torch
 from repro_torch.core import modmul, rns
 from repro_torch.core.modmul import MontgomeryConstants
 from repro_torch.core.ntt import NTTPlan, make_plan
+from repro_torch.kernels import build
+
+
+@dataclasses.dataclass(frozen=True)
+class FourierConfig:
+    """Launch configuration of the reconfigurable Fourier engine.
+
+    mode:
+      * ``'ntt'``  — modular negacyclic NTT over RNS limb stacks (K1);
+      * ``'fft'``  — df32 complex canonical-embedding SpecialFFT (K4);
+      * ``'host'`` — complex128 numpy oracle (not ported yet).
+
+    The reference's ``block_rows`` / ``interpret`` are TPU grid knobs; on
+    the card every kernel runs one block per row, so only ``mode`` is kept.
+    """
+
+    mode: str = "fft"
+
+
+FOURIER_MODES = ("ntt", "fft", "host")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +180,16 @@ def host_table(a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(a), device=device)
 
 
+def device_seed_table(kc: StackedKernelConsts, device) -> torch.Tensor:
+    """kc.table as an (L, K) int32 tensor on `device`, uploaded once."""
+    return _device_seed_table(kc, str(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_seed_table(kc: StackedKernelConsts, device: str) -> torch.Tensor:
+    return host_table(kc.table.view(np.int32), device)
+
+
 def stacked_digit_consts(q_list) -> tuple:
     """((c22, c44), ...) Montgomery-form radix constants per limb."""
     return tuple(rns.digit_consts(int(q)) for q in q_list)
@@ -225,3 +261,81 @@ def intt_stages_t(x: torch.Tensor, kc: StackedKernelConsts, row: int
         st += 1
     return modmul.mulmod_montgomery_limb_t(
         x.reshape(rows, n), int(kc.table[row, OFF_NINV]), q, qinv)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers: routing, argument checks and the launch
+# ---------------------------------------------------------------------------
+
+
+def route(device) -> str:
+    """'cuda' for a CUDA device (the kernel), 'plain' for the CPU (the
+    plain PyTorch version); any other device raises. No fall-back: a CUDA
+    input whose kernel cannot be built or launched raises."""
+    if device.type == "cuda":
+        return "cuda"
+    if device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no kernel for device {device}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` (what every kernel entry point takes)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_key_rows(t: torch.Tensor, name: str, n_limbs: int, n: int,
+                   device) -> None:
+    """Raise unless `t` is a contiguous int32 (L >= n_limbs, N) key on
+    `device` (the kernels read its first n_limbs rows)."""
+    if t.dim() != 2 or t.shape[0] < n_limbs:
+        raise ValueError(f"{name} must be (L >= {n_limbs}, {n}), got "
+                         f"{tuple(t.shape)}")
+    check_tensor(t, name, torch.int32, (t.shape[0], n), device)
+
+
+# the CUDA grid's y extent: the rows of a (limb, row) grid
+MAX_GRID_Y = 65535
+
+
+def check_grid_rows(rows: int) -> None:
+    if not 0 < rows <= MAX_GRID_Y:
+        raise ValueError(f"the kernel's grid takes 1 to {MAX_GRID_Y} rows, "
+                         f"got {rows}")
+
+
+def check_limb_views(c0, c1, min_limbs: int, n: int, device) -> None:
+    """Raise unless c0/c1 are int32 (B, >= min_limbs, N) views on `device`
+    whose rows share one stride and hold their limbs contiguously (the
+    first limbs of a (B, L, N) batch), as the decrypt kernels read them."""
+    for name, t in (("c0", c0), ("c1", c1)):
+        if t.device != device or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 tensor on {device}")
+        if t.dim() != 3 or t.shape[0] != c0.shape[0] \
+                or t.shape[1] < min_limbs or t.shape[2] != n:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"({c0.shape[0]}, >={min_limbs}, {n})")
+        if t.stride(2) != 1 or t.stride(1) != n:
+            raise ValueError(f"{name}: each row's limbs must be contiguous")
+    if c0.stride(0) != c1.stride(0):
+        raise ValueError("c0 and c1 must share their row stride")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry point `entry` (built on first use) with `args` and
+    the device's current stream; raise on a non-zero CUDA error."""
+    fn = build.load()[entry]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")

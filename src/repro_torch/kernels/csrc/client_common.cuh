@@ -1,8 +1,10 @@
-// Shared device code of the client megakernels (encode_encrypt.cu,
-// decrypt_decode.cu): uint32 Montgomery REDC, Philox-4x32-10, the df32
-// error-free transforms, the exact Delta-scale digit split, the two-limb
-// CRT, the NTT/INTT stage loops with on-the-fly twiddle doubling from the
-// (L, K) seed table, and the df32 SpecialFFT stage loop.
+// Shared device code of the client kernels (the megakernels
+// encode_encrypt.cu, decrypt_decode.cu and the staged kernels ntt_limbs.cu,
+// client_pointwise.cu, fft_df.cu): uint32 Montgomery REDC, Philox-4x32-10,
+// the df32 error-free transforms, the exact Delta-scale digit split, the
+// two-limb CRT, the NTT/INTT stage loops with on-the-fly twiddle doubling
+// from the (L, K) seed table, the df32 SpecialFFT stage loop, and the
+// (limb, row) encrypt and decrypt block bodies.
 //
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
@@ -458,6 +460,73 @@ RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
   two_sum(w3, a, hi_f, e3);
   const float lo_f = (e3 + e2) + e1;
   return quick_two_sum(hi_f, lo_f);
+}
+
+// ---------------------------------------------------------------------------
+// (limb, row) block bodies shared by the staged kernels and the megakernels
+// ---------------------------------------------------------------------------
+
+// One encrypt block (K2 client_pointwise.cu, K5 phase 2): the row's (v, e0,
+// e1) from Philox under `nonce` (the streams do not depend on the limb),
+// mapped to residues, one NTT stage loop over them (and over pt when
+// pt_coeff: K5 hands in its plaintext in the coefficient domain, K2 in the
+// NTT domain), then c0 = (v*b + e0) + pt and c1 = v*a + e1
+// (client_pointwise.encrypt_limb_stage). e0 and e1 are transformed in the
+// c0 / c1 output rows, v in a scratch row.
+struct EncLimb {
+  uint32_t *c0, *c1;         // (N) output rows
+  uint32_t *v;               // (N) scratch row
+  uint32_t *pt;              // (N) plaintext row (read only unless pt_coeff)
+  const uint32_t *pkb, *pka; // (N) public-key rows, Montgomery form
+  const uint32_t *trow;      // this limb's (K,) seed-table row
+  int logn;
+  bool pt_coeff;
+  uint32_t nonce;
+  Seed seed;
+};
+
+RT_FN void encrypt_limb_block(const EncLimb &e, uint32_t *tw) {
+  const int n = 1 << e.logn;
+  const uint32_t q = e.trow[OFF_Q], qinv = e.trow[OFF_QINV];
+  const uint32_t sv = 0x10000u + 16u * e.nonce;  // STREAM_ENC_V + 16*nonce
+  const uint32_t s0 = 0x20000u + 16u * e.nonce;  // STREAM_ENC_E0
+  const uint32_t s1 = 0x30000u + 16u * e.nonce;  // STREAM_ENC_E1
+  for (int i = RT_TID; i < n; i += RT_NT) {
+    const uint32_t ui = (uint32_t)i;
+    e.v[i] = to_residue(zo(philox_word(ui, sv, 0u, e.seed)), q);
+    e.c0[i] = to_residue(cbd(philox_word(ui, s0, 0u, e.seed),
+                             philox_word(ui, s0, 1u, e.seed)),
+                         q);
+    e.c1[i] = to_residue(cbd(philox_word(ui, s1, 0u, e.seed),
+                             philox_word(ui, s1, 1u, e.seed)),
+                         q);
+  }
+  RT_SYNC();
+  Rows rows = {{e.v, e.c0, e.c1, e.pt}};
+  ntt_fwd(rows, e.pt_coeff ? 4 : 3, e.logn, e.trow, tw);
+  for (int i = RT_TID; i < n; i += RT_NT) {
+    const uint32_t vh = e.v[i];
+    const uint32_t c0 = addmod(
+        addmod(redc_mul(vh, e.pkb[i], q, qinv), e.c0[i], q), e.pt[i], q);
+    const uint32_t c1 = addmod(redc_mul(vh, e.pka[i], q, qinv), e.c1[i], q);
+    e.c0[i] = c0;
+    e.c1[i] = c1;
+  }
+}
+
+// One decrypt block (K3 client_pointwise.cu, K6 phase 1): m = INTT(c0 +
+// c1*s) of one (limb, row), in place in the row m
+// (client_pointwise.decrypt_limb_stage).
+RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
+                              const uint32_t *s, uint32_t *m, int logn,
+                              const uint32_t *trow, uint32_t *tw) {
+  const int n = 1 << logn;
+  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
+  for (int i = RT_TID; i < n; i += RT_NT)
+    m[i] = addmod(x0[i], redc_mul(x1[i], s[i], q, qinv), q);
+  RT_SYNC();
+  Rows rows = {{m, m, m, m}};
+  ntt_inv(rows, 1, logn, trow, tw);
 }
 
 }  // namespace rt

@@ -12,7 +12,8 @@
 // point:
 //   1. decrypt_limbs_kernel, grid (2, B): one block per (limb, row) forms
 //      c0 + c1*s into a (B, 2, N) scratch row and runs the INTT stage loop
-//      on it in place;
+//      on it in place (rt::decrypt_limb_block, shared with the staged
+//      kernel K3);
 //   2. decode_rows_kernel, grid (B): one block per row recombines the two
 //      limbs, scales, bit-reverses into the output planes and runs the
 //      SpecialFFT stages in place on them.
@@ -45,17 +46,10 @@ struct DecArgs {
 
 RT_BODY void decrypt_limb(const DecArgs &a, int l, int b, uint32_t *tw) {
   const int n = 1 << a.logn;
-  const uint32_t *trow = a.table + (size_t)l * a.n_scalars;
-  const uint32_t q = trow[rt::OFF_Q], qinv = trow[rt::OFF_QINV];
-  const uint32_t *x0 = a.c0 + (size_t)b * a.row_stride + (size_t)l * n;
-  const uint32_t *x1 = a.c1 + (size_t)b * a.row_stride + (size_t)l * n;
-  const uint32_t *s = a.s_mont + (size_t)l * n;
-  uint32_t *m = a.m + ((size_t)b * 2 + l) * n;
-  for (int i = RT_TID; i < n; i += RT_NT)
-    m[i] = rt::addmod(x0[i], rt::redc_mul(x1[i], s[i], q, qinv), q);
-  RT_SYNC();
-  rt::Rows rows = {{m, m, m, m}};
-  rt::ntt_inv(rows, 1, a.logn, trow, tw);
+  const size_t row = (size_t)b * a.row_stride + (size_t)l * n;
+  rt::decrypt_limb_block(a.c0 + row, a.c1 + row, a.s_mont + (size_t)l * n,
+                         a.m + ((size_t)b * 2 + l) * n, a.logn,
+                         a.table + (size_t)l * a.n_scalars, tw);
 }
 
 RT_BODY void decode_row(const DecArgs &a, int b) {

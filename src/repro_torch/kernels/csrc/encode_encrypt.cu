@@ -15,11 +15,13 @@
 //      scratch), then bit-reverses, scales by 1/n and Delta and writes the
 //      three digit rows (B, 3, N) int32 to global scratch;
 //   2. encrypt_limbs_kernel, grid (L, B): one block per (limb, row) builds
-//      the limb's plaintext residues, draws (v, e0, e1) (limb-independent
+//      the limb's plaintext residues into a (B, L, 2, N) scratch, then runs
+//      the encrypt block body it shares with the staged kernel K2
+//      (rt::encrypt_limb_block): draws (v, e0, e1) (limb-independent
 //      Philox streams, regenerated per limb as the reference's blocks do),
-//      runs one NTT stage loop over the four rows pt, v, e0, e1 and writes
-//      c0/c1. pt and e0 are transformed in place in the c0/c1 output rows,
-//      v and e1 in a (B, L, 2, N) scratch.
+//      one NTT stage loop over the four rows pt, v, e0, e1, and c0/c1.
+//      e0 and e1 are transformed in place in the c0/c1 output rows, pt and
+//      v in the scratch.
 //
 // What bounds it on an H100: at the paper profile (N = 2^16, L = 24) the
 // kernel must write 2*B*L*N*4 bytes of ciphertext (201 MB at B = 16), but
@@ -88,44 +90,20 @@ RT_BODY void encrypt_limb(const EncArgs &a, int l, int b, uint32_t *tw) {
   const uint32_t q = trow[rt::OFF_Q], qinv = trow[rt::OFF_QINV];
   const uint32_t c22 = a.digit_mont[2 * l], c44 = a.digit_mont[2 * l + 1];
   const size_t off = ((size_t)b * a.n_limbs + l) * n;
-  uint32_t *pt = a.c0 + off;   // pt, then c0
-  uint32_t *e0 = a.c1 + off;   // e0, then c1
-  uint32_t *v = a.ntt + 2 * off;
-  uint32_t *e1 = v + n;
+  uint32_t *pt = a.ntt + 2 * off;
   const int32_t *dg = a.digits + (size_t)b * 3 * n;
-  const uint32_t nonce = a.nonce0 + (uint32_t)b;
-  const uint32_t sv = 0x10000u + 16u * nonce;   // STREAM_ENC_V + 16*nonce
-  const uint32_t s0 = 0x20000u + 16u * nonce;   // STREAM_ENC_E0
-  const uint32_t s1 = 0x30000u + 16u * nonce;   // STREAM_ENC_E1
   for (int i = RT_TID; i < n; i += RT_NT) {
     const uint32_t r0 = rt::to_residue(dg[i], q);
     const uint32_t m1 = rt::redc_mul(rt::to_residue(dg[n + i], q), c22, q, qinv);
     const uint32_t m2 =
         rt::redc_mul(rt::to_residue(dg[2 * n + i], q), c44, q, qinv);
     pt[i] = rt::addmod(rt::addmod(r0, m1, q), m2, q);
-    const uint32_t ui = (uint32_t)i;
-    v[i] = rt::to_residue(rt::zo(rt::philox_word(ui, sv, 0u, a.seed)), q);
-    e0[i] = rt::to_residue(rt::cbd(rt::philox_word(ui, s0, 0u, a.seed),
-                                   rt::philox_word(ui, s0, 1u, a.seed)),
-                           q);
-    e1[i] = rt::to_residue(rt::cbd(rt::philox_word(ui, s1, 0u, a.seed),
-                                   rt::philox_word(ui, s1, 1u, a.seed)),
-                           q);
   }
-  RT_SYNC();
-  rt::Rows rows = {{pt, e0, v, e1}};
-  rt::ntt_fwd(rows, 4, a.logn, trow, tw);
-  const uint32_t *pkb = a.pk_b + (size_t)l * n;
-  const uint32_t *pka = a.pk_a + (size_t)l * n;
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    const uint32_t vh = v[i];
-    const uint32_t c0 =
-        rt::addmod(rt::addmod(rt::redc_mul(vh, pkb[i], q, qinv), e0[i], q),
-                   pt[i], q);
-    const uint32_t c1 = rt::addmod(rt::redc_mul(vh, pka[i], q, qinv), e1[i], q);
-    pt[i] = c0;
-    e0[i] = c1;
-  }
+  // the shared body's first barrier orders these writes before the NTT
+  rt::EncLimb e = {a.c0 + off, a.c1 + off, pt + n, pt,
+                   a.pk_b + (size_t)l * n, a.pk_a + (size_t)l * n, trow,
+                   a.logn, true, a.nonce0 + (uint32_t)b, a.seed};
+  rt::encrypt_limb_block(e, tw);
 }
 
 }  // namespace

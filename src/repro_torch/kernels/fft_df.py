@@ -1,11 +1,19 @@
-"""df32 SpecialFFT / SpecialIFFT: packed twiddle planes and the plain stage
-pipeline.
+"""df32 SpecialFFT / SpecialIFFT (K4): packed twiddle planes, the plain
+stage pipeline, and the kernel's CUDA wrapper.
 
-Port of ``repro.kernels.fft_df.packed_twiddles`` (host table, (4, n) f32
-planes re_hi, re_lo, im_hi, im_lo plus per-stage offsets) and
-``fft_stage_pipeline`` (the stage math both megakernels run; bit-reversal
-stays outside it). The CUDA stage loop in ``csrc/client_common.cuh``
-follows this schedule operation for operation.
+Port of ``repro.kernels.fft_df``:
+
+  * ``packed_twiddles`` (host table, (4, n) f32 planes re_hi, re_lo, im_hi,
+    im_lo plus per-stage offsets) and ``fft_stage_pipeline`` (the stage
+    math K4 and both megakernels run; bit-reversal stays outside it). The
+    CUDA stage loops in ``csrc/client_common.cuh`` follow this schedule
+    operation for operation;
+  * ``special_fft_planes`` / ``special_ifft_planes``: the transforms on
+    four (rows, n) float32 planes, the bit-reversal a torch gather before
+    the forward and after the inverse stages, as in the reference. The
+    stages run in ``fft_rows_cuda`` (launches ``csrc/fft_df.cu``, replaces
+    the TPU kernel ``_kernel``; counts its launches in ``LAUNCHES``) for
+    CUDA tensors and in ``fft_rows_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +25,15 @@ import torch
 
 from repro_torch.core import dfloat as dfl
 from repro_torch.core import fft as fftmod
+from repro_torch.core.ntt import bitrev_indices
+from repro_torch.kernels import common
+
+LAUNCHES = {"special_fft": 0, "special_ifft": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @functools.lru_cache(maxsize=16)
@@ -98,3 +115,82 @@ def fft_stage_pipeline(x: dfl.DFComplex, tw: torch.Tensor, offsets, *,
         s += 1
     scale = dfl.df_const(1.0 / n, device=x.re.hi.device)
     return dfl.DFComplex(dfl.df_mul(x.re, scale), dfl.df_mul(x.im, scale))
+
+
+# ---------------------------------------------------------------------------
+# K4: the stage pipeline over (rows, n) planes
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def device_twiddles(n: int, m: int, inverse: bool, device: str):
+    """The packed (4, n) float32 twiddles of the direction on `device`."""
+    return common.host_table(packed_twiddles(n, m, inverse)[0], device)
+
+
+@functools.lru_cache(maxsize=32)
+def device_bitrev(n: int, device: str):
+    """The (n,) int64 bit-reversal permutation on `device`."""
+    return common.host_table(bitrev_indices(n), device)
+
+
+def _rows_shape(planes) -> tuple[int, int]:
+    if len(planes) != 4 or planes[0].dim() != 2:
+        raise ValueError("expected four (rows, n) float32 planes")
+    return tuple(planes[0].shape)
+
+
+def fft_rows_plain(planes, m: int, inverse: bool):
+    """The stages of K4 on four (rows, n) float32 planes (no bit-reversal;
+    the inverse folds in 1/n) -> four contiguous (rows, n) planes."""
+    _, n = _rows_shape(planes)
+    _, offsets = packed_twiddles(n, m, inverse)
+    tw = device_twiddles(n, m, inverse, str(planes[0].device))
+    z = fft_stage_pipeline(dfl.dfc_from_planes(tuple(planes)), tw, offsets,
+                           n=n, inverse=inverse)
+    return tuple(p.contiguous() for p in dfl.dfc_to_planes(z))
+
+
+def fft_rows_cuda(planes, m: int, inverse: bool):
+    """CUDA launch of ``fft_df.cu``; same function as ``fft_rows_plain``."""
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError("fft_rows_cuda needs CUDA tensors")
+    rows, n = _rows_shape(planes)
+    for i, t in enumerate(planes):
+        common.check_tensor(t, f"planes[{i}]", torch.float32, (rows, n), dev)
+    if rows == 0:
+        raise ValueError("fft_rows_cuda needs at least one row")
+    tw = device_twiddles(n, m, inverse, str(dev))
+    outs = tuple(torch.empty_like(p) for p in planes)
+    common.launch("fft_rows_launch", dev, *(p.data_ptr() for p in planes),
+                  *(o.data_ptr() for o in outs), tw.data_ptr(), rows,
+                  n.bit_length() - 1, int(inverse))
+    LAUNCHES["special_ifft" if inverse else "special_fft"] += 1
+    return outs
+
+
+def _fft_rows(planes, m: int, inverse: bool):
+    if common.route(planes[0].device) == "cuda":
+        return fft_rows_cuda(planes, m, inverse)
+    return fft_rows_plain(planes, m, inverse)
+
+
+def bitrev_planes(planes):
+    """Each plane's last axis in bit-reversed order (a torch gather)."""
+    rev = device_bitrev(planes[0].shape[-1], str(planes[0].device))
+    return tuple(p[..., rev] for p in planes)
+
+
+def special_fft_planes(planes, m: int):
+    """Decode-direction transform on four (rows, n) float32 df planes:
+    bit-reversal, then the forward stages."""
+    _rows_shape(planes)
+    return _fft_rows(bitrev_planes(planes), m, inverse=False)
+
+
+def special_ifft_planes(planes, m: int):
+    """Encode-direction transform (1/n folded in) on four (rows, n)
+    float32 df planes: the inverse stages, then bit-reversal."""
+    _rows_shape(planes)
+    return bitrev_planes(_fft_rows(planes, m, inverse=True))

@@ -1,28 +1,160 @@
 """Dispatch seam between the CUDA kernels and their plain versions.
 
-A CUDA tensor goes to the CUDA kernel, a CPU tensor to the plain PyTorch
+Port of ``repro.kernels.ops`` under the reference's names and shapes. A
+CUDA tensor goes to the CUDA kernel, a CPU tensor to the plain PyTorch
 version; any other device raises. There is no fall-back: a CUDA input whose
 kernel cannot be built or launched raises.
+
+  * ``fourier``: the reconfigurable Fourier engine's mode switch between
+    the limb-folded NTT (K1, ``ntt_limbs`` / ``intt_limbs``) and the df32
+    SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``);
+  * ``encrypt_fused`` / ``decrypt_fused``: the limb-folded encrypt (K2) and
+    decrypt (K3);
+  * ``encode_encrypt_stream`` / ``decrypt_decode_stream``: the megakernels
+    (K5, K6).
+
+Each module's CUDA wrappers count their launches; ``launches()`` reads all
+counters and ``reset_launches()`` sets them to 0.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.context import CKKSContext
-from repro_torch.kernels import client_stream
+from repro_torch.kernels import (client_pointwise, client_stream, common,
+                                 fft_df, ntt_butterfly)
+
+_COUNTED = (client_stream, ntt_butterfly, client_pointwise, fft_df)
 
 
-def _route(device) -> str:
-    if device.type == "cuda":
-        return "cuda"
-    if device.type == "cpu":
-        return "plain"
-    raise ValueError(f"no kernel for device {device}")
+def launches() -> dict[str, int]:
+    """Launches of every CUDA wrapper since the last reset, by kernel."""
+    out = {}
+    for mod in _COUNTED:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_launches() -> None:
+    for mod in _COUNTED:
+        mod.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# Unified Fourier engine dispatch (the paper's NTT/FFT mode switch)
+# ---------------------------------------------------------------------------
+
+
+def fourier(x, ctx: CKKSContext, cfg: common.FourierConfig | None = None,
+            *, inverse: bool = False, n_limbs: int | None = None):
+    """Single entry point for the reconfigurable Fourier engine:
+
+      * ``'ntt'``: x is an (L, ..., N) int32 residue stack -> limb-folded
+        NTT/INTT (K1, one launch for the stack);
+      * ``'fft'``: x is a four-plane df32 tuple of (rows, n) float32 ->
+        SpecialFFT/IFFT (K4);
+      * ``'host'``: the complex128 numpy oracle, not ported yet.
+    """
+    cfg = common.FourierConfig() if cfg is None else cfg
+    if cfg.mode == "ntt":
+        f = intt_limbs if inverse else ntt_limbs
+        return f(x, ctx, n_limbs=n_limbs)
+    if cfg.mode == "fft":
+        f = special_ifft_planes if inverse else special_fft_planes
+        return f(x, ctx.params.m)
+    if cfg.mode == "host":
+        raise NotImplementedError(
+            "fourier mode 'host' is not ported yet: the complex128 oracle "
+            "(ROADMAP.md queue 1, item 6)")
+    raise ValueError(f"unknown Fourier mode {cfg.mode!r}; expected one of "
+                     f"{common.FOURIER_MODES}")
+
+
+# ---------------------------------------------------------------------------
+# NTT / INTT over RNS limb stacks (K1)
+# ---------------------------------------------------------------------------
+
+
+def _limbs(x, ctx: CKKSContext, n_limbs: int | None, inverse: bool):
+    n_limbs = x.shape[0] if n_limbs is None else n_limbs
+    x2 = x[:n_limbs].reshape(n_limbs, -1, x.shape[-1]).contiguous()
+    f = (ntt_butterfly.limb_rows_cuda
+         if common.route(x.device) == "cuda"
+         else ntt_butterfly.limb_rows_plain)
+    return f(x2, ctx.plans[:n_limbs], inverse).reshape(x[:n_limbs].shape)
+
+
+def ntt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None):
+    """x: (L, ..., N) int32 residue words -> forward negacyclic NTT per
+    limb (bit-reversed out), one launch for the whole stack."""
+    return _limbs(x, ctx, n_limbs, inverse=False)
+
+
+def intt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None):
+    """Inverse of ``ntt_limbs`` (bit-reversed in, N^-1 folded in)."""
+    return _limbs(x, ctx, n_limbs, inverse=True)
+
+
+# ---------------------------------------------------------------------------
+# Limb-folded client ops (K2, K3)
+# ---------------------------------------------------------------------------
+
+
+def encrypt_fused(pt_data, pk_b_mont, pk_a_mont, ctx: CKKSContext,
+                  seed: int | None = None, nonce0: int = 0):
+    """pt_data: (L, N) or (B, L, N) int32 NTT-domain plaintext words ->
+    (c0, c1) of the same shape; row r encrypts under nonce0 + r (mod 2^32).
+    One launch for every limb and row."""
+    seed = ctx.params.seed if seed is None else seed
+    squeeze = pt_data.dim() == 2
+    pt = pt_data[None] if squeeze else pt_data
+    f = (client_pointwise.encrypt_limbs_cuda
+         if common.route(pt.device) == "cuda"
+         else client_pointwise.encrypt_limbs_plain)
+    c0, c1 = f(pt.contiguous(), pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+    if squeeze:
+        return c0[0], c1[0]
+    return c0, c1
+
+
+def decrypt_fused(c0, c1, s_mont, ctx: CKKSContext, n_limbs: int = 2):
+    """(…, L, N) int32 ciphertext words -> coefficient-domain residues
+    (…, n_limbs, N): m = INTT(c0 + c1*s) on the first n_limbs limbs, one
+    launch for the whole batch."""
+    squeeze = c0.dim() == 2
+    c0b = c0[None] if squeeze else c0
+    c1b = c1[None] if squeeze else c1
+    f = (client_pointwise.decrypt_limbs_cuda
+         if common.route(c0b.device) == "cuda"
+         else client_pointwise.decrypt_limbs_plain)
+    out = f(c0b[:, :n_limbs], c1b[:, :n_limbs], s_mont, ctx)
+    return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# df32 Fourier transforms (K4)
+# ---------------------------------------------------------------------------
+
+
+def special_fft_planes(planes, m: int):
+    """df32 SpecialFFT (decode direction) on four (rows, n) float32
+    planes. Needs no lone-row padding: every row is its own block."""
+    return fft_df.special_fft_planes(planes, m)
+
+
+def special_ifft_planes(planes, m: int):
+    """df32 SpecialIFFT (encode direction, 1/n folded in)."""
+    return fft_df.special_ifft_planes(planes, m)
+
+
+# ---------------------------------------------------------------------------
+# Streaming megakernels: the whole client op in one launch (K5, K6)
+# ---------------------------------------------------------------------------
 
 
 def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
                           seed: int, nonce0: int):
     """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N) int32."""
-    if _route(planes[0].device) == "cuda":
+    if common.route(planes[0].device) == "cuda":
         return client_stream.encode_encrypt_stream_cuda(
             planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0)
     return client_stream.encode_encrypt_stream_plain(
@@ -31,7 +163,7 @@ def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
 
 def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale):
     """(B, >=2, N) int32 ciphertext stacks -> four (B, n_slots) planes."""
-    if _route(c0.device) == "cuda":
+    if common.route(c0.device) == "cuda":
         return client_stream.decrypt_decode_stream_cuda(c0, c1, s_mont, ctx,
                                                         scale)
     return client_stream.decrypt_decode_stream_plain(c0, c1, s_mont, ctx,

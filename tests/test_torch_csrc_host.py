@@ -3,9 +3,12 @@
 ``csrc/client_common.cuh`` keeps the kernels' arithmetic and block bodies
 in code that also compiles as plain C++ (one thread per block, barriers as
 no-ops; every phase is race-free, so that build computes what the kernel
-computes). Here g++ builds ``encode_encrypt.cu`` / ``decrypt_decode.cu``
-that way, with ``-ffp-contract=off`` (the host twin of ``--fmad=false``),
-and the results must equal the plain PyTorch versions word for word. The
+computes). Here g++ builds every source that way (the megakernels
+``encode_encrypt.cu`` / ``decrypt_decode.cu`` and the staged kernels
+``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``), with
+``-ffp-contract=off`` (the host twin of ``--fmad=false``), and each
+``_host`` entry's results must equal the plain PyTorch version word for
+word. The
 CUDA build itself, its launch and its agreement on the card are checked by
 ``chip_smoke.py``. Skips where no C++ compiler is installed.
 """
@@ -20,20 +23,45 @@ import torch
 
 from repro_torch.core import prng, rns
 from repro_torch.fhe_client.client import FHEClient
-from repro_torch.kernels import build, client_stream, common
+from repro_torch.kernels import (build, client_pointwise, client_stream,
+                                 common, fft_df, ntt_butterfly)
 
 _P = ctypes.c_void_p
 
 
+_SOURCES = ("encode_encrypt.cu", "decrypt_decode.cu", "ntt_limbs.cu",
+            "client_pointwise.cu", "fft_df.cu")
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+# host entry point -> (source, argtypes): the CUDA entry's without stream
+_HOST_ENTRIES = {
+    "encode_encrypt_stream_host": (
+        "encode_encrypt.cu", [_P] * 15 + [_I] * 4 + [ctypes.c_float]
+        + [_U] * 5),
+    "decrypt_decode_stream_host": (
+        "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 10 + [_I] * 3 + [_U] * 6
+        + [ctypes.c_ulonglong] * 2),
+    "ntt_limbs_host": ("ntt_limbs.cu", [_P] * 3 + [_I] * 5),
+    "encrypt_limbs_host": ("client_pointwise.cu",
+                           [_P] * 7 + [_I] * 4 + [_U] * 5),
+    "decrypt_limbs_host": ("client_pointwise.cu",
+                           [_P, _P, _LL] + [_P] * 3 + [_I] * 4),
+    "fft_rows_host": ("fft_df.cu", [_P] * 9 + [_I] * 3),
+}
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
+    """{host entry point: ctypes function} of the g++ builds, all sources
+    compiled at once."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler for the host build of the kernels")
     out = tmp_path_factory.mktemp("csrc_host")
     libs = {}
     procs = []
-    for src in ("encode_encrypt.cu", "decrypt_decode.cu"):
+    for src in _SOURCES:
         lib = out / src.replace(".cu", ".so")
         procs.append((src, lib, subprocess.Popen(
             [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
@@ -44,15 +72,13 @@ def host_libs(tmp_path_factory):
         log = proc.communicate(timeout=300)[0]
         assert proc.returncode == 0, log
         libs[src] = ctypes.CDLL(str(lib))
-    enc = libs["encode_encrypt.cu"].encode_encrypt_stream_host
-    enc.argtypes = [_P] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] + \
-        [ctypes.c_uint32] * 5
-    enc.restype = ctypes.c_int
-    dec = libs["decrypt_decode.cu"].decrypt_decode_stream_host
-    dec.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 10 + \
-        [ctypes.c_int] * 3 + [ctypes.c_uint32] * 6 + [ctypes.c_ulonglong] * 2
-    dec.restype = ctypes.c_int
-    return enc, dec
+    fns = {}
+    for name, (src, argtypes) in _HOST_ENTRIES.items():
+        fn = getattr(libs[src], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -62,7 +88,8 @@ def _ptr(a: np.ndarray) -> int:
 @pytest.mark.parametrize("profile,batch,nonce0", [
     ("tiny", 3, 0xFFFFFFFF), ("test", 2, 9)])
 def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
-    enc, dec = host_libs
+    enc = host_libs["encode_encrypt_stream_host"]
+    dec = host_libs["decrypt_decode_stream_host"]
     client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
     ctx, p = client.ctx, client.ctx.params
     L, n, ns = p.n_limbs, p.n, p.n_slots
@@ -113,6 +140,97 @@ def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
               k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
               (k["q_w"][0] << 32) | k["q_w"][1],
               (k["half_w"][0] << 32) | k["half_w"][1])
+    assert err == 0
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.numpy().view(np.uint32))
+
+
+def _rand_residues(ctx, shape, rng) -> np.ndarray:
+    """Random uint32 residues, limb axis -2, each below its prime."""
+    q = np.asarray(ctx.q_list[:shape[-2]], np.uint64)[:, None]
+    return (rng.integers(0, 1 << 32, shape, dtype=np.uint64) % q
+            ).astype(np.uint32)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile", ["tiny", "test"])
+def test_host_ntt_limbs_matches_plain(host_libs, profile, inverse):
+    ctx = FHEClient(profile, device="cpu").ctx
+    L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
+    rng = np.random.default_rng(6)
+    x = np.ascontiguousarray(
+        _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2))
+    want = ntt_butterfly.limb_rows_plain(torch.tensor(x.view(np.int32)),
+                                         ctx.plans, inverse)
+    kc = common.stacked_kernel_consts(ctx.plans)
+    table = np.ascontiguousarray(kc.table)
+    out = np.zeros_like(x)
+    err = host_libs["ntt_limbs_host"](_ptr(x), _ptr(out), _ptr(table), L,
+                                      rows, kc.logn, kc.n_scalars,
+                                      int(inverse))
+    assert err == 0
+    np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("profile,batch,nonce0", [
+    ("tiny", 3, 0xFFFFFFFE), ("test", 2, 9)])
+def test_host_encrypt_decrypt_limbs_match_plain(host_libs, profile, batch,
+                                                nonce0):
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx = client.ctx
+    L, n = ctx.params.n_limbs, ctx.params.n
+    rng = np.random.default_rng(7)
+    pt = _rand_residues(ctx, (batch, L, n), rng)
+    pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
+    ref0, ref1 = client_pointwise.encrypt_limbs_plain(
+        torch.tensor(pt.view(np.int32)), pkb, pka, ctx, client.seed, nonce0)
+    kc = common.stacked_kernel_consts(ctx.plans)
+    table = np.ascontiguousarray(kc.table)
+    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
+    c0 = np.zeros((batch, L, n), np.uint32)
+    c1 = np.zeros_like(c0)
+    v = np.zeros_like(c0)
+    err = host_libs["encrypt_limbs_host"](
+        _ptr(pt), _ptr(b_np), _ptr(a_np), _ptr(table), _ptr(c0), _ptr(c1),
+        _ptr(v), batch, L, kc.logn, kc.n_scalars,
+        *prng.seed_words(client.seed), nonce0)
+    assert err == 0
+    np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
+    np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
+
+    # decrypt the 2-limb row-strided view of the (B, L, N) batch
+    want = client_pointwise.decrypt_limbs_plain(ref0[:, :2], ref1[:, :2],
+                                                client.keys.sk.s_mont, ctx)
+    kc2 = common.stacked_kernel_consts(ctx.plans[:2])
+    table2 = np.ascontiguousarray(kc2.table)
+    s_np = client.keys.sk.s_mont.numpy().copy()
+    m = np.zeros((batch, 2, n), np.uint32)
+    err = host_libs["decrypt_limbs_host"](
+        _ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(table2), _ptr(m), batch,
+        2, kc2.logn, kc2.n_scalars)
+    assert err == 0
+    np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile", ["tiny", "test"])
+def test_host_fft_rows_match_plain(host_libs, profile, inverse):
+    ctx = FHEClient(profile, device="cpu").ctx
+    ns, m, rows = ctx.params.n_slots, ctx.params.m, 3
+    rng = np.random.default_rng(8)
+    z = rng.standard_normal((2, rows, ns))
+    hi = z.astype(np.float32)
+    planes = [np.ascontiguousarray(a) for a in (
+        hi[0], (z[0] - hi[0]).astype(np.float32),
+        hi[1], (z[1] - hi[1]).astype(np.float32))]
+    want = fft_df.fft_rows_plain(tuple(torch.tensor(p) for p in planes), m,
+                                 inverse)
+    tw = np.ascontiguousarray(fft_df.packed_twiddles(ns, m, inverse)[0])
+    outs = [np.zeros((rows, ns), np.float32) for _ in range(4)]
+    err = host_libs["fft_rows_host"](
+        *(_ptr(p) for p in planes), *(_ptr(o) for o in outs), _ptr(tw),
+        rows, ns.bit_length() - 1, int(inverse))
     assert err == 0
     for got, ref in zip(outs, want):
         np.testing.assert_array_equal(got.view(np.uint32),

@@ -5,12 +5,13 @@
     by walking every module's AST;
   * the kernel build keeps the float code IEEE-exact (``--fmad=false``, no
     fast math);
-  * the client runs on the card unless told otherwise, rejects scales the
-    df32 datapath cannot take exactly, and refuses the configurations not
-    ported yet;
+  * the client runs on the card unless told otherwise (in both pipelines),
+    rejects scales the df32 datapath cannot take exactly, and refuses the
+    configurations not ported yet;
   * keys round-trip through ``keys_from_numpy``; the private-inference
     loop packs, encrypts, decrypts and unpacks activation rows;
-  * the plain path never touches a CUDA launch counter.
+  * the plain path (megakernel or staged) never touches a CUDA launch
+    counter, and every CUDA wrapper refuses CPU tensors.
 """
 
 import ast
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.fhe_client.client import (FHEClient, keys_from_numpy,
                                            simulate_private_inference)
-from repro_torch.kernels import build, client_stream
+from repro_torch.kernels import (build, client_pointwise, client_stream,
+                                 common, fft_df, ntt_butterfly, ops)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -91,10 +93,31 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fourier": "host"}, {"pipeline": "staged"}, {"datapath": "f64"}])
+    {"fourier": "host"}, {"pipeline": "staged", "datapath": "f64"},
+    {"datapath": "f64"}])
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FHEClient("tiny", device="cpu", **kwargs)
+
+
+def test_staged_pipeline_accepted_and_defaults_to_card():
+    client = FHEClient("tiny", device="cpu", pipeline="staged")
+    assert client.pipeline == "staged"
+    assert client.encrypt_impl == client._encrypt_core_dev32_impl
+    with pytest.raises(ValueError, match="pipeline"):
+        FHEClient("tiny", device="cpu", pipeline="fused")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FHEClient("tiny", pipeline="staged")
+
+
+def test_fourier_host_mode_raises(tiny_client):
+    x = torch.zeros((3, 64), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.fourier(x, tiny_client.ctx, common.FourierConfig(mode="host"))
+    with pytest.raises(ValueError, match="Fourier mode"):
+        ops.fourier(x, tiny_client.ctx, common.FourierConfig(mode="dft"))
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +157,41 @@ def test_plain_path_counts_no_launch(tiny_client):
         tiny_client.encode_encrypt_batch(msgs).truncated(2))
     assert client_stream.LAUNCHES == {"encode_encrypt_stream": 0,
                                       "decrypt_decode_stream": 0}
+
+
+def test_staged_plain_path_counts_no_launch():
+    client = FHEClient("tiny", device="cpu", pipeline="staged")
+    ops.reset_launches()
+    msgs = np.full((2, 32), 0.375 - 0.25j)
+    out = client.decrypt_decode_batch(
+        client.encode_encrypt_batch(msgs).truncated(2))
+    assert np.max(np.abs(out - msgs)) < 2.0 ** -19
+    counts = ops.launches()
+    assert set(counts) == {"encode_encrypt_stream", "decrypt_decode_stream",
+                           "ntt_limbs", "intt_limbs", "encrypt_limbs",
+                           "decrypt_limbs", "special_fft", "special_ifft"}
+    assert not any(counts.values()), counts
+
+
+@pytest.mark.parametrize("wrapper", [
+    "ntt_limbs", "encrypt_limbs", "decrypt_limbs", "fft_rows"])
+def test_staged_cuda_wrappers_refuse_cpu_tensors(tiny_client, wrapper):
+    ctx = tiny_client.ctx
+    x = torch.zeros((1, 3, 64), dtype=torch.int32)
+    s, b = tiny_client.keys.sk.s_mont, tiny_client.keys.pk.b_mont
+    calls = {
+        "ntt_limbs": lambda: ntt_butterfly.limb_rows_cuda(
+            x.reshape(3, 1, 64), ctx.plans[:3], False),
+        "encrypt_limbs": lambda: client_pointwise.encrypt_limbs_cuda(
+            x, b, b, ctx, 1, 0),
+        "decrypt_limbs": lambda: client_pointwise.decrypt_limbs_cuda(
+            x[:, :2], x[:, :2], s, ctx),
+        "fft_rows": lambda: fft_df.fft_rows_cuda(
+            tuple(torch.zeros((1, 32)) for _ in range(4)), ctx.params.m,
+            True),
+    }
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[wrapper]()
 
 
 def test_cuda_wrappers_refuse_cpu_tensors(tiny_client):
