@@ -24,9 +24,25 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      for the same seed and nonce base, word for word;
   5. profiles three round trips of each path (device time by CUDA kernel,
      device busy / idle share), then times every kernel at ``paper``, B=1
-     and B=16 (CUDA events, after warm-up), and the plain versions at
-     B=16;
-  6. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+     and B=16 (CUDA events around 5 calls queued behind a spin, so the
+     card never waits on the host; after warm-up), and the plain versions
+     at B=16;
+  6. the server op set (K7-K11): holds each of its nine kernel bodies
+     against its plain version, bit for bit, on ciphertexts of the
+     staged f64 client and keys of its ``make_evaluation_keys``:
+     ``server`` level 8 B=2, ``boot`` level 6 B=2 and level 24 B=1; checks
+     that hoisted rotations give the fused rotation's words at ``boot``
+     level 6;
+  7. drives the encrypted-inference flow
+     (``repro_torch.fhe_server.encrypted_inference.run``: encrypt, keys,
+     linear layer + poly3 on the server, decrypt), d=8, level 6 -> 2, at
+     ``server`` (error < 2^-12 asserted) and at ``boot`` (the flow's words
+     held against the same flow through the plain versions on the card;
+     error printed beside the budget), counters set to 0 just before each
+     and read just after; profiles the server part of each flow, then
+     times every server kernel at ``boot`` level 6 and 24, B=1, queued
+     ahead as in 5 (and, printed beside it, as the host paces the calls);
+  8. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound), then, as the last line, ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
@@ -35,6 +51,7 @@ exit code and no result line. Needs a CUDA device; without one it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -175,6 +192,98 @@ def _cost_fft_rows(p, rows: int, inverse: bool):
     return float(2 * rows * 4 * ns * 4 + 4 * ns * 4), 0.0, float(f32)
 
 
+# --- the server op set (K7-K11) ------------------------------------------
+# At level l, B ciphertexts of N coefficients: one N-point NTT is
+# logN * N/2 butterflies; an INTT adds N REDCs (N^-1); the twiddles of one
+# (prime, direction) are N-1 doublings, counted once per prime used.
+
+
+def _ntt_ops(p) -> float:
+    return p.logn * (p.n // 2) * I32_NTT_BUTTERFLY
+
+
+def _intt_ops(p) -> float:
+    return _ntt_ops(p) + p.n * I32_REDC
+
+
+def _tw_ops(p, primes: int) -> float:
+    return primes * (p.n - 1) * I32_REDC
+
+
+I32_CENTER = 3      # compare, subtract, select
+
+
+def _ks_parts(p, level: int, batch: int) -> dict:
+    """int32 ops of the hybrid key switch's stages for B polys: digits (l
+    INTTs + centre), base extension (l l residues + NTTs: digit j on its
+    own row i == j comes back as the input limb, NTT_j(INTT_j(x_j)) = x_j,
+    so it needs no work), the multiply-accumulate (2 (l+1) l REDC +
+    addmod), the mod-down (2 INTTs of the special row, 2 l NTTs, submod +
+    REDC)."""
+    n, l = p.n, level
+    return {
+        "digits": batch * l * (_intt_ops(p) + n * I32_CENTER),
+        "extend": batch * l * l * (_ntt_ops(p) + n * I32_TO_RESIDUE),
+        "mac": batch * (l + 1) * l * n * 2 * (I32_REDC + I32_ADDMOD),
+        "moddown": batch * 2 * (_intt_ops(p) + n * I32_CENTER
+                                + l * (_ntt_ops(p) + n * (
+                                    I32_TO_RESIDUE + I32_ADDMOD
+                                    + I32_REDC))),
+        "tw": _tw_ops(p, 2 * (l + 1)),
+    }
+
+
+def _rescale_ops(p, level: int, batch: int, fused_pt: bool) -> float:
+    n, l = p.n, level
+    ops = batch * 2 * (_intt_ops(p) + n * I32_CENTER
+                       + (l - 1) * (_ntt_ops(p) + n * (
+                           I32_TO_RESIDUE + I32_ADDMOD + I32_REDC)))
+    if fused_pt:
+        ops += batch * 2 * l * n * I32_REDC
+    return ops + _tw_ops(p, 2 * l)
+
+
+def _cost_server(name: str, p, level: int, batch: int):
+    """(bytes, int32 ops, f32 ops) of one server op at level l on B
+    ciphertexts: inputs read once, outputs written once."""
+    n, l = p.n, level
+    ct = batch * l * n * 4                   # one (B, l, N) poly
+    pt = l * n * 4
+    key = 2 * l * (l + 1) * n * 4            # (b, a) key slices
+    h = batch * (l + 1) * l * n * 4
+    out_rs = 2 * batch * (l - 1) * n * 4
+    ks = _ks_parts(p, l, batch)
+    if name == "add_ct":
+        return float(6 * ct), float(2 * batch * l * n * I32_ADDMOD), 0.0
+    if name == "add_pt":
+        return float(4 * ct + pt), float(batch * l * n * I32_ADDMOD), 0.0
+    if name == "mul_pt":
+        return float(4 * ct + pt), float(2 * batch * l * n * I32_REDC), 0.0
+    if name == "rescale":
+        return float(2 * ct + out_rs), float(_rescale_ops(p, l, batch,
+                                                          False)), 0.0
+    if name == "mul_pt_rescale":
+        return (float(2 * ct + pt + out_rs),
+                float(_rescale_ops(p, l, batch, True)), 0.0)
+    if name == "mul_ct":
+        tensor = batch * l * n * (6 * I32_REDC + I32_ADDMOD)
+        ops = (tensor + sum(ks.values()) + 2 * batch * l * n * I32_ADDMOD
+               + _rescale_ops(p, l, batch, False))
+        return float(4 * ct + key + out_rs), float(ops), 0.0
+    if name == "rotate":
+        ops = sum(ks.values()) + batch * l * n * I32_ADDMOD
+        return float(4 * ct + key + n * 4), float(ops), 0.0
+    if name == "ks_decompose":
+        return (float(ct + h),
+                float(ks["digits"] + ks["extend"] + _tw_ops(p, 2 * l + 1)),
+                0.0)
+    if name == "ks_apply_rot":
+        ops = (ks["mac"] + ks["moddown"] + _tw_ops(p, l + 1)
+               + batch * l * n * I32_ADDMOD)
+        return float(3 * ct + h + key + n * 4), float(ops), 0.0
+    raise ValueError(name)
+
+
 def _bound_ms(nbytes: float, i32: float, f32: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(i32 / I32_OPS_PER_S, f32 / F32_OPS_PER_S)
@@ -211,7 +320,44 @@ def _same_bits(got, want) -> bool:
     return torch.equal(got, want)
 
 
+GPU_HZ = 1.98e9     # H100 SXM boost clock: what the spin's cycles count
+
+
+def _device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call of a kernel wrapper `fn`, with the calls queued
+    ahead: the stream first spins long enough for the host to enqueue all
+    `iters` calls, so the card runs them back to back and never waits on
+    the host's launch path. Fails if a spin, doubled twice, still ends
+    before the last call is enqueued (a wrapper that blocks the host)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    spin_s = 4 * host_s + 2e-3
+    for _ in range(3):
+        torch.cuda._sleep(int(spin_s * GPU_HZ))
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / iters
+        spin_s *= 2
+    _fail("the spin ended before the timed calls were enqueued")
+
+
 def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Time per call of `fn` as the host paces it (CUDA events around
+    back-to-back calls): the plain versions, and wrappers' launch paths."""
     import torch
     for _ in range(warmup):
         fn()
@@ -323,20 +469,27 @@ def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
 def _profile_main_path(client, msgs, iters: int = 3) -> None:
     """Device time by CUDA kernel or copy and the device's busy share over
     a window of `iters` main-path round trips (torch.profiler / CUPTI)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     def round_trip():
         client.decrypt_decode_batch(
             client.encode_encrypt_batch(msgs).truncated(2))
 
-    round_trip()
+    _profile(round_trip, iters, f"{client.pipeline} {MAIN_PROFILE} "
+             f"B={len(msgs)} round trip")
+
+
+def _profile(fn, iters: int, what: str) -> None:
+    """Profile `iters` calls of `fn` after one warm-up: device time by CUDA
+    kernel or copy, and the device's busy share of the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            round_trip()
+            fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -357,12 +510,253 @@ def _profile_main_path(client, msgs, iters: int = 3) -> None:
         print("profile: the profiler saw no device time (not measured)",
               flush=True)
         return
-    print(f"profile: {client.pipeline} {MAIN_PROFILE} B={len(msgs)} round "
-          f"trip {per_trip:.3f} ms host clock, device busy {busy:.3f} ms "
-          f"({100 * busy / per_trip:.1f}%, idle "
+    print(f"profile: {what} {per_trip:.3f} ms host clock, device busy "
+          f"{busy:.3f} ms ({100 * busy / per_trip:.1f}%, idle "
           f"{100 * (1 - busy / per_trip):.1f}%)", flush=True)
     for ms, cnt, name in sorted(rows, reverse=True)[:12]:
         print(f"  device {ms:9.3f} ms  x{cnt:<3d} {name[:90]}", flush=True)
+
+
+# the server kernels by counter name: (id, TPU kernel body); all in
+# csrc/server_eval.cu
+SERVER = {
+    "add_ct": ("K7", "server_eval.py:243"),
+    "add_pt": ("K7", "server_eval.py:249"),
+    "mul_pt": ("K7", "server_eval.py:255"),
+    "rescale": ("K8", "server_eval.py:267"),
+    "mul_pt_rescale": ("K8b", "server_eval.py:277"),
+    "mul_ct": ("K9", "server_eval.py:291"),
+    "rotate": ("K10", "server_eval.py:319"),
+    "ks_decompose": ("K11a", "server_eval.py:334"),
+    "ks_apply_rot": ("K11b", "server_eval.py:340"),
+}
+# (profile, level, batch) of the kernel-vs-plain checks
+SERVER_CHECKS = (("server", 8, 2), ("boot", 6, 2), ("boot", 24, 1))
+SERVER_ROTATIONS = (1, 2, 5)
+FLOW_DIM, FLOW_LEVEL, FLOW_SEED = 8, 6, 7
+FLOW_PROFILES = ("server", "boot")
+FLOW_BUDGET_ASSERTED = ("server",)   # at boot the error is printed only
+TIME_PROFILE, TIME_LEVELS = "boot", (6, 24)
+# launches of each server kernel in one linear + poly3 flow at d
+FLOW_LAUNCHES = {"ks_decompose": 1, "ks_apply_rot": FLOW_DIM - 1,
+                 "mul_pt": FLOW_DIM, "add_ct": FLOW_DIM - 1, "rescale": 1,
+                 "add_pt": 4, "mul_pt_rescale": 1, "mul_ct": 2, "rotate": 0}
+
+
+@contextlib.contextmanager
+def _plain_server_ops():
+    """Route ``kernels.ops.server_*`` to the plain versions, also for CUDA
+    tensors: the reference flow the kernel flow is held against."""
+    from repro_torch.kernels import ops, server_eval
+    kernel_route = ops._server
+
+    def plain(name, x, *args):
+        return getattr(server_eval, name + "_plain")(*args)
+
+    ops._server = plain
+    try:
+        yield
+    finally:
+        ops._server = kernel_route
+
+
+def _server_operands(client, keys, ev, level: int, batch: int, seed: int):
+    """The server kernels' operands at `level`: two encrypted batches
+    (contiguous limb views), an (l, N) plaintext, the relin and r=5 key
+    slices, the r=5 permutation and the hoisted digit stack of x."""
+    import numpy as np
+    import torch
+    from repro_torch.fhe_server import encoding
+    from repro_torch.kernels import server_eval
+    ctx = client.ctx
+    ns = ctx.params.n_slots
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((batch, ns)) * 0.5
+    x = client.encode_encrypt_batch(z)
+    y = client.encode_encrypt_batch(z[::-1].copy())
+    dev = x.c0.device
+    o = {"a0": x.c0[:, :level].contiguous(), "a1": x.c1[:, :level].contiguous(),
+         "b0": y.c0[:, :level].contiguous(), "b1": y.c1[:, :level].contiguous()}
+    pt = encoding.encode_plaintext(rng.standard_normal(ns) * 0.5, ctx, level,
+                                   float(ctx.q_list[level - 1]), device=dev)
+    o["pt"], o["pm"] = pt.data, pt.data_mont
+    o["kb"], o["ka"] = ev._sliced_key(keys.relin, level)
+    o["rb"], o["ra"] = ev._rot_key(5, level)
+    o["perm"] = ev._perm(5, dev)
+    o["h"] = server_eval.ks_decompose_cuda(o["a1"], ctx)
+    torch.cuda.synchronize()
+    return o
+
+
+def _server_calls(o, ctx) -> dict:
+    """{kernel: (cuda call, plain call)} on the operands `o`."""
+    from repro_torch.kernels import server_eval as se
+    return {
+        "add_ct": (lambda: se.add_ct_cuda(o["a0"], o["a1"], o["b0"],
+                                          o["b1"], ctx),
+                   lambda: se.add_ct_plain(o["a0"], o["a1"], o["b0"],
+                                           o["b1"], ctx)),
+        "add_pt": (lambda: se.add_pt_cuda(o["a0"], o["a1"], o["pt"], ctx),
+                   lambda: se.add_pt_plain(o["a0"], o["a1"], o["pt"], ctx)),
+        "mul_pt": (lambda: se.mul_pt_cuda(o["a0"], o["a1"], o["pm"], ctx),
+                   lambda: se.mul_pt_plain(o["a0"], o["a1"], o["pm"], ctx)),
+        "rescale": (lambda: se.rescale_cuda(o["a0"], o["a1"], ctx),
+                    lambda: se.rescale_plain(o["a0"], o["a1"], ctx)),
+        "mul_pt_rescale": (
+            lambda: se.mul_pt_rescale_cuda(o["a0"], o["a1"], o["pm"], ctx),
+            lambda: se.mul_pt_rescale_plain(o["a0"], o["a1"], o["pm"], ctx)),
+        "mul_ct": (lambda: se.mul_ct_relin_cuda(o["a0"], o["a1"], o["b0"],
+                                                o["b1"], o["kb"], o["ka"],
+                                                ctx),
+                   lambda: se.mul_ct_relin_plain(o["a0"], o["a1"], o["b0"],
+                                                 o["b1"], o["kb"], o["ka"],
+                                                 ctx)),
+        "rotate": (lambda: se.rotate_cuda(o["a0"], o["a1"], o["perm"],
+                                          o["rb"], o["ra"], ctx),
+                   lambda: se.rotate_plain(o["a0"], o["a1"], o["perm"],
+                                           o["rb"], o["ra"], ctx)),
+        "ks_decompose": (lambda: se.ks_decompose_cuda(o["a1"], ctx),
+                         lambda: se.ks_decompose_plain(o["a1"], ctx)),
+        "ks_apply_rot": (
+            lambda: se.ks_apply_rot_cuda(o["a0"], o["h"], o["perm"],
+                                         o["rb"], o["ra"], ctx),
+            lambda: se.ks_apply_rot_plain(o["a0"], o["h"], o["perm"],
+                                          o["rb"], o["ra"], ctx)),
+    }
+
+
+def _server_setup(profile: str, dev):
+    """Staged f64 client, its evaluation keys (relin + rotations 1, 2, 5)
+    and an evaluator, on the card."""
+    import torch
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.fhe_server.eval_ops import ServerEvaluator
+    client = FHEClient(profile, seed=SEED, device=dev, pipeline="staged",
+                       datapath="f64")
+    t0 = time.perf_counter()
+    keys = client.make_evaluation_keys(rotations=SERVER_ROTATIONS)
+    torch.cuda.synchronize()
+    print(f"server keys: {profile} relin + rotations {SERVER_ROTATIONS}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return client, keys, ServerEvaluator(client.ctx, keys)
+
+
+def _check_server_kernels(setups, errs: dict) -> None:
+    """Each server kernel against its plain version at SERVER_CHECKS, and
+    hoisted == fused rotations at boot level 6."""
+    import numpy as np
+    import torch
+    from repro_torch.fhe_server.ct import ServerCiphertext
+    for profile, level, batch in SERVER_CHECKS:
+        client, keys, ev = setups[profile]
+        o = _server_operands(client, keys, ev, level, batch, seed=level)
+        for name, (kernel, plain) in _server_calls(o, client.ctx).items():
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"{name} differs from its plain version at {profile} "
+                      f"level {level} B={batch} (max abs err {e})")
+        print(f"kernel == plain (bit-identical), K7 x3 K8 K8b K9 K10 K11a "
+              f"K11b: {profile} level {level} B={batch}", flush=True)
+    client, keys, ev = setups["boot"]
+    ns = client.ctx.params.n_slots
+    z = np.random.default_rng(3).standard_normal((2, ns)) * 0.5
+    x = ServerCiphertext.from_batch(
+        client.encode_encrypt_batch(z)).drop_to(6)
+    hoisted = ev.hoisted_rotations(x, list(SERVER_ROTATIONS))
+    for r in SERVER_ROTATIONS:
+        fused = ev.rotate(x, r)
+        torch.cuda.synchronize()
+        if not (torch.equal(hoisted[r].c0, fused.c0)
+                and torch.equal(hoisted[r].c1, fused.c1)):
+            _fail(f"hoisted rotation r={r} differs from rotate at boot "
+                  f"level 6")
+    print(f"hoisted_rotations(x, {list(SERVER_ROTATIONS)}) == rotate(x, r) "
+          f"word for word: boot level 6 B=2", flush=True)
+
+
+def _server_flow(profile: str, dev) -> dict:
+    """The encrypted-inference main path at `profile`, counters set to 0
+    just before and read just after; then (boot) the same server
+    evaluation through the plain versions on the card, word for word, and
+    a profile of the server part."""
+    import numpy as np
+    import torch
+    from repro_torch.fhe_server import encrypted_inference as ei
+    from repro_torch.fhe_server import inference as inf
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = ei.run(profile, dim=FLOW_DIM, level=FLOW_LEVEL, seed=FLOW_SEED,
+                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    y, x = out["y_ct"], out["x_ct"]
+    got = out["got"]
+    if out["levels"] != (FLOW_LEVEL, FLOW_LEVEL - 4):
+        _fail(f"{profile} flow levels {out['levels']}")
+    if got.shape != (1, out["client"].ctx.params.n_slots) \
+            or not np.all(np.isfinite(got)):
+        _fail(f"{profile} flow decoded {got.shape} or non-finite values")
+    for name, want in FLOW_LAUNCHES.items():
+        if launches[name] != want:
+            _fail(f"{profile} flow launched {name} {launches[name]} times, "
+                  f"expected {want}: {launches}")
+    for name in ("ntt_limbs", "encrypt_limbs", "decrypt_limbs",
+                 "special_fft", "special_ifft"):
+        if launches[name] == 0:
+            _fail(f"{profile} flow never launched {name}: {launches}")
+    used = {k: v for k, v in launches.items() if v}
+    times = ", ".join(f"{k} {v:.3f}" for k, v in out["times"].items())
+    print(f"flow: {profile} d={FLOW_DIM} levels {out['levels'][0]} -> "
+          f"{out['levels'][1]}, err {out['err']:.3e} (budget "
+          f"{out['budget']:.3e}), wall {wall:.3f} s ({times}), launches "
+          f"{used}", flush=True)
+    xv, w, bias, poly = out["workload"]
+    ev = out["evaluator"]
+    if profile in FLOW_BUDGET_ASSERTED and not out["err"] < out["budget"]:
+        _fail(f"{profile} flow error {out['err']} >= {out['budget']}")
+    with _plain_server_ops():
+        y_plain = inf.encrypted_linear_poly3(ev, x, w, bias, poly)
+    torch.cuda.synchronize()
+    if not (torch.equal(y.c0, y_plain.c0) and torch.equal(y.c1, y_plain.c1)
+            and y.scale == y_plain.scale):
+        _fail(f"{profile} flow: kernel flow differs from the plain flow")
+    below = out["err"] < out["budget"]
+    print(f"flow: {profile} kernel flow == plain flow word for word; err "
+          f"{out['err']:.3e} {'<' if below else '>='} budget "
+          f"{out['budget']:.3e}", flush=True)
+    _profile(lambda: inf.encrypted_linear_poly3(ev, x, w, bias, poly), 1,
+             f"server eval (linear + poly3) {profile} d={FLOW_DIM}")
+    return launches
+
+
+def _time_server_kernels(setups, card: str):
+    """Device times of every server kernel at boot B=1, levels 6 and 24
+    (queued ahead; host-paced printed beside), the plain versions once,
+    and the bounds."""
+    client, keys, ev = setups[TIME_PROFILE]
+    p = client.ctx.params
+    times = {}
+    for level in TIME_LEVELS:
+        o = _server_operands(client, keys, ev, level, 1, seed=100 + level)
+        for name, (kernel, plain) in _server_calls(o, client.ctx).items():
+            ms = _device_ms(kernel, iters=5)
+            paced_ms = _cuda_ms(kernel, iters=5)
+            plain_ms = _cuda_ms(plain, iters=1, warmup=1)
+            bound = _bound_ms(*_cost_server(name, p, level, 1))
+            times[name, level] = (ms, plain_ms, bound)
+            print(f"time: {name} {TIME_PROFILE} level {level} B=1: "
+                  f"{ms:.4f} ms queued ahead, {paced_ms:.4f} ms paced by "
+                  f"the host, "
+                  f"plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})  [{card}]", flush=True)
+    return times
 
 
 def main() -> int:
@@ -398,7 +792,9 @@ def main() -> int:
           f"flags {' '.join(build.NVCC_FLAGS)})", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # per kernel: its (mangled) name, then its spills and registers
+            if ("Function properties" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
 
     dev = torch.device(DEVICE, 0)
@@ -498,6 +894,16 @@ def main() -> int:
     _profile_main_path(mc, msgs)
     _profile_main_path(sc, msgs)
 
+    # --- 6. the server op set: kernel vs plain, on the card ---------------
+    setups = {profile: _server_setup(profile, dev)
+              for profile in ("server", "boot")}
+    _check_server_kernels(setups, errs)
+
+    # --- 7. the encrypted-inference flows (main path of the server slice) -
+    flow_launches = {profile: _server_flow(profile, dev)
+                     for profile in FLOW_PROFILES}
+    server_times = _time_server_kernels(setups, card)
+
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
     ctx = mc.ctx
@@ -556,7 +962,7 @@ def main() -> int:
                                                                i),
                 _cost_fft_rows(p, batch, inverse))
         for name, (kernel, plain_fn, cost) in calls.items():
-            times[name, batch] = _cuda_ms(kernel, iters=5)
+            times[name, batch] = _device_ms(kernel, iters=5)
             bounds[name, batch] = _bound_ms(*cost)
             if batch == MAIN_BATCH:
                 times[name + "_plain", batch] = _cuda_ms(plain_fn, iters=1,
@@ -597,9 +1003,24 @@ def main() -> int:
             k["inverse"] = entry(inv, *STAGED[inv], staged_launches[inv])
             del k["inverse"]["launches"]
         kernels.append(k)
+    for name, (id_, replaces) in SERVER.items():
+        ms, plain_ms, bound = server_times[name, 6]
+        ms24, plain24, bound24 = server_times[name, 24]
+        kernels.append({
+            "name": name, "id": id_, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/server_eval.cu",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "matched_plain": True,
+            "launches": flow_launches["boot"][name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "shape": "boot level 6 B=1",
+            "at_level_24": {"ms": ms24, "plain_ms": plain24,
+                            "bound_ms": bound24[0], "bound_by": bound24[1]},
+        })
     print("library_ms: none; no single PyTorch call computes a negacyclic "
-          "NTT, a Philox RLWE encrypt, or the rotation-group-ordered df32 "
-          "SpecialFFT", flush=True)
+          "NTT, a Philox RLWE encrypt, the rotation-group-ordered df32 "
+          "SpecialFFT, an RNS rescale or a key switch", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

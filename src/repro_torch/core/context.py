@@ -1,9 +1,9 @@
 """CKKSParams, the named profiles and the per-profile CKKSContext.
 
-Port of ``repro.core.context`` without ``special_plan`` (server-side key
-switching, a later slice). Parameters and profiles are the reference's,
-value for value: a port client and a JAX client built from the same
-profile draw the same primes, plans and seeds.
+Port of ``repro.core.context``. Parameters and profiles are the
+reference's, value for value: a port client and a JAX client built from the
+same profile draw the same primes, plans and seeds, and ``special_plan``
+the same key-switching prime P.
 """
 
 from __future__ import annotations
@@ -70,6 +70,22 @@ class CKKSContext:
             nttmod.make_plan(p, params.n) for p in self.primes)
         if not params.delta < self.q_list[0] * self.q_list[1] / 4:
             raise ValueError("Delta too large for 2-limb decrypt")
+        self._n_plus_1 = n_plus_1
+        self._special_plan: nttmod.NTTPlan | None = None
+
+    def special_plan(self) -> nttmod.NTTPlan:
+        """NTT plan of the key-switching special prime P: the next prime of
+        the same eq.(8) search, run with count L+1 (the search is prefix-
+        stable, so the ciphertext primes are untouched). Built on first use:
+        a client that never makes evaluation keys never pays for it."""
+        if self._special_plan is None:
+            primes = find_ntt_friendly_primes(
+                p_bw=self.params.p_bw, n_plus_1=self._n_plus_1,
+                count=self.params.n_limbs + 1)
+            if primes[:-1] != self.primes:
+                raise AssertionError("prime search not prefix-stable")
+            self._special_plan = nttmod.make_plan(primes[-1], self.params.n)
+        return self._special_plan
 
     @property
     def n(self) -> int:

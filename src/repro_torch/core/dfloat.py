@@ -1,11 +1,15 @@
 """Double-float32 (df32) error-free arithmetic, as eager PyTorch.
 
 Port of ``repro.core.dfloat``: an unevaluated (hi, lo) pair of float32
-values, built from Dekker/Knuth error-free transforms. The order of every
-operation is the reference's, and each operation is a separate eager op, so
-nothing can contract a multiply and an add into an FMA (which would change
-the low word). Never run these under ``torch.compile``. Scalars enter as
-Python floats exactly representable in float32, or as float32 tensors.
+values (df32, the kernels' datapath) or of float64 values (df64, the exact
+host-side Delta-scale and CRT of ``datapath='f64'``), built from
+Dekker/Knuth error-free transforms. The Veltkamp splitter follows the
+operands' dtype (2^12 + 1 for float32, 2^27 + 1 for float64). The order of
+every operation is the reference's, and each operation is a separate eager
+op, so nothing can contract a multiply and an add into an FMA (which would
+change the low word). Never run these under ``torch.compile``. Scalars enter
+as Python floats exactly representable in the operands' dtype, or as
+tensors of that dtype.
 """
 
 from __future__ import annotations
@@ -15,7 +19,12 @@ from typing import NamedTuple
 import torch
 
 F32 = torch.float32
-_SPLIT = float(2 ** 12 + 1)       # Veltkamp splitter for a 24-bit mantissa
+F64 = torch.float64
+
+
+def _split_const(dtype) -> float:
+    """Veltkamp splitter 2^ceil(p/2) + 1 for a p-bit mantissa."""
+    return float(2 ** 12 + 1) if dtype == F32 else float(2 ** 27 + 1)
 
 
 class DF(NamedTuple):
@@ -46,9 +55,10 @@ def quick_two_sum(a, b):
 def two_prod(a, b):
     """Error-free a*b = p + e via Veltkamp splitting (no FMA)."""
     p = a * b
-    a_hi = _SPLIT * a - (_SPLIT * a - a)
+    c = _split_const(a.dtype)
+    a_hi = c * a - (c * a - a)
     a_lo = a - a_hi
-    b_hi = _SPLIT * b - (_SPLIT * b - b)
+    b_hi = c * b - (c * b - b)
     b_lo = b - b_hi
     e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
     return p, e
@@ -70,11 +80,40 @@ def df_mul(x: DF, y: DF) -> DF:
     return DF(*quick_two_sum(p, e))
 
 
-def df_const(value: float, device=None) -> DF:
-    """A Python float split into a df32 pair of 0-d float32 tensors."""
-    hi = torch.tensor(value, dtype=F32, device=device)
-    lo = torch.tensor(value - float(hi), dtype=F32, device=device)
+def df_const(value: float, device=None, dtype=F32) -> DF:
+    """A Python float split into a pair of 0-d `dtype` tensors."""
+    hi = torch.tensor(value, dtype=dtype, device=device)
+    lo = torch.tensor(value - float(hi), dtype=dtype, device=device)
     return DF(hi, lo)
+
+
+def df_from(x: torch.Tensor, dtype=F32) -> DF:
+    """Wider float tensor -> (hi, lo) pair of `dtype`: hi = cast, lo = the
+    residual (zero when `x` already has `dtype`)."""
+    hi = x.to(dtype)
+    if x.dtype == dtype:
+        return DF(hi, torch.zeros_like(hi))
+    return DF(hi, (x - hi.to(x.dtype)).to(dtype))
+
+
+def df_to_float(x: DF) -> torch.Tensor:
+    """Collapse a pair to one float64 tensor."""
+    return x.hi.to(F64) + x.lo.to(F64)
+
+
+def df_round(x: DF) -> DF:
+    """Round to the nearest integer (ties to even), keeping a value wider
+    than the mantissa exactly as an integer-valued pair."""
+    rh = torch.round(x.hi)
+    frac = (x.hi - rh) + x.lo            # exact: |x.hi - rh| <= 0.5
+    rl = torch.round(frac)
+    return DF(*quick_two_sum(rh, rl))
+
+
+def dfc_from_parts(re: torch.Tensor, im: torch.Tensor,
+                   dtype=F32) -> DFComplex:
+    """Real / imaginary float64 parts -> a complex pair of `dtype`."""
+    return DFComplex(df_from(re, dtype), df_from(im, dtype))
 
 
 def dfc_from_planes(planes) -> DFComplex:

@@ -3,7 +3,9 @@
 Port of ``repro.core.encryptor`` (the client path): the PRNG stream-id
 layout (unchanged, so port and reference draw the same streams), ``keygen``
 (bit-identical ``s_mont``/``b_mont``/``a_mont`` for the same seed), and
-``SecretKey`` / ``PublicKey`` / ``CiphertextBatch``. Keys and ciphertexts
+``SecretKey`` / ``PublicKey`` / ``Ciphertext`` / ``CiphertextBatch``
+(whose indexing and iteration yield per-row ``Ciphertext`` views, the list
+interop ``FHEClient.decrypt_batch`` takes). Keys and ciphertexts
 are stored as int32 tensors holding uint32 words: the layout the CUDA
 kernels read.
 
@@ -44,6 +46,16 @@ class PublicKey:
 
 
 @dataclasses.dataclass
+class Ciphertext:
+    """One (L, N) int32 ciphertext (NTT domain) with its scale."""
+
+    c0: torch.Tensor
+    c1: torch.Tensor
+    n_limbs: int
+    scale: float
+
+
+@dataclasses.dataclass
 class CiphertextBatch:
     """(B, L, N) int32 residue stacks (NTT domain) with one shared scale."""
 
@@ -54,6 +66,29 @@ class CiphertextBatch:
 
     def __len__(self) -> int:
         return self.c0.shape[0]
+
+    def __getitem__(self, i: int) -> Ciphertext:
+        return Ciphertext(c0=self.c0[i], c1=self.c1[i],
+                          n_limbs=self.n_limbs, scale=self.scale)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    @classmethod
+    def from_cts(cls, cts) -> "CiphertextBatch":
+        """Stack ciphertexts of one shared scale (at the fewest limbs)."""
+        cts = list(cts)
+        if not cts:
+            raise ValueError("cannot build a CiphertextBatch from 0 "
+                             "ciphertexts")
+        if any(ct.scale != cts[0].scale for ct in cts):
+            raise ValueError("CiphertextBatch holds one shared scale; for "
+                             "mixed scales decode rows with a per-row "
+                             "scale array (FHEClient.decrypt_batch does)")
+        n_limbs = min(ct.n_limbs for ct in cts)
+        return cls(c0=torch.stack([ct.c0[:n_limbs] for ct in cts]),
+                   c1=torch.stack([ct.c1[:n_limbs] for ct in cts]),
+                   n_limbs=n_limbs, scale=cts[0].scale)
 
     def truncated(self, n_limbs: int) -> "CiphertextBatch":
         """First `n_limbs` limbs (the 2-limb server-return view); a view,

@@ -124,11 +124,16 @@ def mulmod_montgomery_limb_t(a, b_mont, q, qinv_neg):
 
 def mulmod_barrett_limb(a, b, c: MontgomeryConstants):
     """Barrett on 32-bit limbs (plain residues), as the reference."""
-    q = c.q
-    p = q.bit_length()
+    return mulmod_barrett_t(a, b, c.q, c.mu, c.q.bit_length())
+
+
+def mulmod_barrett_t(a, b, q, mu, p):
+    """``mulmod_barrett_limb`` with the constants (q, mu = 2^2p // q, p =
+    bitlen(q)) as Python ints or broadcastable int64 tensors (one prime per
+    row)."""
     t_hi, t_lo = mul32x32(a, b)
     t1 = ((t_hi << (32 - (p - 1))) | (t_lo >> (p - 1))) & MASK32
-    f_hi, f_lo = mul32x32(t1, c.mu)
+    f_hi, f_lo = mul32x32(t1, mu)
     m = ((f_hi << (32 - (p + 1))) | (f_lo >> (p + 1))) & MASK32
     mq_hi, mq_lo = mul32x32(m, q)
     borrow = (t_lo < mq_lo).to(torch.int64)

@@ -75,6 +75,29 @@ def uniform_mod_q(seed128: int, stream: int, n: int, q: int, device=None):
     return modmul.addmod(t, lo_red, q)
 
 
+def uniform_mod_q_rows(seed128: int, streams, n: int, q_list,
+                       device=None) -> torch.Tensor:
+    """(rows, n) ``uniform_mod_q`` draws at once: row i draws stream
+    streams[i] reduced mod q_list[i], the same words row by row."""
+    rows = len(q_list)
+
+    def col(values):
+        return torch.tensor([int(v) for v in values], dtype=torch.int64,
+                            device=device).reshape(rows, 1)
+
+    stream = col(s & MASK32 for s in streams)
+    q = col(q_list)
+    mu = col((1 << (2 * int(qi).bit_length())) // int(qi) for qi in q_list)
+    p = col(int(qi).bit_length() for qi in q_list)
+    r_mod = col((1 << 32) % int(qi) for qi in q_list)
+    hi = random_u32_rows(seed128, stream, n, 0)
+    lo = random_u32_rows(seed128, stream, n, 1)
+    hi_red = modmul.mulmod_barrett_t(hi, 1, q, mu, p)
+    t = modmul.mulmod_barrett_t(hi_red, r_mod, q, mu, p)
+    lo_red = modmul.mulmod_barrett_t(lo, 1, q, mu, p)
+    return modmul.addmod(t, lo_red, q)
+
+
 def ternary(seed128: int, stream: int, n: int, device=None):
     """Uniform {-1, 0, +1} secret (density 2/3), int32."""
     u = random_u32(seed128, stream, n, device=device)

@@ -1,11 +1,20 @@
-"""Exact RNS digit reduction and two-limb CRT on the uint32 datapath.
+"""Exact RNS reduction, two-limb CRT and key-switch digits.
 
-Port of the df32 half of ``repro.core.rns``: balanced base-2^22 digits ->
-per-limb residues (``digits_to_residue``, or every limb at once:
-``digits_to_residues_stacked``), the two-limb CRT to a centered
-(sign, hi, lo) word pair (``crt2_centered_u32``, reducing modulo fl64(Q)
-as the reference does) and the exact /scale collapse to a df32 pair
-(``centered_to_df``). Residues are int64 tensors holding uint32 values.
+Port of ``repro.core.rns``:
+
+  * the df32 datapath: balanced base-2^22 digits -> per-limb residues
+    (``digits_to_residue``, or every limb at once:
+    ``digits_to_residues_stacked``), the two-limb CRT to a centered
+    (sign, hi, lo) word pair (``crt2_centered_u32``, reducing modulo
+    fl64(Q) as the reference does) and the exact /scale collapse to a df32
+    pair (``centered_to_df``);
+  * the f64 datapath: integer-valued df64 pairs -> residues by exact fmod
+    (``to_rns_df``) and the two-limb CRT to a centered df64 pair
+    (``crt2_to_df``; its products t*q < 2^62 are carried in int64);
+  * the key-switch decomposition: ``ks_center_t`` (residue -> centered
+    digit) and ``ks_residue_t`` (digit -> residue on another prime).
+
+Residues are int64 tensors holding uint32 values.
 """
 
 from __future__ import annotations
@@ -18,6 +27,64 @@ from repro_torch.core import dfloat as dfl
 from repro_torch.core import modmul
 
 DIGIT_BITS = 22
+
+
+# ---------------------------------------------------------------------------
+# the f64 datapath: exact df64 pairs
+# ---------------------------------------------------------------------------
+
+
+def to_rns_df(x: dfl.DF, q_list) -> torch.Tensor:
+    """Integer-valued float64 pair (..., N) -> (L, ..., N) int64 residues.
+    fmod of an integer-valued double by q < 2^31 is exact, so each residue
+    is an exact function of the integer hi + lo."""
+    qf = torch.tensor([float(q) for q in q_list], dtype=torch.float64,
+                      device=x.hi.device).reshape(
+        (len(q_list),) + (1,) * x.hi.dim())
+    r = torch.fmod(x.hi[None], qf) + torch.fmod(x.lo[None], qf)  # (-2q, 2q)
+    r = torch.fmod(r, qf)
+    r = torch.where(r < 0, r + qf, r)
+    return r.to(torch.int64)
+
+
+def _prod_df(a: torch.Tensor, b: float) -> dfl.DF:
+    hi, lo = dfl.two_prod(a, torch.tensor(b, dtype=torch.float64,
+                                          device=a.device))
+    return dfl.DF(hi, lo)
+
+
+def _cond_sub(v: dfl.DF, q: float) -> dfl.DF:
+    over = v.hi >= q
+    vq = dfl.df_sub(v, dfl.df_const(q, v.hi.device, torch.float64))
+    return dfl.DF(torch.where(over, vq.hi, v.hi),
+                  torch.where(over, vq.lo, v.lo))
+
+
+def crt2_to_df(c0: torch.Tensor, c1: torch.Tensor, q0: int,
+               q1: int) -> dfl.DF:
+    """Two-limb CRT -> the centered integer as an exact df64 pair.
+    x = [c0 g0]_{q0} q1 + [c1 g1]_{q1} q0 (mod Q); each product t_i q_j <
+    2^62 is made exact with two_prod, the sum and the conditional
+    subtractions of fl64(Q) stay in df64. c0/c1: int64 residues."""
+    g0 = pow(q1 % q0, -1, q0)
+    g1 = pow(q0 % q1, -1, q1)
+    t0 = (c0.to(torch.int64) * g0) % q0          # < 2^63: exact in int64
+    t1 = (c1.to(torch.int64) * g1) % q1
+    a = _prod_df(t0.to(torch.float64), float(q1))
+    b = _prod_df(t1.to(torch.float64), float(q0))
+    v = dfl.df_add(a, b)                         # < 2Q
+    qq = q0 * q1
+    v = _cond_sub(v, float(qq))                  # mod Q
+    half = float(qq) / 2.0
+    over = v.hi > half
+    vq = dfl.df_sub(v, dfl.df_const(float(qq), v.hi.device, torch.float64))
+    return dfl.DF(torch.where(over, vq.hi, v.hi),
+                  torch.where(over, vq.lo, v.lo))
+
+
+# ---------------------------------------------------------------------------
+# the df32 datapath: base-2^22 digits and u32 word pairs
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=256)
@@ -116,3 +183,22 @@ def centered_to_df(sign, hi, lo, inv_scale) -> dfl.DF:
     w2 = (hi & 0xFFFF).to(dfl.F32) * 2.0 ** 32 * s
     w3 = (hi >> 16).to(dfl.F32) * 2.0 ** 48 * s
     return dfl.terms4_to_df(w3, w2, w1, w0)
+
+
+# ---------------------------------------------------------------------------
+# key-switch decomposition (server-side evaluation)
+# ---------------------------------------------------------------------------
+# Every prime of the eq.(8) family lies in [2^30, 2^31), so a digit centered
+# on its source prime (|w| <= q_src/2 < 2^30) is below every target modulus:
+# base extension is one conditional add, no reduction.
+
+
+def ks_center_t(v: torch.Tensor, q) -> torch.Tensor:
+    """Residues in [0, q) -> centered digits in (-q/2, q/2] (q odd: values
+    above q >> 1 map down by q), as int64 tensors."""
+    return torch.where(v > (q >> 1), v - q, v)
+
+
+def ks_residue_t(w: torch.Tensor, q) -> torch.Tensor:
+    """Centered digit |w| < q -> its residue mod q (one conditional add)."""
+    return torch.where(w < 0, w + q, w)

@@ -1,20 +1,26 @@
-"""FHE client: batched CKKS encode+encrypt and decrypt+decode on the card.
+"""FHE client: batched CKKS encode+encrypt and decrypt+decode on the card,
+and the evaluation keys a server evaluates with.
 
-Port of ``repro.fhe_client.client.FHEClient`` with ``fourier='device'``
-and ``datapath='df32'``, in both of the reference's pipelines:
+Port of ``repro.fhe_client.client.FHEClient`` with ``fourier='device'``, in
+both of the reference's pipelines:
 
   * ``pipeline='megakernel'`` (the default): each direction is one CUDA
-    megakernel launch (K5, K6);
+    megakernel launch (K5, K6), on the df32 datapath;
   * ``pipeline='staged'``: the same client operation split into separate
-    launches, with plain eager torch glue between them on the card.
-    encode: SpecialIFFT (K4) -> Delta-scale digits and RNS -> limb-folded
-    NTT (K1) -> folded encrypt (K2); decode: folded decrypt + INTT (K3) ->
-    CRT and /Delta -> SpecialFFT (K4).
+    launches, with plain eager torch glue between them on the card. On the
+    df32 datapath (the default) encode is SpecialIFFT (K4) -> Delta-scale
+    digits and RNS -> limb-folded NTT (K1) -> folded encrypt (K2), and
+    decode folded decrypt + INTT (K3) -> CRT and /Delta -> SpecialFFT (K4).
+    ``datapath='f64'`` keeps the same kernels and carries the glue in
+    float64: the df64 Delta-scale and fmod RNS, the df64 two-limb CRT and a
+    float64 /scale. It takes any scale (the df32 datapath only powers of
+    two), which a server's ct x ct rescales produce.
 
 ``kernels.ops`` sends CUDA tensors to the kernels and CPU tensors to their
 plain PyTorch versions. Messages are packed as in the reference;
 ciphertexts from the same seed and nonce base are bit-identical to the JAX
-client's, and the two pipelines give the same ciphertexts.
+client's, whatever the pipeline or datapath. ``make_evaluation_keys`` makes
+the relinearization and rotation keys of ``fhe_server.ServerEvaluator``.
 
 The client runs on ``device`` (default ``cuda``; no silent CPU fall-back:
 the tests pass ``device='cpu'`` explicitly).
@@ -31,17 +37,18 @@ from repro_torch.core import dfloat as dfl
 from repro_torch.core import encoder, encryptor, modmul, rns
 from repro_torch.core.context import CKKSContext, get_context
 from repro_torch.core.encryptor import CiphertextBatch
+from repro_torch.fhe_server import keys as server_keys
+from repro_torch.fhe_server.ct import ServerPlaintext
 from repro_torch.kernels import ops as kops
 
 PIPELINES = ("staged", "megakernel")
+DATAPATHS = ("df32", "f64")
 
 # configurations of the reference client that the port has not ported yet,
 # and the ROADMAP.md item that will port each
-_NOT_PORTED = {
-    "fourier": ("device", "fourier='host' (ROADMAP.md queue 1, item 6)"),
-    "datapath": ("df32", "datapath='f64' (ROADMAP.md queue 1, item 6; "
-                 "queue 2, the f64 branches of K5/K6)"),
-}
+_FOURIER_TODO = "fourier='host' (ROADMAP.md queue 1, item 6)"
+_F64_MEGA_TODO = ("datapath='f64' with pipeline='megakernel': the f64 "
+                  "branches of K5/K6 (ROADMAP.md queue 2)")
 
 
 @dataclasses.dataclass
@@ -50,16 +57,22 @@ class ClientKeys:
     pk: encryptor.PublicKey
 
 
+def _words(a, ndim: int, what: str, device) -> torch.Tensor:
+    """A uint32 (or int32) numpy array of `ndim` dimensions as the int32
+    tensor of the same words on `device`."""
+    a = np.ascontiguousarray(a)
+    if a.dtype not in (np.uint32, np.int32) or a.ndim != ndim:
+        raise ValueError(f"expected {what} uint32 array, got {a.dtype} "
+                         f"{a.shape}")
+    return torch.tensor(a.view(np.int32), device=device)
+
+
 def keys_from_numpy(s_mont, b_mont, a_mont, s_coeffs, device) -> ClientKeys:
     """Client keys from numpy arrays (e.g. the JAX client's ``ClientKeys``:
     (L, N) uint32 ``s_mont``/``b_mont``/``a_mont``, (N,) int32 ternary
     ``s_coeffs``) as the port's int32 tensors on `device`."""
     def words(a):
-        a = np.ascontiguousarray(a)
-        if a.dtype not in (np.uint32, np.int32) or a.ndim != 2:
-            raise ValueError(f"expected an (L, N) uint32 array, got "
-                             f"{a.dtype} {a.shape}")
-        return torch.tensor(a.view(np.int32), device=device)
+        return _words(a, 2, "an (L, N)", device)
 
     sk = encryptor.SecretKey(
         s_mont=words(s_mont),
@@ -68,28 +81,61 @@ def keys_from_numpy(s_mont, b_mont, a_mont, s_coeffs, device) -> ClientKeys:
     return ClientKeys(sk, pk)
 
 
+def evaluation_keys_from_numpy(n: int, n_limbs: int, special_q: int, relin,
+                               rot: dict,
+                               device) -> server_keys.EvaluationKeys:
+    """Evaluation keys from numpy arrays (e.g. the JAX client's
+    ``EvaluationKeys``): `relin` a (b_mont, a_mont) pair or None, `rot`
+    {r: (b_mont, a_mont)}, each (L, L+1, N) uint32, as the port's int32
+    tensors on `device`."""
+    def ksk(pair):
+        b, a = (_words(x, 3, "an (L, L+1, N)", device) for x in pair)
+        return server_keys.KeySwitchKey(b_mont=b, a_mont=a)
+
+    return server_keys.EvaluationKeys(
+        n=int(n), n_limbs=int(n_limbs), special_q=int(special_q),
+        relin=None if relin is None else ksk(relin),
+        rot={int(r): ksk(pair) for r, pair in rot.items()})
+
+
+def server_plaintext_from_numpy(data, data_mont, level: int, scale: float,
+                                device) -> ServerPlaintext:
+    """A server plaintext from numpy arrays (e.g. the JAX package's
+    ``ServerPlaintext``: (level, N) uint32 ``data`` / ``data_mont``)."""
+    return ServerPlaintext(
+        data=_words(data, 2, "a (level, N)", device),
+        data_mont=_words(data_mont, 2, "a (level, N)", device),
+        level=int(level), scale=float(scale))
+
+
 class FHEClient:
     """Client-side encode/encrypt + decode/decrypt over model activations.
 
     ``profile`` is a profile name or a ``CKKSParams``. ``pipeline`` is
-    ``'megakernel'`` (default) or ``'staged'``; ``fourier='host'`` and
-    ``datapath='f64'`` are not ported yet and raise ``NotImplementedError``
-    naming the ROADMAP item that will port them.
+    ``'megakernel'`` (default) or ``'staged'``; ``datapath`` is ``'df32'``
+    (default) or ``'f64'`` (staged pipeline only). ``fourier='host'`` and
+    ``datapath='f64'`` with the megakernel are not ported yet and raise
+    ``NotImplementedError`` naming the ROADMAP item that will port them.
     """
 
     def __init__(self, profile="test", seed: int | None = None, device=None,
                  fourier: str = "device", pipeline: str | None = None,
                  datapath: str | None = None):
-        for name, value in (("fourier", fourier), ("datapath", datapath)):
-            ported, todo = _NOT_PORTED[name]
-            if value is not None and value != ported:
-                raise NotImplementedError(f"{name}={value!r} is not ported "
-                                          f"yet: {todo}")
+        if fourier != "device":
+            raise NotImplementedError(f"fourier={fourier!r} is not ported "
+                                      f"yet: {_FOURIER_TODO}")
         pipeline = "megakernel" if pipeline is None else pipeline
         if pipeline not in PIPELINES:
             raise ValueError(f"pipeline must be one of {PIPELINES}, got "
                              f"{pipeline!r}")
+        datapath = "df32" if datapath is None else datapath
+        if datapath not in DATAPATHS:
+            raise ValueError(f"datapath must be one of {DATAPATHS}, got "
+                             f"{datapath!r}")
+        if datapath == "f64" and pipeline == "megakernel":
+            raise NotImplementedError(f"not ported yet: {_F64_MEGA_TODO}")
         self.pipeline = pipeline
+        self.datapath = datapath
         if device is None:
             device = torch.device("cuda")
         self.device = torch.device(device)
@@ -98,7 +144,8 @@ class FHEClient:
                                "CUDA is not available; pass device='cpu' "
                                "for the plain PyTorch path")
         self.ctx: CKKSContext = get_context(profile)
-        encoder._check_pow2_delta(self.ctx.params.delta)
+        if datapath == "df32":
+            encoder._check_pow2_delta(self.ctx.params.delta)
         # keys both keygen and every encryption's (v, e0, e1) streams
         self.seed = int(seed) if seed is not None else self.ctx.params.seed
         self.keys = ClientKeys(*encryptor.keygen(self.ctx, seed=self.seed,
@@ -109,6 +156,16 @@ class FHEClient:
         """Replace the keys with numpy arrays (``keys_from_numpy``)."""
         self.keys = keys_from_numpy(s_mont, b_mont, a_mont, s_coeffs,
                                     self.device)
+
+    def make_evaluation_keys(self, rotations=()):
+        """Relinearization and rotation keys for a
+        ``fhe_server.ServerEvaluator`` (hybrid key switching, one special
+        prime), on the client's device. Only RLWE-encrypted key pairs leave
+        this method. ``rotations``: the slot left-rotations the server may
+        apply (e.g. ``fhe_server.inference.matvec_rotations(d)``); the key
+        stream is seeded by the profile's seed, as in the reference."""
+        return server_keys.make_evaluation_keys(self.ctx, self.keys.sk,
+                                                rotations=rotations)
 
     # --- message packing ----------------------------------------------------
 
@@ -137,10 +194,14 @@ class FHEClient:
     # --- operands and results -----------------------------------------------
 
     def encrypt_operands(self, messages) -> tuple:
-        """(B, n_slots) complex -> four float32 df planes (re_hi, re_lo,
-        im_hi, im_lo) on the client's device; the split is host numpy, as
-        in the reference."""
+        """(B, n_slots) complex -> the encrypt core's operands on the
+        client's device: four float32 df planes (re_hi, re_lo, im_hi,
+        im_lo), split in host numpy as in the reference, on the df32
+        datapath; the float64 (re, im) parts on the f64 datapath."""
         msgs = np.asarray(messages, np.complex128)
+        if self.datapath == "f64":
+            return (torch.from_numpy(msgs.real.copy()).to(self.device),
+                    torch.from_numpy(msgs.imag.copy()).to(self.device))
         rh = msgs.real.astype(np.float32)
         ih = msgs.imag.astype(np.float32)
         rl = (msgs.real - rh).astype(np.float32)
@@ -149,8 +210,12 @@ class FHEClient:
                      for p in (rh, rl, ih, il))
 
     def _scale_operand(self, scale, batch: int) -> torch.Tensor:
-        """(B,) float32 scales; only powers of two (exact in float32)."""
+        """Per-row scales: (B,) float32 on the df32 datapath (powers of two
+        only, exact in float32), (B, 1) float64 on the f64 datapath."""
         s = np.asarray(scale, np.float64)
+        if self.datapath == "f64":
+            s = np.broadcast_to(s.reshape(-1), (batch,)).reshape(batch, 1)
+            return torch.tensor(s, dtype=torch.float64, device=self.device)
         for v in np.atleast_1d(s).ravel():
             encoder._check_pow2_delta(v)
         s = np.broadcast_to(s.reshape(-1), (batch,)).astype(np.float32)
@@ -162,7 +227,12 @@ class FHEClient:
                 self._scale_operand(cts.scale, len(cts)))
 
     def decrypt_results(self, parts) -> np.ndarray:
-        """Four float32 planes -> (B, n_slots) complex128 (f64 collapse)."""
+        """The decrypt core's parts -> (B, n_slots) complex128: four float32
+        planes collapsed in float64 (df32), or the float64 (re, im) parts
+        (f64)."""
+        if self.datapath == "f64":
+            re, im = (p.cpu().numpy() for p in parts)
+            return re + 1j * im
         rh, rl, ih, il = (p.cpu().numpy().astype(np.float64) for p in parts)
         return (rh + rl) + 1j * (ih + il)
 
@@ -230,20 +300,48 @@ class FHEClient:
         planes = (x.hi[:, :ns], x.lo[:, :ns], x.hi[:, ns:], x.lo[:, ns:])
         return kops.special_fft_planes(planes, ctx.params.m)
 
+    def _encrypt_core_dev_impl(self, re, im, nonce0: int):
+        """The staged encode+encrypt on the f64 datapath: SpecialIFFT (K4)
+        between float64 and df32, exact df64 Delta-scale and fmod RNS,
+        limb-folded NTT (K1), fused encrypt (K2)."""
+        ctx = self.ctx
+        coeffs = encoder.slots_to_coeffs_device(re, im, ctx)    # (B, N)
+        pt = encoder.coeffs_to_plaintext_data(coeffs, ctx,
+                                              ctx.params.n_limbs)
+        return kops.encrypt_fused(pt.transpose(0, 1), self.keys.pk.b_mont,
+                                  self.keys.pk.a_mont, ctx, seed=self.seed,
+                                  nonce0=nonce0)              # (B, L, N)
+
+    def _decrypt_core_dev_impl(self, c0, c1, scale):
+        """The staged decrypt+decode on the f64 datapath: fused decrypt +
+        INTT (K3), df64 two-limb CRT, float64 /scale, SpecialFFT (K4).
+        `scale`: (B, 1) float64, any value."""
+        ctx = self.ctx
+        m = kops.decrypt_fused(c0, c1, self.keys.sk.s_mont, ctx)
+        v = rns.crt2_to_df(modmul.u32_to_i64(m[:, 0]),
+                           modmul.u32_to_i64(m[:, 1]), ctx.q_list[0],
+                           ctx.q_list[1])
+        return encoder.coeffs_to_slots_device(v.hi, v.lo, ctx, scale)
+
     @property
     def encrypt_impl(self):
-        """Encrypt core ``f(rh, rl, ih, il, nonce0) -> (c0, c1)`` of the
-        configured pipeline (row-independent over the batch)."""
+        """Encrypt core ``f(*operands, nonce0) -> (c0, c1)`` of the
+        configured pipeline and datapath (row-independent over the
+        batch)."""
         if self.pipeline == "megakernel":
             return self._encrypt_core_mega32_impl
+        if self.datapath == "f64":
+            return self._encrypt_core_dev_impl
         return self._encrypt_core_dev32_impl
 
     @property
     def decrypt_impl(self):
-        """Decrypt core ``f(c0, c1, scale) -> four planes`` of the
-        configured pipeline."""
+        """Decrypt core ``f(c0, c1, scale) -> parts`` of the configured
+        pipeline and datapath."""
         if self.pipeline == "megakernel":
             return self._decrypt_core_mega32_impl
+        if self.datapath == "f64":
+            return self._decrypt_core_dev_impl
         return self._decrypt_core_dev32_impl
 
     # --- the two client operations -------------------------------------------
@@ -259,13 +357,32 @@ class FHEClient:
                                scale=p.delta)
 
     def decrypt_planes(self, cts: CiphertextBatch) -> tuple:
-        """CiphertextBatch (first 2 limbs used) -> four (B, n_slots)
-        float32 decoded planes on the device."""
+        """CiphertextBatch (first 2 limbs used) -> the decoded parts on the
+        device: four (B, n_slots) float32 planes (df32), or the float64
+        (re, im) parts (f64)."""
         return self.decrypt_impl(*self.decrypt_operands(cts))
 
     def decrypt_decode_batch(self, cts: CiphertextBatch) -> np.ndarray:
         """CiphertextBatch -> (B, n_slots) complex messages."""
         return self.decrypt_results(self.decrypt_planes(cts))
+
+    # --- list[Ciphertext] interop --------------------------------------------
+
+    def encrypt_batch(self, messages: np.ndarray) -> list:
+        """(B, n_slots) complex -> list of per-row ciphertext views."""
+        return list(self.encode_encrypt_batch(messages))
+
+    def decrypt_batch(self, cts) -> np.ndarray:
+        """Server-returned ciphertexts -> (B, n_slots) complex. Takes a
+        CiphertextBatch or a list of Ciphertexts, whose rows may carry
+        scales of their own (e.g. different rescale depths)."""
+        if isinstance(cts, CiphertextBatch):
+            return self.decrypt_decode_batch(cts)
+        cts = list(cts)
+        c0 = torch.stack([ct.c0[:2] for ct in cts])
+        c1 = torch.stack([ct.c1[:2] for ct in cts])
+        scale = self._scale_operand([ct.scale for ct in cts], len(cts))
+        return self.decrypt_results(self.decrypt_impl(c0, c1, scale))
 
     def ciphertext_bytes(self, seeded: bool = False) -> int:
         p = self.ctx.params

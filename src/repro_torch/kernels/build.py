@@ -55,7 +55,22 @@ ENTRY_POINTS = {
         "client_pointwise.cu",
         [_P, _P, ctypes.c_longlong] + [_P] * 3 + [_I32] * 4 + [_P]),
     "fft_rows_launch": ("fft_df.cu", [_P] * 9 + [_I32] * 3 + [_P]),
+    "server_pointwise_launch": (
+        "server_eval.cu", [_I32] + [_P] * 7 + [_I32] * 4 + [_P]),
+    "server_rescale_launch": (
+        "server_eval.cu", [_P] * 7 + [_I32] * 5 + [_P]),
+    "server_ks_decompose_launch": (
+        "server_eval.cu", [_P] * 4 + [_I32] * 4 + [_P]),
+    "server_ks_apply_rot_launch": (
+        "server_eval.cu", [_P] * 10 + [_I32] * 5 + [_P]),
+    "server_rotate_launch": (
+        "server_eval.cu", [_P] * 12 + [_I32] * 5 + [_P]),
+    "server_mul_ct_launch": (
+        "server_eval.cu", [_P] * 18 + [_I32] * 7 + [_P]),
 }
+
+# headers every source includes (a change rebuilds every library)
+HEADERS = ("client_common.cuh", "server_common.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -74,7 +89,7 @@ def _nvcc() -> str:
 
 def source_hash(source: str) -> str:
     h = hashlib.sha256()
-    for f in (source, "client_common.cuh"):
+    for f in (source,) + HEADERS:
         h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

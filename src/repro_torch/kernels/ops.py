@@ -11,7 +11,8 @@ kernel cannot be built or launched raises.
   * ``encrypt_fused`` / ``decrypt_fused``: the limb-folded encrypt (K2) and
     decrypt (K3);
   * ``encode_encrypt_stream`` / ``decrypt_decode_stream``: the megakernels
-    (K5, K6).
+    (K5, K6);
+  * ``server_*``: the server-side CKKS op set (K7-K11, ``server_eval``).
 
 Each module's CUDA wrappers count their launches; ``launches()`` reads all
 counters and ``reset_launches()`` sets them to 0.
@@ -21,9 +22,10 @@ from __future__ import annotations
 
 from repro_torch.core.context import CKKSContext
 from repro_torch.kernels import (client_pointwise, client_stream, common,
-                                 fft_df, ntt_butterfly)
+                                 fft_df, ntt_butterfly, server_eval)
 
-_COUNTED = (client_stream, ntt_butterfly, client_pointwise, fft_df)
+_COUNTED = (client_stream, ntt_butterfly, client_pointwise, fft_df,
+            server_eval)
 
 
 def launches() -> dict[str, int]:
@@ -168,3 +170,53 @@ def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale):
                                                         scale)
     return client_stream.decrypt_decode_stream_plain(c0, c1, s_mont, ctx,
                                                      scale)
+
+
+# ---------------------------------------------------------------------------
+# Server-side eval ops (K7-K11)
+# ---------------------------------------------------------------------------
+# Ciphertexts (B, l, N), plaintexts (l, N), keys (l, l+1, N), permutations
+# (1, N) int32. A CUDA call takes contiguous operands: a non-contiguous view
+# (``ServerCiphertext.drop_to`` of a batch, a key slice) is copied first.
+
+
+def _server(name: str, x, *args):
+    if common.route(x.device) == "cuda":
+        args = tuple(a.contiguous() if hasattr(a, "contiguous") else a
+                     for a in args)
+        return getattr(server_eval, name + "_cuda")(*args)
+    return getattr(server_eval, name + "_plain")(*args)
+
+
+def server_add_ct(c0a, c1a, c0b, c1b, ctx: CKKSContext):
+    return _server("add_ct", c0a, c0a, c1a, c0b, c1b, ctx)
+
+
+def server_add_pt(c0, c1, pt, ctx: CKKSContext):
+    return _server("add_pt", c0, c0, c1, pt, ctx)
+
+
+def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, rescale: bool = False):
+    """ct x pt (K7), or fused with the rescale that follows (K8b)."""
+    return _server("mul_pt_rescale" if rescale else "mul_pt", c0, c0, c1,
+                   pt_mont, ctx)
+
+
+def server_rescale(c0, c1, ctx: CKKSContext):
+    return _server("rescale", c0, c0, c1, ctx)
+
+
+def server_mul_ct(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext):
+    return _server("mul_ct_relin", a0, a0, a1, b0, b1, ksk_b, ksk_a, ctx)
+
+
+def server_rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext):
+    return _server("rotate", c0, c0, c1, perm, ksk_b, ksk_a, ctx)
+
+
+def server_ks_decompose(c1, ctx: CKKSContext):
+    return _server("ks_decompose", c1, c1, ctx)
+
+
+def server_ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext):
+    return _server("ks_apply_rot", c0, c0, h, perm, ksk_b, ksk_a, ctx)

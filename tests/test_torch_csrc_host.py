@@ -5,10 +5,10 @@ in code that also compiles as plain C++ (one thread per block, barriers as
 no-ops; every phase is race-free, so that build computes what the kernel
 computes). Here g++ builds every source that way (the megakernels
 ``encode_encrypt.cu`` / ``decrypt_decode.cu`` and the staged kernels
-``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``), with
-``-ffp-contract=off`` (the host twin of ``--fmad=false``), and each
-``_host`` entry's results must equal the plain PyTorch version word for
-word. The
+``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``, and the server
+op set ``server_eval.cu``), with ``-ffp-contract=off`` (the host twin of
+``--fmad=false``), and each ``_host`` entry's results must equal the plain
+PyTorch version word for word. The
 CUDA build itself, its launch and its agreement on the card are checked by
 ``chip_smoke.py``. Skips where no C++ compiler is installed.
 """
@@ -22,15 +22,17 @@ import pytest
 import torch
 
 from repro_torch.core import prng, rns
+from repro_torch.core.context import get_context
 from repro_torch.fhe_client.client import FHEClient
+from repro_torch.fhe_server import keys as skeys
 from repro_torch.kernels import (build, client_pointwise, client_stream,
-                                 common, fft_df, ntt_butterfly)
+                                 common, fft_df, ntt_butterfly, server_eval)
 
 _P = ctypes.c_void_p
 
 
 _SOURCES = ("encode_encrypt.cu", "decrypt_decode.cu", "ntt_limbs.cu",
-            "client_pointwise.cu", "fft_df.cu")
+            "client_pointwise.cu", "fft_df.cu", "server_eval.cu")
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint32
@@ -48,6 +50,13 @@ _HOST_ENTRIES = {
     "decrypt_limbs_host": ("client_pointwise.cu",
                            [_P, _P, _LL] + [_P] * 3 + [_I] * 4),
     "fft_rows_host": ("fft_df.cu", [_P] * 9 + [_I] * 3),
+    "server_pointwise_host": ("server_eval.cu",
+                              [_I] + [_P] * 7 + [_I] * 4),
+    "server_rescale_host": ("server_eval.cu", [_P] * 7 + [_I] * 5),
+    "server_ks_decompose_host": ("server_eval.cu", [_P] * 4 + [_I] * 4),
+    "server_ks_apply_rot_host": ("server_eval.cu", [_P] * 10 + [_I] * 5),
+    "server_rotate_host": ("server_eval.cu", [_P] * 12 + [_I] * 5),
+    "server_mul_ct_host": ("server_eval.cu", [_P] * 18 + [_I] * 7),
 }
 
 
@@ -257,3 +266,111 @@ def test_kernel_table_offsets_match_host_layout(profile):
         want = (tuple(ns - (ns >> s) for s in stages) if inverse
                 else tuple((1 << s) - 1 for s in stages))
         assert tuple(offsets) == want
+
+
+# ---------------------------------------------------------------------------
+# the server op set (server_eval.cu) against kernels/server_eval.py
+# ---------------------------------------------------------------------------
+
+_SERVER_OPS = ("add_ct", "add_pt", "mul_pt", "rescale", "mul_pt_rescale",
+               "mul_ct", "rotate", "hoisted")
+
+
+def _words(rng, q_rows, shape) -> np.ndarray:
+    """Random uint32 residues of shape (..., rows, N), row r below
+    q_rows[r]."""
+    q = np.asarray(q_rows, np.uint64)[:, None]
+    return (rng.integers(0, 1 << 32, shape, dtype=np.uint64) % q
+            ).astype(np.uint32)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a).view(np.int32))
+
+
+def _zeros(*shape) -> np.ndarray:
+    return np.zeros(shape, np.uint32)
+
+
+@pytest.mark.parametrize("op", _SERVER_OPS)
+@pytest.mark.parametrize("profile,level", [("tiny", 3), ("tinyboot", 6)])
+def test_host_server_ops_match_plain(host_libs, profile, level, op):
+    """Each server body on random words of the right ranges (the kernels'
+    words do not depend on the keys being real keys): B=2 ciphertexts,
+    an (l, N) plaintext, (l, l+1, N) keys, the r=3 Galois permutation."""
+    ctx = get_context(profile)
+    n, batch = ctx.n, 2
+    sc = server_eval.server_consts(ctx, level)
+    qs = [int(sc.table[i, common.OFF_Q]) for i in range(level + 1)]
+    rng = np.random.default_rng(level)
+    a0, a1, b0, b1 = (_words(rng, qs[:level], (batch, level, n))
+                      for _ in range(4))
+    pt = _words(rng, qs[:level], (level, n))
+    kb, ka = (_words(rng, qs, (level, level + 1, n)) for _ in range(2))
+    perm = skeys.galois_perm_ntt(skeys.galois_element(3, n), n
+                                 ).reshape(1, n)
+    table = np.ascontiguousarray(sc.table)
+    geo = (batch, level, sc.kc.logn, sc.ncols)
+    o0, o1 = _zeros(batch, level, n), _zeros(batch, level, n)
+    r0, r1 = _zeros(batch, level - 1, n), _zeros(batch, level - 1, n)
+    w = np.zeros((batch, 2, n), np.int32)
+    digits = np.zeros((batch, level, n), np.int32)
+    h = _zeros(batch, level + 1, level, n)
+    acc = _zeros(batch, 2, level + 1, n)
+    ta0, ta1, tb0, tb1, tpt = _t(a0), _t(a1), _t(b0), _t(b1), _t(pt)
+    tkb, tka, tperm = _t(kb), _t(ka), torch.tensor(perm)
+    fn = {k.replace("server_", "").replace("_host", ""): v
+          for k, v in host_libs.items() if k.startswith("server_")}
+
+    if op in ("add_ct", "add_pt", "mul_pt"):
+        mode = _SERVER_OPS.index(op)
+        err = fn["pointwise"](mode, _ptr(a0), _ptr(a1),
+                              _ptr(b0 if mode == 0 else pt),
+                              _ptr(b1 if mode == 0 else pt), _ptr(table),
+                              _ptr(o0), _ptr(o1), *geo)
+        args = ((ta0, ta1, tb0, tb1) if mode == 0 else (ta0, ta1, tpt))
+        want = getattr(server_eval, op + "_plain")(*args, ctx)
+        got = (o0, o1)
+    elif op in ("rescale", "mul_pt_rescale"):
+        pm = pt if op == "mul_pt_rescale" else None
+        err = fn["rescale"](_ptr(a0), _ptr(a1),
+                            None if pm is None else _ptr(pm), _ptr(table),
+                            _ptr(w), _ptr(r0), _ptr(r1), *geo, sc.off_qdinv)
+        args = (ta0, ta1) if pm is None else (ta0, ta1, tpt)
+        want = getattr(server_eval, op + "_plain")(*args, ctx)
+        got = (r0, r1)
+    elif op == "mul_ct":
+        d = [_zeros(batch, level, n) for _ in range(5)]
+        err = fn["mul_ct"](_ptr(a0), _ptr(a1), _ptr(b0), _ptr(b1), _ptr(kb),
+                           _ptr(ka), _ptr(table), *(_ptr(x) for x in d[:3]),
+                           _ptr(digits), _ptr(h), _ptr(acc), _ptr(w),
+                           _ptr(d[3]), _ptr(d[4]), _ptr(r0), _ptr(r1), *geo,
+                           sc.off_r2, sc.off_pinv, sc.off_qdinv)
+        want = server_eval.mul_ct_relin_plain(ta0, ta1, tb0, tb1, tkb, tka,
+                                              ctx)
+        got = (r0, r1)
+    elif op == "rotate":
+        err = fn["rotate"](_ptr(a0), _ptr(a1), _ptr(perm), _ptr(kb),
+                           _ptr(ka), _ptr(table), _ptr(digits), _ptr(h),
+                           _ptr(acc), _ptr(w), _ptr(o0), _ptr(o1), *geo,
+                           sc.off_pinv)
+        want = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx)
+        got = (o0, o1)
+    else:                                   # hoisted: K11a then K11b
+        err = fn["ks_decompose"](_ptr(a1), _ptr(table), _ptr(digits),
+                                 _ptr(h), *geo)
+        assert err == 0
+        want_h = server_eval.ks_decompose_plain(ta1, ctx)
+        np.testing.assert_array_equal(h, want_h.numpy().view(np.uint32))
+        err = fn["ks_apply_rot"](_ptr(a0), _ptr(h), _ptr(perm), _ptr(kb),
+                                 _ptr(ka), _ptr(table), _ptr(acc), _ptr(w),
+                                 _ptr(o0), _ptr(o1), *geo, sc.off_pinv)
+        want = server_eval.ks_apply_rot_plain(ta0, want_h, tperm, tkb, tka,
+                                              ctx)
+        got = (o0, o1)
+        rot = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx)
+        for a, b in zip(want, rot):           # hoisted == fused
+            assert torch.equal(a, b)
+    assert err == 0
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))

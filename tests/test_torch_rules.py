@@ -11,7 +11,10 @@
   * keys round-trip through ``keys_from_numpy``; the private-inference
     loop packs, encrypts, decrypts and unpacks activation rows;
   * the plain path (megakernel or staged) never touches a CUDA launch
-    counter, and every CUDA wrapper refuses CPU tensors.
+    counter, and every CUDA wrapper refuses CPU tensors;
+  * no module of the port (the server evaluator ``fhe_server`` and the
+    kernel modules included) holds a ``try`` statement, the shape a silent
+    fall-back from a kernel to its plain version would take.
 """
 
 import ast
@@ -57,6 +60,21 @@ def test_no_jax_or_repro_import_in_source(path):
                 f"{path}:{node.lineno} imports {name}"
 
 
+def test_scans_cover_server_modules():
+    names = {_module_name(p) for p in MODULES}
+    assert {"repro_torch.fhe_server.eval_ops", "repro_torch.fhe_server.keys",
+            "repro_torch.fhe_server.encrypted_inference",
+            "repro_torch.kernels.server_eval"} <= names
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: _module_name(p))
+def test_no_try_statement_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        assert not isinstance(node, ast.Try), \
+            f"{path}:{node.lineno} has a try statement"
+
+
 def test_import_with_jax_poisoned():
     names = [_module_name(p) for p in MODULES]
     code = (
@@ -93,7 +111,7 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fourier": "host"}, {"pipeline": "staged", "datapath": "f64"},
+    {"fourier": "host"}, {"pipeline": "megakernel", "datapath": "f64"},
     {"datapath": "f64"}])
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -169,7 +187,10 @@ def test_staged_plain_path_counts_no_launch():
     counts = ops.launches()
     assert set(counts) == {"encode_encrypt_stream", "decrypt_decode_stream",
                            "ntt_limbs", "intt_limbs", "encrypt_limbs",
-                           "decrypt_limbs", "special_fft", "special_ifft"}
+                           "decrypt_limbs", "special_fft", "special_ifft",
+                           "add_ct", "add_pt", "mul_pt", "rescale",
+                           "mul_pt_rescale", "mul_ct", "rotate",
+                           "ks_decompose", "ks_apply_rot"}
     assert not any(counts.values()), counts
 
 
