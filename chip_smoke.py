@@ -42,7 +42,18 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      and read just after; profiles the server part of each flow, then
      times every server kernel at ``boot`` level 6 and 24, B=1, queued
      ahead as in 5 (and, printed beside it, as the host paces the calls);
-  8. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+  8. the Fourier engine's per-prime entry points (K12-K14) at ``paper``
+     on residues x of shape (24, 16, 2^16): ``ops.ntt_limbs`` /
+     ``intt_limbs(path='matmul')`` (K14, one launch for the stack),
+     ``ntt_butterfly.ntt_rows`` / ``intt_rows`` on each limb (K12),
+     ``client_pointwise.encrypt_limb`` on each limb and ``decrypt_limb`` on
+     limbs 0 and 1 (K13), counters set to 0 just before and read just
+     after. K12 must equal K1 per limb, K13 K2 / K3 per limb, K14 K1 under
+     bit reversal, the inverses must give x back, and each must equal its
+     plain version on the first 4 rows of each limb; K14 also on one
+     ``n15`` limb (256 x 128 split), B=2.
+     Then each is timed (queued ahead, as in 5) beside its plain version;
+  9. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound), then, as the last line, ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
@@ -76,6 +87,9 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
 I32_OPS_PER_S = 64 * 132 * 1.98e9
+# int8 products on the tensor cores, dense (data sheet; a multiply and an
+# add count as two operations): the least time for K14's digit products
+I8_TENSOR_OPS_PER_S = 1979e12
 
 # Operations per primitive, counted from csrc/client_common.cuh:
 #   two_sum 6 f32, quick_two_sum 3, two_prod 17 (1 product, 2 splits of
@@ -284,9 +298,68 @@ def _cost_server(name: str, p, level: int, batch: int):
     raise ValueError(name)
 
 
-def _bound_ms(nbytes: float, i32: float, f32: float) -> tuple[float, str]:
+# --- the per-prime kernels (K12-K14) -------------------------------------
+# K12 and K13 compute what K1 and K2 / K3 compute for one limb, and K14
+# what K1 computes, in natural order; their bounds count the least work for
+# the same words: K1's cheaper REDC (11 int32 operations), not the
+# shift-add REDC K12 / K13 run, and K1's butterflies, not K14's four-step
+# int32 work.
+
+
+def _cost_ntt_rows(p, rows: int, inverse: bool):
+    """K12 on (rows, N) of one prime: logN * N/2 butterflies per row, N^-1
+    per coefficient (inverse), the twiddles (N - 1 doublings) once."""
+    n, logn = p.n, p.logn
+    per_row = logn * (n // 2) * I32_NTT_BUTTERFLY + (n * I32_REDC
+                                                     if inverse else 0)
+    i32 = rows * per_row + (n - 1) * I32_REDC
+    return float(2 * rows * n * 4 + _seed_cols(p) * 4 + 32), float(i32), 0.0
+
+
+def _cost_encrypt_limb(p, batch: int):
+    """K13a on (B, N) of one limb: K2's count with L = 1."""
+    n, logn = p.n, p.logn
+    i32 = (batch * (n * (5 * I32_PHILOX + 20)
+                    + n * (3 * I32_TO_RESIDUE + 2 * I32_REDC
+                           + 3 * I32_ADDMOD)
+                    + 3 * logn * (n // 2) * I32_NTT_BUTTERFLY)
+           + (n - 1) * I32_REDC)
+    nbytes = batch * n * 4 + 2 * n * 4 + 2 * batch * n * 4 + _seed_cols(p) * 4
+    return float(nbytes), float(i32), 0.0
+
+
+def _cost_decrypt_limb(p, batch: int):
+    """K13b on (B, N) of one limb: K3's count with one limb."""
+    n, logn = p.n, p.logn
+    i32 = (batch * (n * (2 * I32_REDC + I32_ADDMOD)
+                    + logn * (n // 2) * I32_NTT_BUTTERFLY)
+           + (n - 1) * I32_REDC)
+    nbytes = 2 * batch * n * 4 + n * 4 + batch * n * 4 + _seed_cols(p) * 4
+    return float(nbytes), float(i32), 0.0
+
+
+def _cost_ntt_mm(p, rows: int, inverse: bool):
+    """(bytes, int32 ops, f32 ops, int8 tensor ops) of K14 on an (L, rows,
+    N) stack: the least work for the function it computes. K14 is K1 up to
+    the order of the output words (the phase checks K14 == K1[..., bitrev]),
+    so it counts K1's butterflies, and beside them its 16 int8 digit
+    products per modular matmul (N1 N2^2 + N2 N1^2 multiply-adds each, two
+    operations apiece) at the tensor cores' int8 peak; the larger binds.
+    The four-step's own int32 work (digit split, Barretts, twist, T) is not
+    counted: a butterfly NTT computes the same words without it."""
+    n = p.n
+    n1 = 1 << ((n.bit_length()) // 2)
+    n2 = n // n1
+    macs = 16 * (n1 * n2 * n2 + n2 * n1 * n1)
+    return (*_cost_ntt_limbs(p, rows, inverse),
+            float(2 * p.n_limbs * rows * macs))
+
+
+def _bound_ms(nbytes: float, i32: float, f32: float,
+              i8: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(i32 / I32_OPS_PER_S, f32 / F32_OPS_PER_S)
+    t_ops = max(i32 / I32_OPS_PER_S, f32 / F32_OPS_PER_S,
+                i8 / I8_TENSOR_OPS_PER_S)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -759,6 +832,216 @@ def _time_server_kernels(setups, card: str):
     return times
 
 
+# the per-prime kernels by counter name: (id, CUDA source, TPU kernel body)
+ENGINES = {
+    "ntt_rows": ("K12", "ntt_rows.cu", "ntt_butterfly.py:38"),
+    "intt_rows": ("K12", "ntt_rows.cu", "ntt_butterfly.py:42"),
+    "encrypt_limb": ("K13a", "client_pointwise.cu", "client_pointwise.py:103"),
+    "decrypt_limb": ("K13b", "client_pointwise.cu", "client_pointwise.py:150"),
+    "ntt_rows_mm": ("K14", "ntt_matmul.cu", "ntt_matmul.py:142"),
+    "intt_rows_mm": ("K14", "ntt_matmul.cu", "ntt_matmul.py:163"),
+}
+ENGINE_NONCE0 = 0xFFFFFFFE      # rows 2.. wrap past 2^32, inside the
+                                # rows the plain checks compare
+ENGINE_PLAIN_ROWS = 4           # K12 / K13 plain checks: the first 4 rows
+ENGINE_DEC_LIMBS = 2
+
+
+def _engine_path(ctx, keys, seed: int, x) -> dict:
+    """The slice-4 entry points on an (L, B, N) residue stack: the four-step
+    NTT and its inverse (one call each for the stack), the butterfly NTT
+    and INTT of each limb, encrypt of each limb (its NTT-domain rows as
+    plaintext) and decrypt of limbs 0 and 1."""
+    from repro_torch.kernels import client_pointwise, ntt_butterfly, ops
+    out = {"mm": ops.ntt_limbs(x, ctx, path="matmul")}
+    out["mm_back"] = ops.intt_limbs(out["mm"], ctx, path="matmul")
+    out["rows"] = [ntt_butterfly.ntt_rows(x[l], plan)
+                   for l, plan in enumerate(ctx.plans)]
+    out["rows_back"] = [ntt_butterfly.intt_rows(y, plan)
+                        for y, plan in zip(out["rows"], ctx.plans)]
+    pkb, pka, s = keys.pk.b_mont, keys.pk.a_mont, keys.sk.s_mont
+    out["enc"] = [client_pointwise.encrypt_limb(y, pkb[l], pka[l], ctx, l,
+                                                seed, ENGINE_NONCE0)
+                  for l, y in enumerate(out["rows"])]
+    out["dec"] = [client_pointwise.decrypt_limb(c0, c1, s[l], ctx, l)
+                  for l, (c0, c1) in enumerate(out["enc"][:ENGINE_DEC_LIMBS])]
+    return out
+
+
+def _engine_phase(client, card: str):
+    """Slice 4 at `paper`: the entry points once with the counters set to 0
+    just before and read just after, then every check against K1-K3 and
+    the plain versions, the n15 limb, and the times. Returns (launches,
+    max abs errors, {kernel: (ms, plain ms, bound, extra)})."""
+    import torch
+    from repro_torch.core import ntt as nttmod
+    from repro_torch.core.context import get_context
+    from repro_torch.kernels import (client_pointwise, ntt_butterfly,
+                                     ntt_matmul, ops)
+    ctx, p = client.ctx, client.ctx.params
+    dev = client.keys.pk.b_mont.device
+    L, n, batch = p.n_limbs, p.n, MAIN_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    q = torch.tensor(ctx.q_list, dtype=torch.int64, device=dev)[:, None, None]
+    x = (torch.randint(0, 1 << 31, (L, batch, n), generator=gen, device=dev,
+                       dtype=torch.int64) % q).to(torch.int32)
+    keys, seed = client.keys, client.seed
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = _engine_path(ctx, keys, seed, x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    for name in ENGINES:
+        if launches[name] == 0:
+            _fail(f"the slice-4 path never launched {name}: {launches}")
+    used = {k: v for k, v in launches.items() if v}
+    print(f"slice 4 path: {MAIN_PROFILE} x {tuple(x.shape)}: {wall * 1e3:.1f} "
+          f"ms host clock, launches {used}", flush=True)
+
+    # against K1-K3 (their own launches, outside the counted run)
+    plans = ctx.plans
+    brv = torch.tensor(nttmod.bitrev_indices(n), device=dev)
+    k1 = ops.ntt_limbs(x, ctx)
+    pt = torch.stack(out["rows"], dim=1)                  # (B, L, N)
+    c0, c1 = client_pointwise.encrypt_limbs_cuda(
+        pt, keys.pk.b_mont, keys.pk.a_mont, ctx, seed, ENGINE_NONCE0)
+    k3 = client_pointwise.decrypt_limbs_cuda(
+        c0[:, :ENGINE_DEC_LIMBS], c1[:, :ENGINE_DEC_LIMBS], keys.sk.s_mont,
+        ctx)
+    torch.cuda.synchronize()
+    checks = {
+        "K12 ntt_rows == K1 per limb": torch.equal(pt.transpose(0, 1), k1),
+        "K12 intt_rows(ntt_rows(x)) == x": all(
+            torch.equal(b, x[l]) for l, b in enumerate(out["rows_back"])),
+        "K13a encrypt_limb == K2 per limb": all(
+            torch.equal(e0, c0[:, l]) and torch.equal(e1, c1[:, l])
+            for l, (e0, e1) in enumerate(out["enc"])),
+        "K13b decrypt_limb == K3 per limb": all(
+            torch.equal(m, k3[:, l]) for l, m in enumerate(out["dec"])),
+        "K14 ntt_limbs(matmul) == K1[..., bitrev]": torch.equal(
+            out["mm"], k1[..., brv]),
+        "K14 intt_limbs(matmul) returns x": torch.equal(out["mm_back"], x),
+    }
+    for what, ok in checks.items():
+        if not ok:
+            _fail(f"{what} fails at {MAIN_PROFILE} B={batch}")
+    print(f"slice 4 == K1-K3 (word for word): {', '.join(checks)}",
+          flush=True)
+
+    # against the plain versions on the first rows of every limb (the whole
+    # stack through the plain versions would add about a minute)
+    errs = {name: 0.0 for name in ENGINES}
+    r = ENGINE_PLAIN_ROWS
+
+    def hold(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+        errs[name] = max(errs[name], e)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            _fail(f"{name} differs from its plain version at {MAIN_PROFILE} "
+                  f"(max abs err {e})")
+
+    t0 = time.perf_counter()
+    for l, plan in enumerate(plans):
+        hold("ntt_rows", out["rows"][l][:r],
+             ntt_butterfly.rows_plain(x[l, :r], plan, False))
+        hold("intt_rows", out["rows_back"][l][:r],
+             ntt_butterfly.rows_plain(out["rows"][l][:r], plan, True))
+        e0, e1 = out["enc"][l]
+        hold("encrypt_limb", (e0[:r], e1[:r]),
+             client_pointwise.encrypt_limb_plain(
+                 out["rows"][l][:r], keys.pk.b_mont[l], keys.pk.a_mont[l],
+                 ctx, l, seed, ENGINE_NONCE0))
+        if l < ENGINE_DEC_LIMBS:
+            hold("decrypt_limb", out["dec"][l][:r],
+                 client_pointwise.decrypt_limb_plain(
+                     e0[:r], e1[:r], keys.sk.s_mont[l], ctx, l))
+    hold("ntt_rows_mm", out["mm"][:, :r],
+         ntt_matmul.limb_rows_mm_plain(x[:, :r], plans, False))
+    hold("intt_rows_mm", out["mm_back"][:, :r],
+         ntt_matmul.limb_rows_mm_plain(out["mm"][:, :r], plans, True))
+    print(f"kernel == plain (bit-identical), K12 K13a K13b K14 on the first "
+          f"{r} rows of each limb: {MAIN_PROFILE} B={batch}, "
+          f"{time.perf_counter() - t0:.1f} s of plain versions", flush=True)
+
+    # K14 at an odd log N: one n15 limb (N1 x N2 = 256 x 128), B=2
+    ctx15 = get_context("n15")
+    plan15 = ctx15.plans[0]
+    x15 = (torch.randint(0, plan15.prime.q, (2, ctx15.n), generator=gen,
+                         device=dev, dtype=torch.int64)).to(torch.int32)
+    y15 = ntt_matmul.ntt_rows_mm(x15, plan15)
+    brv15 = torch.tensor(nttmod.bitrev_indices(ctx15.n), device=dev)
+    hold("ntt_rows_mm", y15, ntt_matmul.rows_mm_plain(x15, plan15, False))
+    hold("intt_rows_mm", ntt_matmul.intt_rows_mm(y15, plan15), x15)
+    if not torch.equal(y15, ntt_butterfly.ntt_rows(x15, plan15)[:, brv15]):
+        _fail("K14 differs from K12 under bit reversal at n15")
+    print(f"K14 at n15 (split {ntt_matmul.split_n(ctx15.n)}), B=2: == plain, "
+          f"== K12[:, bitrev], round trip", flush=True)
+
+    # times: one call each at B=16 (K12 / K13: one limb; K14: the stack),
+    # queued ahead; K12 also as the 24 launches of a stack
+    y0, (e0, e1) = out["rows"][0], out["enc"][0]
+    pkb, pka, s = keys.pk.b_mont, keys.pk.a_mont, keys.sk.s_mont
+    calls = {
+        "ntt_rows": (lambda: ntt_butterfly.rows_cuda(x[0], plans[0], False),
+                     lambda: ntt_butterfly.rows_plain(x[0], plans[0], False),
+                     _cost_ntt_rows(p, batch, False)),
+        "intt_rows": (lambda: ntt_butterfly.rows_cuda(y0, plans[0], True),
+                      lambda: ntt_butterfly.rows_plain(y0, plans[0], True),
+                      _cost_ntt_rows(p, batch, True)),
+        "encrypt_limb": (
+            lambda: client_pointwise.encrypt_limb_cuda(
+                y0, pkb[0], pka[0], ctx, 0, seed, ENGINE_NONCE0),
+            lambda: client_pointwise.encrypt_limb_plain(
+                y0, pkb[0], pka[0], ctx, 0, seed, ENGINE_NONCE0),
+            _cost_encrypt_limb(p, batch)),
+        "decrypt_limb": (
+            lambda: client_pointwise.decrypt_limb_cuda(e0, e1, s[0], ctx, 0),
+            lambda: client_pointwise.decrypt_limb_plain(e0, e1, s[0], ctx,
+                                                        0),
+            _cost_decrypt_limb(p, batch)),
+        "ntt_rows_mm": (
+            lambda: ntt_matmul.limb_rows_mm_cuda(x, plans, False),
+            lambda: ntt_matmul.limb_rows_mm_plain(x, plans, False),
+            _cost_ntt_mm(p, batch, False)),
+        "intt_rows_mm": (
+            lambda: ntt_matmul.limb_rows_mm_cuda(out["mm"], plans, True),
+            lambda: ntt_matmul.limb_rows_mm_plain(out["mm"], plans, True),
+            _cost_ntt_mm(p, batch, True)),
+    }
+    times = {}
+    for name, (kernel, plain, cost) in calls.items():
+        ms = _device_ms(kernel, iters=5)
+        plain_ms = _cuda_ms(plain, iters=1, warmup=1)
+        bound = _bound_ms(*cost)
+        extra = {}
+        if name in ("ntt_rows", "intt_rows"):
+            inv = name == "intt_rows"
+            src = out["rows"] if inv else x
+            extra["stack_ms"] = _device_ms(
+                lambda: [ntt_butterfly.rows_cuda(src[l], plan, inv)
+                         for l, plan in enumerate(plans)], iters=3)
+            extra["stack_launches"] = L
+        times[name] = (ms, plain_ms, bound, extra)
+        # each call is one counted launch; K14's C entry point issues two
+        # device kernels (the two products; the psi^k table is built once)
+        shape = (f"the {tuple(x.shape)} stack (1 launch per call: 2 device "
+                 f"kernels)" if name.endswith("_mm")
+                 else f"one limb, B={batch} (1 launch per call)")
+        stack = (f", the stack's {L} launches {extra['stack_ms']:.3f} ms"
+                 if extra else "")
+        print(f"time: {name} {MAIN_PROFILE} {shape}: {ms:.4f} ms per launch"
+              f"{stack}, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})  [{card}]", flush=True)
+    return launches, errs, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -904,6 +1187,10 @@ def main() -> int:
                      for profile in FLOW_PROFILES}
     server_times = _time_server_kernels(setups, card)
 
+    # --- 8. the Fourier engine's per-prime entry points (K12-K14) ---------
+    engine_launches, engine_errs, engine_times = _engine_phase(
+        client_for(MAIN_PROFILE, "staged"), card)
+
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
     ctx = mc.ctx
@@ -1018,6 +1305,33 @@ def main() -> int:
             "at_level_24": {"ms": ms24, "plain_ms": plain24,
                             "bound_ms": bound24[0], "bound_by": bound24[1]},
         })
+    for fwd, inv in (("ntt_rows", "intt_rows"), ("encrypt_limb", None),
+                     ("decrypt_limb", None), ("ntt_rows_mm", "intt_rows_mm")):
+        entries = []
+        for name in (fwd, inv) if inv else (fwd,):
+            id_, source, replaces = ENGINES[name]
+            ms, plain_ms, bound, extra = engine_times[name]
+            entries.append({
+                "name": name, "id": id_, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "matched_plain": True, "launches": engine_launches[name],
+                "max_abs_err": engine_errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None,
+                "shape": (f"{MAIN_PROFILE} (L, B, N) stack, B={MAIN_BATCH}, "
+                          f"one launch" if name.endswith("_mm")
+                          else f"{MAIN_PROFILE} one limb B={MAIN_BATCH}, "
+                          f"one launch"), **extra})
+        k = entries[0]
+        if inv:
+            # the top-level numbers are the forward direction's
+            k["launches"] += entries[1]["launches"]
+            k["launches_by_direction"] = {fwd: engine_launches[fwd],
+                                          inv: engine_launches[inv]}
+            k["inverse"] = entries[1]
+            del k["inverse"]["launches"]
+        kernels.append(k)
     print("library_ms: none; no single PyTorch call computes a negacyclic "
           "NTT, a Philox RLWE encrypt, the rotation-group-ordered df32 "
           "SpecialFFT, an RNS rescale or a key switch", flush=True)

@@ -1,12 +1,16 @@
 """Modular arithmetic on uint32 residues carried in int64 tensors.
 
-Port of ``repro.core.modmul`` (the parts the client path runs): the
-16-bit-limb 32x32 products, the traced-constant Montgomery REDC
-(``mulmod_montgomery_limb_t``), Barrett on limbs (PRNG ``uniform_mod_q``),
-``addmod``/``submod`` and the u32 word-pair helpers. The reference computes
-in uint32 and wraps modulo 2^32; here every value is a non-negative int64
-below 2^32 and each wrapping step masks with ``MASK32``. No product exceeds
-2^48, so nothing depends on int64 overflow.
+Port of ``repro.core.modmul``: the 16-bit-limb 32x32 products, the three
+Montgomery REDC engines on 32-bit limbs (``mulmod_montgomery_limb_t`` with
+per-limb constants, ``mulmod_montgomery_limb`` with static ones, and the
+NTT-friendly shift-add ``mulmod_montgomery_sa_limb`` of paper eq. 9-11),
+Barrett on limbs, ``addmod``/``submod``, the u32 word-pair helpers, and the
+u64 oracles (``mulmod_naive_u64``, ``mulmod_montgomery_u64``,
+``to_mont_u64``, ``from_mont_u64``). The reference computes in uint32 and
+wraps modulo 2^32; here every value is a non-negative int64 below 2^32 and
+each wrapping step masks with ``MASK32``. No limb product exceeds 2^48, so
+nothing depends on int64 overflow. The u64 oracles take residues below
+q < 2^31, so their products stay below 2^62.
 """
 
 from __future__ import annotations
@@ -143,3 +147,90 @@ def mulmod_barrett_t(a, b, q, mu, p):
     r = torch.where(r >= q, r - q, r)
     r = torch.where(r >= q, r - q, r)
     return r
+
+
+def _shift64(v, s: int):
+    """(hi, lo) of a uint32 value shifted left by s in [0, 64)."""
+    if s == 0:
+        return torch.zeros_like(v), v
+    if s < 32:
+        return v >> (32 - s), (v << s) & MASK32
+    return (v << (s - 32)) & MASK32, torch.zeros_like(v)
+
+
+def _neg64(hi, lo):
+    """(hi, lo) of -(hi, lo) mod 2^64."""
+    lo_n = (~lo + 1) & MASK32
+    hi_n = (~hi + (lo_n == 0).to(torch.int64)) & MASK32
+    return hi_n, lo_n
+
+
+def _mul_by_k64(v, k_terms):
+    """(hi, lo) of v * k (two's complement mod 2^64) for k = sum of signed
+    powers of two ((sign, exponent) terms): shifts and adds only."""
+    hi = torch.zeros_like(v)
+    lo = torch.zeros_like(v)
+    for sign, e in k_terms:
+        thi, tlo = _shift64(v, e)
+        if sign < 0:
+            thi, tlo = _neg64(thi, tlo)
+        hi, lo = _add64(hi, lo, thi, tlo)
+    return hi, lo
+
+
+def mulmod_montgomery_limb(a, b_mont, c: MontgomeryConstants):
+    """Vanilla Montgomery REDC with the prime's constants: 4 + 3 + 4
+    16-bit-limb multiplies (``mulmod_montgomery_limb_t`` with c.q and
+    c.qinv_neg)."""
+    return mulmod_montgomery_limb_t(a, b_mont, c.q, c.qinv_neg)
+
+
+def mulmod_montgomery_sa_limb(a, b_mont, c: MontgomeryConstants):
+    """NTT-friendly Montgomery REDC (paper eq. 9-11): only a*b is a general
+    multiply; m = t_lo * (-q^-1) and m*q are shifts and adds of the prime's
+    k-terms (q = 2^p_bw + k 2^(n+1) + 1). The same words as the reference
+    and as every other correct REDC."""
+    if not (c.p_bw < 32 and 0 < c.n_plus_1 < 32):
+        raise ValueError("shift-add REDC needs p_bw < 32 and 0 < n+1 < 32")
+    t_hi, t_lo = mul32x32(a, b_mont)
+    # m = t_lo * (x - 1) mod 2^32,  x = 2^p_bw + k*2^(n+1)
+    tk_lo = _mul_by_k64(t_lo, c.k_terms)[1]
+    m = ((t_lo << c.p_bw) + (tk_lo << c.n_plus_1) - t_lo) & MASK32
+    # m*q = (m << p_bw) + ((m*k) << (n+1)) + m   (64-bit shift-add)
+    mq_hi, mq_lo = _shift64(m, c.p_bw)
+    kk_hi, kk_lo = _mul_by_k64(m, c.k_terms)
+    s = c.n_plus_1
+    kk_hi = ((kk_hi << s) | (kk_lo >> (32 - s))) & MASK32
+    kk_lo = (kk_lo << s) & MASK32
+    mq_hi, mq_lo = _add64(mq_hi, mq_lo, kk_hi, kk_lo)
+    mq_hi, _ = _add64(mq_hi, mq_lo, torch.zeros_like(m), m)
+    u = (t_hi + mq_hi + (t_lo != 0).to(torch.int64)) & MASK32
+    return torch.where(u >= c.q, u - c.q, u)
+
+
+# ---------------------------------------------------------------------------
+# u64 oracles, carried as int64 (residues < q < 2^31: products < 2^62)
+# ---------------------------------------------------------------------------
+
+
+def mulmod_naive_u64(a, b, q: int):
+    return (a * b) % q
+
+
+def mulmod_montgomery_u64(a, b_mont, c: MontgomeryConstants):
+    """REDC(a * b_mont) = a*b mod q, given b in Montgomery form. (t + m q)
+    >> 32 is taken as (t >> 32) + (m q >> 32) + carry, the carry being
+    (t_lo != 0) since t + m q = 0 mod 2^32: no sum reaches 2^63."""
+    t = a * b_mont
+    t_lo = t & MASK32
+    m = mul32x32_lo(t_lo, c.qinv_neg)
+    u = (t >> 32) + ((m * c.q) >> 32) + (t_lo != 0).to(torch.int64)
+    return torch.where(u >= c.q, u - c.q, u)
+
+
+def to_mont_u64(a, c: MontgomeryConstants):
+    return mulmod_montgomery_u64(a, c.r2, c)
+
+
+def from_mont_u64(a, c: MontgomeryConstants):
+    return mulmod_montgomery_u64(a, 1, c)

@@ -1,11 +1,14 @@
-"""Negacyclic NTT plans (host tables) and the stacked-limb reference NTT.
+"""Negacyclic NTT plans (host tables) and the exact reference transforms.
 
 Port of ``repro.core.ntt``: ``bitrev_indices``, ``TwiddleSeeds``,
 ``NTTPlan``/``make_plan`` (the per-stage OTF seed+step scalars and the
-Montgomery-form forward psi table) and ``ntt_stacked``, the table-twiddle
-forward transform keygen runs. The reference's u64 REDC and the 16-bit-limb REDC
-used here return the same words (the reference itself switches to the limb
-engine without x64), so keys are bit-identical.
+Montgomery-form psi / psi^-1 tables), the exact transforms ``ntt`` /
+``intt`` (table twiddles, the u64 REDC oracle carried as int64),
+``negacyclic_polymul_schoolbook`` (the O(N^2) oracle) and ``ntt_stacked``,
+the table-twiddle forward transform keygen runs. The reference's u64 REDC
+and the 16-bit-limb REDC used in ``ntt_stacked`` return the same words (the
+reference itself switches to the limb engine without x64), so keys are
+bit-identical.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class NTTPlan:
     psi: int
     seeds: TwiddleSeeds
     psi_brv_mont: np.ndarray       # Psi[j] = psi^{bitrev(j)} * R mod q
+    psi_inv_brv_mont: np.ndarray   # the same for psi^-1
     n_inv_mont: int
 
 
@@ -74,7 +78,9 @@ def make_plan(prime: NTTPrime, n: int) -> NTTPlan:
     psi_inv = pow(psi, -1, q)
     r = (1 << 32) % q
 
-    psi_brv = _pow_table(psi, n, q)[bitrev_indices(n)]
+    brv = bitrev_indices(n)
+    psi_brv = _pow_table(psi, n, q)[brv]
+    psi_inv_brv = _pow_table(psi_inv, n, q)[brv]
 
     def to_mont(t):
         return (t * np.uint64(r)) % np.uint64(q)
@@ -94,7 +100,68 @@ def make_plan(prime: NTTPrime, n: int) -> NTTPlan:
                          inv_step=tuple(inv_step), n_inv=pow(n, -1, q))
     return NTTPlan(prime=prime, mont=MontgomeryConstants.make(prime), n=n,
                    psi=psi, seeds=seeds, psi_brv_mont=to_mont(psi_brv),
+                   psi_inv_brv_mont=to_mont(psi_inv_brv),
                    n_inv_mont=(seeds.n_inv * r) % q)
+
+
+# ---------------------------------------------------------------------------
+# exact reference transforms (u64 REDC oracle as int64, table twiddles)
+# ---------------------------------------------------------------------------
+
+
+def ntt(a: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """Forward negacyclic NTT. a: (..., N) int64 residues < q. In-order
+    input -> bit-reversed-order output (CT DIT, merged psi)."""
+    n, q, c = plan.n, plan.prime.q, plan.mont
+    psi = torch.as_tensor(plan.psi_brv_mont.astype(np.int64),
+                          device=a.device)
+    batch = tuple(a.shape[:-1])
+    x = a.reshape(batch + (1, n))
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        x = x.reshape(batch + (m, 2, t))
+        s = psi[m:2 * m].reshape((1,) * len(batch) + (m, 1))
+        u = x[..., 0, :]
+        v = modmul.mulmod_montgomery_u64(x[..., 1, :], s, c)
+        x = torch.stack([modmul.addmod(u, v, q), modmul.submod(u, v, q)],
+                        dim=-2)
+        x = x.reshape(batch + (2 * m, t))
+        m *= 2
+    return x.reshape(batch + (n,))
+
+
+def intt(a: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
+    """Inverse negacyclic NTT: bit-reversed input -> in-order output (GS
+    DIF, merged psi^-1, folded N^-1)."""
+    n, q, c = plan.n, plan.prime.q, plan.mont
+    psi_inv = torch.as_tensor(plan.psi_inv_brv_mont.astype(np.int64),
+                              device=a.device)
+    batch = tuple(a.shape[:-1])
+    x = a.reshape(batch + (n, 1))
+    h, t = n // 2, 1
+    while h >= 1:
+        x = x.reshape(batch + (h, 2, t))
+        s = psi_inv[h:2 * h].reshape((1,) * len(batch) + (h, 1))
+        u, v = x[..., 0, :], x[..., 1, :]
+        even = modmul.addmod(u, v, q)
+        odd = modmul.mulmod_montgomery_u64(modmul.submod(u, v, q), s, c)
+        x = torch.cat([even, odd], dim=-1).reshape(batch + (h, 2 * t))
+        t *= 2
+        h //= 2
+    x = x.reshape(batch + (n,))
+    return modmul.mulmod_montgomery_u64(x, plan.n_inv_mont, c)
+
+
+def negacyclic_polymul_schoolbook(a: np.ndarray, b: np.ndarray, q: int):
+    """O(N^2) oracle: c_k = sum_{i+j=k} a_i b_j - sum_{i+j=k+N} a_i b_j."""
+    n = a.shape[-1]
+    full = np.zeros(2 * n, dtype=object)
+    ao, bo = a.astype(object), b.astype(object)
+    for i in range(n):
+        full[i:i + n] += ao[i] * bo
+    res = (full[:n] - full[n:]) % q
+    return res.astype(np.uint64)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -67,6 +67,13 @@ ENTRY_POINTS = {
         "server_eval.cu", [_P] * 12 + [_I32] * 5 + [_P]),
     "server_mul_ct_launch": (
         "server_eval.cu", [_P] * 18 + [_I32] * 7 + [_P]),
+    "ntt_rows_launch": ("ntt_rows.cu", [_P] * 4 + [_I32] * 3 + [_P]),
+    "encrypt_limb_launch": (
+        "client_pointwise.cu", [_P] * 8 + [_I32] * 2 + [_U32] * 5 + [_P]),
+    "decrypt_limb_launch": (
+        "client_pointwise.cu", [_P] * 6 + [_I32] * 2 + [_P]),
+    "ntt_mm_pow_table": ("ntt_matmul.cu", [_P] * 2 + [_I32] * 3 + [_P]),
+    "ntt_mm_launch": ("ntt_matmul.cu", [_P] * 7 + [_I32] * 6 + [_P]),
 }
 
 # headers every source includes (a change rebuilds every library)

@@ -1,5 +1,5 @@
-"""Per-limb stages of the client datapath, and the limb-folded encrypt
-(K2) and decrypt (K3) kernels.
+"""Per-limb stages of the client datapath, the limb-folded encrypt (K2)
+and decrypt (K3) kernels, and their per-limb forms (K13).
 
 Port of ``repro.kernels.client_pointwise``:
 
@@ -14,7 +14,15 @@ Port of ``repro.kernels.client_pointwise``:
     functions composed from the stages, limb by limb. Both take and return
     int32 tensors holding uint32 words; each CUDA wrapper counts its
     launches in ``LAUNCHES``. ``ops.encrypt_fused`` / ``decrypt_fused``
-    pick one by the tensors' device.
+    pick one by the tensors' device;
+  * K13, the port of ``encrypt_limb`` / ``decrypt_limb`` (the TPU kernels
+    ``_encrypt_kernel`` / ``_decrypt_kernel``): one limb of a (B, N) batch,
+    one launch per limb, the shift-add REDC of paper eq. 9-11.
+    ``encrypt_limb_cuda`` / ``decrypt_limb_cuda`` launch
+    ``csrc/client_pointwise.cu``'s K13a / K13b, ``encrypt_limb_plain`` /
+    ``decrypt_limb_plain`` are the plain versions, and ``encrypt_limb`` /
+    ``decrypt_limb`` pick one by the tensors' device. Their words equal
+    K2's / K3's on that limb.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ from repro_torch.core.encryptor import (STREAM_ENC_E0, STREAM_ENC_E1,
 from repro_torch.core.modmul import MASK32
 from repro_torch.kernels import common
 
-LAUNCHES = {"encrypt_limbs": 0, "decrypt_limbs": 0}
+LAUNCHES = {"encrypt_limbs": 0, "decrypt_limbs": 0, "encrypt_limb": 0,
+            "decrypt_limb": 0}
 
 
 def reset_launches() -> None:
@@ -188,3 +197,111 @@ def decrypt_limbs_cuda(c0, c1, s_mont, ctx):
                   batch, n_limbs, kc.logn, kc.n_scalars)
     LAUNCHES["decrypt_limbs"] += 1
     return m
+
+
+# ---------------------------------------------------------------------------
+# K13: per-limb encrypt / decrypt with the shift-add REDC
+# ---------------------------------------------------------------------------
+
+
+def encrypt_limb_plain(pt_l, b_mont_l, a_mont_l, ctx, limb: int, seed: int,
+                       nonce0: int = 0):
+    """pt_l: (B, N) int32 NTT-domain words of limb `limb`; b_mont_l /
+    a_mont_l: (N,) public-key rows -> (c0, c1), each (B, N) int32. Row r
+    encrypts under nonce0 + r (mod 2^32)."""
+    batch, n = pt_l.shape
+    pc = common.plan_consts(ctx.plans[limb])
+    q, c = pc.q, pc.mont
+    vee = sample_vee_k(seed, nonce_column(nonce0, batch, pt_l.device), n)
+    v, e0, e1 = (_to_residue_k(x, q) for x in vee)
+    v_h, e0_h, e1_h = torch.chunk(
+        common.ntt_stages(torch.cat([v, e0, e1], dim=0), pc), 3, dim=0)
+    vb = modmul.mulmod_montgomery_sa_limb(v_h, modmul.u32_to_i64(b_mont_l),
+                                          c)
+    va = modmul.mulmod_montgomery_sa_limb(v_h, modmul.u32_to_i64(a_mont_l),
+                                          c)
+    c0 = modmul.addmod(modmul.addmod(vb, e0_h, q),
+                       modmul.u32_to_i64(pt_l), q)
+    c1 = modmul.addmod(va, e1_h, q)
+    return modmul.i64_to_u32(c0), modmul.i64_to_u32(c1)
+
+
+def _limb_consts(ctx, limb: int, dev):
+    plan = ctx.plans[limb]
+    kc = common.stacked_kernel_consts([plan])
+    return (kc, common.device_seed_table(kc, dev),
+            common.device_sa_table([plan], dev))
+
+
+def _check_limb_batch(t, name: str, n: int, dev) -> None:
+    if t.dim() != 2 or t.shape[0] == 0:
+        raise ValueError(f"{name} must be (B >= 1, {n}), got "
+                         f"{tuple(t.shape)}")
+    common.check_tensor(t, name, torch.int32, (t.shape[0], n), dev)
+
+
+def encrypt_limb_cuda(pt_l, b_mont_l, a_mont_l, ctx, limb: int, seed: int,
+                      nonce0: int = 0):
+    """CUDA launch of K13a; same inputs and outputs as
+    ``encrypt_limb_plain``."""
+    dev = pt_l.device
+    if dev.type != "cuda":
+        raise ValueError("encrypt_limb_cuda needs CUDA tensors")
+    kc, table, sa = _limb_consts(ctx, limb, dev)
+    _check_limb_batch(pt_l, "pt_l", kc.n, dev)
+    for name, t in (("b_mont_l", b_mont_l), ("a_mont_l", a_mont_l)):
+        common.check_tensor(t, name, torch.int32, (kc.n,), dev)
+    c0 = torch.empty_like(pt_l)
+    c1 = torch.empty_like(pt_l)
+    v_scratch = torch.empty_like(pt_l)
+    common.launch("encrypt_limb_launch", dev, pt_l.data_ptr(),
+                  b_mont_l.data_ptr(), a_mont_l.data_ptr(), table.data_ptr(),
+                  sa.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+                  v_scratch.data_ptr(), pt_l.shape[0], kc.logn,
+                  *prng.seed_words(seed), int(nonce0) & MASK32)
+    LAUNCHES["encrypt_limb"] += 1
+    return c0, c1
+
+
+def encrypt_limb(pt_l, b_mont_l, a_mont_l, ctx, limb: int, seed: int,
+                 nonce0: int = 0):
+    """Encrypt one limb of a (B, N) batch: K13a on CUDA tensors, the plain
+    version on the CPU."""
+    f = (encrypt_limb_cuda if common.route(pt_l.device) == "cuda"
+         else encrypt_limb_plain)
+    return f(pt_l, b_mont_l, a_mont_l, ctx, limb, seed, nonce0)
+
+
+def decrypt_limb_plain(c0_l, c1_l, s_mont_l, ctx, limb: int):
+    """m = INTT(c0 + c1*s) of one limb: (B, N) int32 ciphertext words and
+    an (N,) secret-key row -> (B, N) coefficient-domain residues."""
+    pc = common.plan_consts(ctx.plans[limb])
+    c1s = modmul.mulmod_montgomery_sa_limb(
+        modmul.u32_to_i64(c1_l), modmul.u32_to_i64(s_mont_l), pc.mont)
+    m_ntt = modmul.addmod(modmul.u32_to_i64(c0_l), c1s, pc.q)
+    return modmul.i64_to_u32(common.intt_stages(m_ntt, pc))
+
+
+def decrypt_limb_cuda(c0_l, c1_l, s_mont_l, ctx, limb: int):
+    """CUDA launch of K13b; same function as ``decrypt_limb_plain``."""
+    dev = c0_l.device
+    if dev.type != "cuda":
+        raise ValueError("decrypt_limb_cuda needs CUDA tensors")
+    kc, table, sa = _limb_consts(ctx, limb, dev)
+    _check_limb_batch(c0_l, "c0_l", kc.n, dev)
+    common.check_tensor(c1_l, "c1_l", torch.int32, tuple(c0_l.shape), dev)
+    common.check_tensor(s_mont_l, "s_mont_l", torch.int32, (kc.n,), dev)
+    m = torch.empty_like(c0_l)
+    common.launch("decrypt_limb_launch", dev, c0_l.data_ptr(),
+                  c1_l.data_ptr(), s_mont_l.data_ptr(), table.data_ptr(),
+                  sa.data_ptr(), m.data_ptr(), c0_l.shape[0], kc.logn)
+    LAUNCHES["decrypt_limb"] += 1
+    return m
+
+
+def decrypt_limb(c0_l, c1_l, s_mont_l, ctx, limb: int):
+    """Decrypt one limb of a (B, N) batch: K13b on CUDA tensors, the plain
+    version on the CPU."""
+    f = (decrypt_limb_cuda if common.route(c0_l.device) == "cuda"
+         else decrypt_limb_plain)
+    return f(c0_l, c1_l, s_mont_l, ctx, limb)

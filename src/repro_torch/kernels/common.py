@@ -4,7 +4,8 @@ Port of the client half of ``repro.kernels.common``:
 
   * ``FourierConfig`` / ``FOURIER_MODES`` — the mode switch of the
     reconfigurable Fourier engine (``ops.fourier``);
-  * ``plan_consts`` — per-(prime, N) OTF twiddle seeds and doubling factors;
+  * ``plan_consts`` — per-(prime, N) OTF twiddle seeds and doubling
+    factors, psi, psi^-1 and R mod q;
   * ``stacked_kernel_consts`` — the (L, K) uint32 seed table, same layout
     as the reference (``OFF_Q``/``OFF_QINV``/``OFF_NINV``, then per forward
     stage [base, factors...], then per inverse stage). The CUDA kernels
@@ -14,6 +15,13 @@ Port of the client half of ``repro.kernels.common``:
   * ``gen_twiddles_t`` / ``ntt_stages_t`` / ``intt_stages_t`` — the plain
     PyTorch stage loops (int64 residues), the schedule the CUDA stage loops
     in ``csrc/client_common.cuh`` follow;
+  * ``gen_twiddles`` / ``gen_geometric`` / ``ntt_stages`` / ``intt_stages``
+    — the same loops with one prime's constants and the shift-add REDC
+    (the per-limb kernels K12, K13, K14); ``sa_table`` — the per-limb
+    (q, p_bw, n+1, k-terms) rows from which the CUDA kernels run that REDC;
+  * ``N_DIGITS`` / ``balanced_digits_np`` / ``balanced_digits`` /
+    ``recombine_digit_matmuls`` — the int8 balanced-digit split of the
+    four-step NTT's modular matmuls (K14);
   * what every CUDA wrapper shares: ``route`` (kernel or plain version by
     device), the argument checks, and ``launch`` (the C entry point on the
     current stream, raising on a CUDA error).
@@ -66,6 +74,9 @@ class PlanConsts:
     inv_base_mont: tuple[int, ...]
     inv_factors: tuple[tuple[int, ...], ...]
     n_inv_mont: int
+    psi: int
+    psi_inv: int
+    r_mod_q: int                            # R mod q = Montgomery form of 1
 
 
 def plan_consts(plan: NTTPlan) -> PlanConsts:
@@ -104,7 +115,8 @@ def _build_plan_consts(plan: NTTPlan) -> PlanConsts:
     return PlanConsts(q=q, n=n, logn=logn, mont=plan.mont,
                       fwd_base_mont=tuple(fwd_base), fwd_factors=tuple(fwd_f),
                       inv_base_mont=tuple(inv_base), inv_factors=tuple(inv_f),
-                      n_inv_mont=plan.n_inv_mont)
+                      n_inv_mont=plan.n_inv_mont, psi=plan.psi,
+                      psi_inv=pow(plan.psi, -1, q), r_mod_q=r)
 
 
 # (L, K) table layout per limb row:
@@ -261,6 +273,170 @@ def intt_stages_t(x: torch.Tensor, kc: StackedKernelConsts, row: int
         st += 1
     return modmul.mulmod_montgomery_limb_t(
         x.reshape(rows, n), int(kc.table[row, OFF_NINV]), q, qinv)
+
+
+# ---------------------------------------------------------------------------
+# plain stage loops with one prime's constants and the shift-add REDC
+# (paper eq. 9-11): the per-limb kernels K12, K13 and K14
+# ---------------------------------------------------------------------------
+
+
+def gen_twiddles(base_mont: int, factor_list, pc: PlanConsts,
+                 device) -> torch.Tensor:
+    """[base * step^bitrev_m(i)]_{i<m} (Montgomery form) by log2(m)
+    shift-add Montgomery doublings."""
+    a = torch.tensor([base_mont], dtype=torch.int64, device=device)
+    for f in factor_list:
+        a = torch.cat([a, modmul.mulmod_montgomery_sa_limb(a, f, pc.mont)])
+    return a
+
+
+def gen_geometric(base_mont: int, ratio: int, length: int, pc: PlanConsts,
+                  device) -> torch.Tensor:
+    """[base * ratio^i]_{i<length} (Montgomery form) by doubling: the
+    psi^n twist vectors of the four-step NTT."""
+    q, r = pc.q, pc.r_mod_q
+    a = torch.tensor([base_mont], dtype=torch.int64, device=device)
+    while a.shape[0] < length:
+        f = (pow(ratio % q, a.shape[0], q) * r) % q
+        a = torch.cat([a, modmul.mulmod_montgomery_sa_limb(a, f, pc.mont)])
+    return a[:length]
+
+
+def ntt_stages(x: torch.Tensor, pc: PlanConsts) -> torch.Tensor:
+    """Forward negacyclic NTT on (rows, N) int64 residues, merged-psi CT
+    DIT, natural order in, bit-reversed out; twiddles generated per
+    stage."""
+    q, c, n = pc.q, pc.mont, pc.n
+    rows = x.shape[0]
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        s = m.bit_length() - 1
+        tw = gen_twiddles(pc.fwd_base_mont[s], pc.fwd_factors[s], pc,
+                          x.device)
+        x = x.reshape(rows, m, 2, t)
+        u = x[:, :, 0, :]
+        v = modmul.mulmod_montgomery_sa_limb(x[:, :, 1, :],
+                                             tw[None, :, None], c)
+        x = torch.stack([modmul.addmod(u, v, q), modmul.submod(u, v, q)],
+                        dim=2).reshape(rows, n)
+        m *= 2
+    return x
+
+
+def intt_stages(x: torch.Tensor, pc: PlanConsts) -> torch.Tensor:
+    """Inverse negacyclic NTT on (rows, N): bit-reversed in, natural order
+    out, N^-1 folded in at the end."""
+    q, c, n = pc.q, pc.mont, pc.n
+    rows = x.shape[0]
+    h, t = n // 2, 1
+    s = 0
+    while h >= 1:
+        tw = gen_twiddles(pc.inv_base_mont[s], pc.inv_factors[s], pc,
+                          x.device)
+        x = x.reshape(rows, h, 2, t)
+        u, v = x[:, :, 0, :], x[:, :, 1, :]
+        even = modmul.addmod(u, v, q)
+        odd = modmul.mulmod_montgomery_sa_limb(modmul.submod(u, v, q),
+                                               tw[None, :, None], c)
+        x = torch.cat([even, odd], dim=-1).reshape(rows, h * 2 * t)
+        t *= 2
+        h //= 2
+        s += 1
+    return modmul.mulmod_montgomery_sa_limb(x.reshape(rows, n),
+                                            pc.n_inv_mont, c)
+
+
+# (L, SA_COLS) int32 rows of the shift-add REDC constants the CUDA kernels
+# read (csrc/client_common.cuh: SaRedc):
+#   [0] q  [1] p_bw  [2] n+1  [3] number of k-terms  [4..6] the k-terms,
+#   each its exponent e for +2^e and ~e (= -e-1) for -2^e  [7] unused
+SA_COLS = 8
+MAX_K_TERMS = 3
+
+
+def sa_table(plans) -> np.ndarray:
+    """Memoised by plan content."""
+    return sa_rows(tuple(p.prime for p in plans))
+
+
+@functools.lru_cache(maxsize=64)
+def sa_rows(primes) -> np.ndarray:
+    """``sa_table`` of a tuple of primes."""
+    t = np.zeros((len(primes), SA_COLS), np.int32)
+    for i, pr in enumerate(primes):
+        if len(pr.k_terms) > MAX_K_TERMS or not (pr.p_bw < 32
+                                                 and 0 < pr.n_plus_1 < 32):
+            raise ValueError(f"prime {pr.q} has no shift-add REDC here")
+        t[i, :4] = (np.uint32(pr.q).view(np.int32), pr.p_bw, pr.n_plus_1,
+                    len(pr.k_terms))
+        for j, (sign, e) in enumerate(pr.k_terms):
+            t[i, 4 + j] = e if sign > 0 else ~e
+    t.setflags(write=False)
+    return t
+
+
+def device_sa_table(plans, device) -> torch.Tensor:
+    """sa_table(plans) as an int32 tensor on `device`, uploaded once."""
+    return _device_sa_table(tuple(p.prime for p in plans), str(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_sa_table(primes, device: str) -> torch.Tensor:
+    return host_table(sa_rows(primes), device)
+
+
+# ---------------------------------------------------------------------------
+# balanced base-256 digits (the int8 products of the four-step NTT, K14)
+# ---------------------------------------------------------------------------
+
+N_DIGITS = 4
+
+
+def balanced_digits_np(v: np.ndarray) -> np.ndarray:
+    """Residues (< 2^31) -> (4, *v.shape) int8 balanced digits with
+    v == sum d_i 256^i."""
+    out = np.zeros((N_DIGITS,) + v.shape, dtype=np.int8)
+    x = v.astype(np.int64)
+    for i in range(N_DIGITS):
+        d = x & 255
+        over = d >= 128
+        out[i] = np.where(over, d - 256, d).astype(np.int8)
+        x = (x >> 8) + over.astype(np.int64)
+    if not np.all(x == 0):
+        raise ValueError("value exceeded 4 balanced digits")
+    return out
+
+
+def balanced_digits(v: torch.Tensor) -> list[torch.Tensor]:
+    """int64 residues (< 2^31) -> 4 int64 tensors of balanced digits in
+    [-128, 128) with v == sum d_i 256^i (``balanced_digits_jnp``)."""
+    digs = []
+    x = v
+    for _ in range(N_DIGITS):
+        d = x & 255
+        over = d >= 128
+        digs.append(torch.where(over, d - 256, d))
+        x = (x >> 8) + over.to(torch.int64)
+    return digs
+
+
+def recombine_digit_matmuls(partials, pc: PlanConsts) -> torch.Tensor:
+    """Digit-product sums S_ij = A_i @ B_j (int64, |S| < 2^22) -> residues
+    sum_ij S_ij 2^(8(i+j)) mod q. Grouped by g = i + j (7 groups, |group
+    sum| < 2^24, so sg + q > 0), then one Barrett multiply by 2^(8g) mod q
+    per group and a modular sum."""
+    q = pc.q
+    groups: dict[int, torch.Tensor] = {}
+    for (i, j), s in partials.items():
+        g = i + j
+        groups[g] = s if g not in groups else groups[g] + s
+    acc = None
+    for g, sg in groups.items():
+        r = modmul.mulmod_barrett_limb(sg + q, pow(2, 8 * g, q), pc.mont)
+        acc = r if acc is None else modmul.addmod(acc, r, q)
+    return acc
 
 
 # ---------------------------------------------------------------------------

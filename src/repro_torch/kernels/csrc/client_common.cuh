@@ -1,10 +1,13 @@
 // Shared device code of the client kernels (the megakernels
-// encode_encrypt.cu, decrypt_decode.cu and the staged kernels ntt_limbs.cu,
-// client_pointwise.cu, fft_df.cu): uint32 Montgomery REDC, Philox-4x32-10,
-// the df32 error-free transforms, the exact Delta-scale digit split, the
-// two-limb CRT, the NTT/INTT stage loops with on-the-fly twiddle doubling
-// from the (L, K) seed table, the df32 SpecialFFT stage loop, and the
-// (limb, row) encrypt and decrypt block bodies.
+// encode_encrypt.cu, decrypt_decode.cu, the staged kernels ntt_limbs.cu,
+// client_pointwise.cu, fft_df.cu, and the per-prime kernels ntt_rows.cu,
+// ntt_matmul.cu): the two uint32 Montgomery REDC policies (MontRedc: the
+// general one with -q^-1; SaRedc: the shift-add NTT-friendly one of paper
+// eq. 9-11), Philox-4x32-10, the df32 error-free transforms, the exact
+// Delta-scale digit split, the two-limb CRT, the NTT/INTT stage loops with
+// on-the-fly twiddle doubling from the (L, K) seed table (templated on the
+// REDC policy), the df32 SpecialFFT stage loop, and the (limb, row)
+// encrypt and decrypt block bodies.
 //
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
@@ -84,6 +87,68 @@ RT_FN uint32_t redc_mul(uint32_t a, uint32_t b, uint32_t q, uint32_t qinv) {
   uint32_t m = t_lo * qinv;
   uint32_t u = t_hi + rt_mulhi(m, q) + (t_lo != 0u ? 1u : 0u);
   return u >= q ? u - q : u;
+}
+
+// The REDC policies: redc(red, a, b) = a*b*2^-32 mod q. Every correct REDC
+// returns the same word, so the policy changes the instructions, never the
+// result.
+struct MontRedc {
+  uint32_t q, qinv;
+};
+
+RT_FN uint32_t redc(const MontRedc &r, uint32_t a, uint32_t b) {
+  return redc_mul(a, b, r.q, r.qinv);
+}
+
+RT_FN MontRedc mont_redc(const uint32_t *trow) {
+  return MontRedc{trow[OFF_Q], trow[OFF_QINV]};
+}
+
+// NTT-friendly Montgomery REDC (modmul.mulmod_montgomery_sa_limb): for
+// q = 2^p_bw + k 2^(n+1) + 1 with k a sum of at most three signed powers of
+// two, -q^-1 = 2^p_bw + k 2^(n+1) - 1 mod 2^32 (eq. 11), so m = t_lo * (-q^-1)
+// and m*q are shifts and adds; a*b is the only general product. The
+// constants come from a row of common.sa_table: q, p_bw, n+1, the number of
+// k-terms, then each term's exponent e (+2^e) or ~e (-2^e).
+struct SaRedc {
+  uint32_t q;
+  int p_bw, np1, nterms;
+  int term[3];
+};
+
+RT_FN SaRedc sa_redc(const int32_t *row) {
+  SaRedc r;
+  r.q = (uint32_t)row[0];
+  r.p_bw = row[1];
+  r.np1 = row[2];
+  r.nterms = row[3];
+  for (int i = 0; i < 3; ++i) r.term[i] = row[4 + i];
+  return r;
+}
+
+// v * k mod 2^64 by shifts and adds (modmul._mul_by_k64)
+RT_FN uint64_t mul_by_k64(uint32_t v, const SaRedc &r) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i < r.nterms) {
+      const int t = r.term[i];
+      const uint64_t s = (uint64_t)v << (t < 0 ? ~t : t);
+      acc += t < 0 ? (uint64_t)0 - s : s;
+    }
+  }
+  return acc;
+}
+
+RT_FN uint32_t redc(const SaRedc &r, uint32_t a, uint32_t b) {
+  const uint32_t t_lo = a * b;
+  const uint32_t t_hi = rt_mulhi(a, b);
+  const uint32_t m =
+      (t_lo << r.p_bw) + ((uint32_t)mul_by_k64(t_lo, r) << r.np1) - t_lo;
+  const uint64_t mq =
+      ((uint64_t)m << r.p_bw) + (mul_by_k64(m, r) << r.np1) + m;
+  const uint32_t u = t_hi + (uint32_t)(mq >> 32) + (t_lo != 0u ? 1u : 0u);
+  return u >= r.q ? u - r.q : u;
 }
 
 // signed value in (-q, q) -> residue
@@ -300,15 +365,17 @@ RT_FN void round_digits(float hi, float lo, int32_t &d0, int32_t &d1,
 // ---------------------------------------------------------------------------
 
 // tw[0 .. 2^nfac) = [base * step^bitrev(i)] by nfac Montgomery doublings,
-// base and factors read from col[0 .. nfac] (gen_twiddles_t).
+// base and factors read from col[0 .. nfac] (gen_twiddles_t /
+// gen_twiddles).
+template <class Red>
 RT_FN void gen_twiddles(uint32_t *tw, const uint32_t *col, int nfac,
-                        uint32_t q, uint32_t qinv) {
+                        const Red &red) {
   if (RT_TID == 0) tw[0] = col[0];
   RT_SYNC();
   for (int k = 0; k < nfac; ++k) {
     const int h = 1 << k;
     const uint32_t f = col[1 + k];
-    for (int i = RT_TID; i < h; i += RT_NT) tw[i + h] = redc_mul(tw[i], f, q, qinv);
+    for (int i = RT_TID; i < h; i += RT_NT) tw[i + h] = redc(red, tw[i], f);
     RT_SYNC();
   }
 }
@@ -318,14 +385,16 @@ struct Rows {
 };
 
 // forward negacyclic NTT, CT DIT, natural order in, bit-reversed out
-// (common.ntt_stages_t); trow: this limb's (K,) seed-table row.
+// (common.ntt_stages_t under MontRedc, common.ntt_stages under SaRedc);
+// trow: this limb's (K,) seed-table row.
+template <class Red>
 RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
-                   uint32_t *tw) {
-  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
+                   const Red &red, uint32_t *tw) {
+  const uint32_t q = red.q;
   const int half = 1 << (logn - 1);
   for (int s = 0; s < logn; ++s) {
     const int logt = logn - 1 - s;  // t = N / 2^(s+1)
-    gen_twiddles(tw, trow + fwd_off(s), s, q, qinv);
+    gen_twiddles(tw, trow + fwd_off(s), s, red);
     for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
       uint32_t *r = x.p[idx >> (logn - 1)];
       const int k = idx & (half - 1);
@@ -333,7 +402,7 @@ RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
       const int p0 = (j << (logt + 1)) + (k & ((1 << logt) - 1));
       const int p1 = p0 + (1 << logt);
       const uint32_t u = r[p0];
-      const uint32_t v = redc_mul(r[p1], tw[j], q, qinv);
+      const uint32_t v = redc(red, r[p1], tw[j]);
       r[p0] = addmod(u, v, q);
       r[p1] = submod(u, v, q);
     }
@@ -341,14 +410,20 @@ RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
   }
 }
 
-// inverse negacyclic NTT, GS, bit-reversed in, natural order out, N^-1
-// folded in (common.intt_stages_t)
-RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
+RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
                    uint32_t *tw) {
-  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
+  ntt_fwd(x, npoly, logn, trow, mont_redc(trow), tw);
+}
+
+// inverse negacyclic NTT, GS, bit-reversed in, natural order out, N^-1
+// folded in (common.intt_stages_t / intt_stages)
+template <class Red>
+RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
+                   const Red &red, uint32_t *tw) {
+  const uint32_t q = red.q;
   const int half = 1 << (logn - 1);
   for (int st = 0; st < logn; ++st) {  // h = N >> (st+1) groups, t = 2^st
-    gen_twiddles(tw, trow + inv_off(logn, st), logn - 1 - st, q, qinv);
+    gen_twiddles(tw, trow + inv_off(logn, st), logn - 1 - st, red);
     for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
       uint32_t *r = x.p[idx >> (logn - 1)];
       const int k = idx & (half - 1);
@@ -357,7 +432,7 @@ RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
       const int p1 = p0 + (1 << st);
       const uint32_t u = r[p0], v = r[p1];
       r[p0] = addmod(u, v, q);
-      r[p1] = redc_mul(submod(u, v, q), tw[j], q, qinv);
+      r[p1] = redc(red, submod(u, v, q), tw[j]);
     }
     RT_SYNC();
   }
@@ -365,9 +440,14 @@ RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
   for (int idx = RT_TID; idx < npoly << logn; idx += RT_NT) {
     uint32_t *r = x.p[idx >> logn];
     const int i = idx & ((1 << logn) - 1);
-    r[i] = redc_mul(r[i], ninv, q, qinv);
+    r[i] = redc(red, r[i], ninv);
   }
   RT_SYNC();
+}
+
+RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
+                   uint32_t *tw) {
+  ntt_inv(x, npoly, logn, trow, mont_redc(trow), tw);
 }
 
 // ---------------------------------------------------------------------------
@@ -466,7 +546,8 @@ RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
 // (limb, row) block bodies shared by the staged kernels and the megakernels
 // ---------------------------------------------------------------------------
 
-// One encrypt block (K2 client_pointwise.cu, K5 phase 2): the row's (v, e0,
+// One encrypt block (K2 and K13a client_pointwise.cu, K5 phase 2; K13a
+// under the shift-add REDC): the row's (v, e0,
 // e1) from Philox under `nonce` (the streams do not depend on the limb),
 // mapped to residues, one NTT stage loop over them (and over pt when
 // pt_coeff: K5 hands in its plaintext in the coefficient domain, K2 in the
@@ -485,9 +566,11 @@ struct EncLimb {
   Seed seed;
 };
 
-RT_FN void encrypt_limb_block(const EncLimb &e, uint32_t *tw) {
+template <class Red>
+RT_FN void encrypt_limb_block(const EncLimb &e, const Red &red,
+                              uint32_t *tw) {
   const int n = 1 << e.logn;
-  const uint32_t q = e.trow[OFF_Q], qinv = e.trow[OFF_QINV];
+  const uint32_t q = red.q;
   const uint32_t sv = 0x10000u + 16u * e.nonce;  // STREAM_ENC_V + 16*nonce
   const uint32_t s0 = 0x20000u + 16u * e.nonce;  // STREAM_ENC_E0
   const uint32_t s1 = 0x30000u + 16u * e.nonce;  // STREAM_ENC_E1
@@ -503,30 +586,41 @@ RT_FN void encrypt_limb_block(const EncLimb &e, uint32_t *tw) {
   }
   RT_SYNC();
   Rows rows = {{e.v, e.c0, e.c1, e.pt}};
-  ntt_fwd(rows, e.pt_coeff ? 4 : 3, e.logn, e.trow, tw);
+  ntt_fwd(rows, e.pt_coeff ? 4 : 3, e.logn, e.trow, red, tw);
   for (int i = RT_TID; i < n; i += RT_NT) {
     const uint32_t vh = e.v[i];
-    const uint32_t c0 = addmod(
-        addmod(redc_mul(vh, e.pkb[i], q, qinv), e.c0[i], q), e.pt[i], q);
-    const uint32_t c1 = addmod(redc_mul(vh, e.pka[i], q, qinv), e.c1[i], q);
+    const uint32_t c0 =
+        addmod(addmod(redc(red, vh, e.pkb[i]), e.c0[i], q), e.pt[i], q);
+    const uint32_t c1 = addmod(redc(red, vh, e.pka[i]), e.c1[i], q);
     e.c0[i] = c0;
     e.c1[i] = c1;
   }
 }
 
-// One decrypt block (K3 client_pointwise.cu, K6 phase 1): m = INTT(c0 +
-// c1*s) of one (limb, row), in place in the row m
+RT_FN void encrypt_limb_block(const EncLimb &e, uint32_t *tw) {
+  encrypt_limb_block(e, mont_redc(e.trow), tw);
+}
+
+// One decrypt block (K3 and K13b client_pointwise.cu, K6 phase 1): m =
+// INTT(c0 + c1*s) of one (limb, row), in place in the row m
 // (client_pointwise.decrypt_limb_stage).
+template <class Red>
+RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
+                              const uint32_t *s, uint32_t *m, int logn,
+                              const uint32_t *trow, const Red &red,
+                              uint32_t *tw) {
+  const int n = 1 << logn;
+  for (int i = RT_TID; i < n; i += RT_NT)
+    m[i] = addmod(x0[i], redc(red, x1[i], s[i]), red.q);
+  RT_SYNC();
+  Rows rows = {{m, m, m, m}};
+  ntt_inv(rows, 1, logn, trow, red, tw);
+}
+
 RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
                               const uint32_t *s, uint32_t *m, int logn,
                               const uint32_t *trow, uint32_t *tw) {
-  const int n = 1 << logn;
-  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
-  for (int i = RT_TID; i < n; i += RT_NT)
-    m[i] = addmod(x0[i], redc_mul(x1[i], s[i], q, qinv), q);
-  RT_SYNC();
-  Rows rows = {{m, m, m, m}};
-  ntt_inv(rows, 1, logn, trow, tw);
+  decrypt_limb_block(x0, x1, s, m, logn, trow, mont_redc(trow), tw);
 }
 
 }  // namespace rt

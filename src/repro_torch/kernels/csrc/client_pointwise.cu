@@ -1,4 +1,5 @@
-// Limb-folded encrypt (K2) and decrypt (K3) for Hopper (sm_90a).
+// Limb-folded encrypt (K2) and decrypt (K3), and the per-limb encrypt
+// (K13a) and decrypt (K13b), for Hopper (sm_90a).
 //
 // K2 replaces the TPU kernel src/repro/kernels/client_pointwise.py
 // :_encrypt_kernel_folded (encrypt_limbs): for every (limb, row) of a
@@ -19,6 +20,15 @@
 // N). The reference's batch block (_batch_block) only bounds a TPU grid
 // step's working set and changes no output; the grid here is always one
 // block per (limb, row).
+//
+// K13a replaces :_encrypt_kernel (encrypt_limb) and K13b :_decrypt_kernel
+// (decrypt_limb): the same block bodies for ONE limb of a (B, N) batch,
+// grid (B,), one launch per limb as in the reference, with the shift-add
+// REDC of paper eq. 9-11 (rt::SaRedc; the reference bakes the prime's
+// k-terms into each compiled kernel, here they come from a row of
+// common.sa_table). Row b encrypts under nonce0 + b (mod 2^32). Their words
+// equal K2's / K3's on that limb and the plain versions
+// (client_pointwise.encrypt_limb_plain / decrypt_limb_plain).
 //
 // What bounds them on an H100: K2 writes 8 bytes per (row, limb,
 // coefficient) but needs three 16-stage NTTs and five Philox-10 words per
@@ -69,6 +79,43 @@ RT_BODY void decrypt_limb(const DecArgs &a, int l, int b, uint32_t *tw) {
                          a.table + (size_t)l * a.n_scalars, tw);
 }
 
+// K13: one limb of a (B, N) batch under the shift-add REDC
+struct EncOneArgs {
+  const uint32_t *pt;          // (B, N) NTT domain
+  const uint32_t *pk_b, *pk_a; // (N) Montgomery form
+  const uint32_t *trow;        // (K,) seed-table row of the limb's prime
+  const int32_t *sa;           // (SA_COLS,) its shift-add REDC row
+  uint32_t *c0, *c1;           // (B, N)
+  uint32_t *v;                 // (B, N) scratch
+  int logn;
+  rt::Seed seed;
+  uint32_t nonce0;
+};
+
+RT_BODY void encrypt_one_limb(const EncOneArgs &a, int b, uint32_t *tw) {
+  const size_t off = (size_t)b << a.logn;
+  rt::EncLimb e = {a.c0 + off, a.c1 + off, a.v + off,
+                   const_cast<uint32_t *>(a.pt + off),  // read only
+                   a.pk_b, a.pk_a, a.trow, a.logn, false,
+                   a.nonce0 + (uint32_t)b, a.seed};
+  rt::encrypt_limb_block(e, rt::sa_redc(a.sa), tw);
+}
+
+struct DecOneArgs {
+  const uint32_t *c0, *c1;  // (B, N)
+  const uint32_t *s_mont;   // (N)
+  const uint32_t *trow;
+  const int32_t *sa;
+  uint32_t *m;              // (B, N)
+  int logn;
+};
+
+RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
+  const size_t off = (size_t)b << a.logn;
+  rt::decrypt_limb_block(a.c0 + off, a.c1 + off, a.s_mont, a.m + off, a.logn,
+                         a.trow, rt::sa_redc(a.sa), tw);
+}
+
 }  // namespace
 
 #if defined(__CUDACC__)
@@ -83,6 +130,16 @@ __global__ void __launch_bounds__(1024) encrypt_folded_kernel(EncArgs a) {
 __global__ void __launch_bounds__(1024) decrypt_folded_kernel(DecArgs a) {
   extern __shared__ uint32_t tw_smem[];
   decrypt_limb(a, blockIdx.x, blockIdx.y, tw_smem);
+}
+
+__global__ void __launch_bounds__(1024) encrypt_limb_kernel(EncOneArgs a) {
+  extern __shared__ uint32_t tw_smem[];
+  encrypt_one_limb(a, blockIdx.x, tw_smem);
+}
+
+__global__ void __launch_bounds__(1024) decrypt_limb_kernel(DecOneArgs a) {
+  extern __shared__ uint32_t tw_smem[];
+  decrypt_one_limb(a, blockIdx.x, tw_smem);
 }
 
 }  // namespace
@@ -123,6 +180,37 @@ extern "C" int decrypt_limbs_launch(const uint32_t *c0, const uint32_t *c1,
   return (int)cudaGetLastError();
 }
 
+extern "C" int encrypt_limb_launch(
+    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
+    const uint32_t *trow, const int32_t *sa, uint32_t *c0, uint32_t *c1,
+    uint32_t *v_scratch, int batch, int logn, uint32_t seed0, uint32_t seed1,
+    uint32_t seed2, uint32_t seed3, uint32_t nonce0, void *stream) {
+  EncOneArgs a = {pt, pk_b, pk_a, trow, sa, c0, c1, v_scratch, logn,
+                  {seed0, seed1, seed2, seed3}, nonce0};
+  const size_t smem = sizeof(uint32_t) << (logn - 1);
+  static rt::SmemAllowance allowance;
+  cudaError_t err =
+      rt::allow_dynamic_smem(encrypt_limb_kernel, smem, allowance);
+  if (err != cudaSuccess) return (int)err;
+  encrypt_limb_kernel<<<batch, 1024, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int decrypt_limb_launch(const uint32_t *c0, const uint32_t *c1,
+                                   const uint32_t *s_mont,
+                                   const uint32_t *trow, const int32_t *sa,
+                                   uint32_t *m, int batch, int logn,
+                                   void *stream) {
+  DecOneArgs a = {c0, c1, s_mont, trow, sa, m, logn};
+  const size_t smem = sizeof(uint32_t) << (logn - 1);
+  static rt::SmemAllowance allowance;
+  cudaError_t err =
+      rt::allow_dynamic_smem(decrypt_limb_kernel, smem, allowance);
+  if (err != cudaSuccess) return (int)err;
+  decrypt_limb_kernel<<<batch, 1024, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 #else  // host build of the same block bodies (one thread per block)
 
 #include <vector>
@@ -151,6 +239,28 @@ extern "C" int decrypt_limbs_host(const uint32_t *c0, const uint32_t *c1,
   std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
   for (int b = 0; b < batch; ++b)
     for (int l = 0; l < n_limbs; ++l) decrypt_limb(a, l, b, tw_smem.data());
+  return 0;
+}
+
+extern "C" int encrypt_limb_host(
+    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
+    const uint32_t *trow, const int32_t *sa, uint32_t *c0, uint32_t *c1,
+    uint32_t *v_scratch, int batch, int logn, uint32_t seed0, uint32_t seed1,
+    uint32_t seed2, uint32_t seed3, uint32_t nonce0) {
+  EncOneArgs a = {pt, pk_b, pk_a, trow, sa, c0, c1, v_scratch, logn,
+                  {seed0, seed1, seed2, seed3}, nonce0};
+  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
+  for (int b = 0; b < batch; ++b) encrypt_one_limb(a, b, tw_smem.data());
+  return 0;
+}
+
+extern "C" int decrypt_limb_host(const uint32_t *c0, const uint32_t *c1,
+                                 const uint32_t *s_mont, const uint32_t *trow,
+                                 const int32_t *sa, uint32_t *m, int batch,
+                                 int logn) {
+  DecOneArgs a = {c0, c1, s_mont, trow, sa, m, logn};
+  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
+  for (int b = 0; b < batch; ++b) decrypt_one_limb(a, b, tw_smem.data());
   return 0;
 }
 

@@ -8,6 +8,8 @@ kernel cannot be built or launched raises.
   * ``fourier``: the reconfigurable Fourier engine's mode switch between
     the limb-folded NTT (K1, ``ntt_limbs`` / ``intt_limbs``) and the df32
     SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``);
+  * ``ntt_limbs`` / ``intt_limbs`` with ``path='matmul'``: the four-step
+    NTT (K14, ``ntt_matmul``), natural-order output;
   * ``encrypt_fused`` / ``decrypt_fused``: the limb-folded encrypt (K2) and
     decrypt (K3);
   * ``encode_encrypt_stream`` / ``decrypt_decode_stream``: the megakernels
@@ -22,10 +24,13 @@ from __future__ import annotations
 
 from repro_torch.core.context import CKKSContext
 from repro_torch.kernels import (client_pointwise, client_stream, common,
-                                 fft_df, ntt_butterfly, server_eval)
+                                 fft_df, ntt_butterfly, ntt_matmul,
+                                 server_eval)
 
 _COUNTED = (client_stream, ntt_butterfly, client_pointwise, fft_df,
-            server_eval)
+            server_eval, ntt_matmul)
+
+NTT_PATHS = ("butterfly", "matmul")
 
 
 def launches() -> dict[str, int]:
@@ -72,28 +77,42 @@ def fourier(x, ctx: CKKSContext, cfg: common.FourierConfig | None = None,
 
 
 # ---------------------------------------------------------------------------
-# NTT / INTT over RNS limb stacks (K1)
+# NTT / INTT over RNS limb stacks (K1 butterfly, K14 four-step)
 # ---------------------------------------------------------------------------
 
+_LIMB_KERNELS = {
+    ("butterfly", "cuda"): ntt_butterfly.limb_rows_cuda,
+    ("butterfly", "plain"): ntt_butterfly.limb_rows_plain,
+    ("matmul", "cuda"): ntt_matmul.limb_rows_mm_cuda,
+    ("matmul", "plain"): ntt_matmul.limb_rows_mm_plain,
+}
 
-def _limbs(x, ctx: CKKSContext, n_limbs: int | None, inverse: bool):
+
+def _limbs(x, ctx: CKKSContext, n_limbs: int | None, inverse: bool,
+           path: str):
+    if path not in NTT_PATHS:
+        raise ValueError(f"unknown NTT path {path!r}; expected one of "
+                         f"{NTT_PATHS}")
     n_limbs = x.shape[0] if n_limbs is None else n_limbs
     x2 = x[:n_limbs].reshape(n_limbs, -1, x.shape[-1]).contiguous()
-    f = (ntt_butterfly.limb_rows_cuda
-         if common.route(x.device) == "cuda"
-         else ntt_butterfly.limb_rows_plain)
+    f = _LIMB_KERNELS[path, common.route(x.device)]
     return f(x2, ctx.plans[:n_limbs], inverse).reshape(x[:n_limbs].shape)
 
 
-def ntt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None):
+def ntt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None,
+              path: str = "butterfly"):
     """x: (L, ..., N) int32 residue words -> forward negacyclic NTT per
-    limb (bit-reversed out), one launch for the whole stack."""
-    return _limbs(x, ctx, n_limbs, inverse=False)
+    limb, one launch for the whole stack. path: 'butterfly' (K1,
+    bit-reversed out) or 'matmul' (K14, the four-step NTT, natural order
+    out: out[k] = x(psi^(2k+1)))."""
+    return _limbs(x, ctx, n_limbs, False, path)
 
 
-def intt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None):
-    """Inverse of ``ntt_limbs`` (bit-reversed in, N^-1 folded in)."""
-    return _limbs(x, ctx, n_limbs, inverse=True)
+def intt_limbs(x, ctx: CKKSContext, n_limbs: int | None = None,
+               path: str = "butterfly"):
+    """Inverse of ``ntt_limbs`` on the same path (bit-reversed in for
+    'butterfly', natural order in for 'matmul'; N^-1 folded in)."""
+    return _limbs(x, ctx, n_limbs, True, path)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ in code that also compiles as plain C++ (one thread per block, barriers as
 no-ops; every phase is race-free, so that build computes what the kernel
 computes). Here g++ builds every source that way (the megakernels
 ``encode_encrypt.cu`` / ``decrypt_decode.cu`` and the staged kernels
-``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``, and the server
-op set ``server_eval.cu``), with ``-ffp-contract=off`` (the host twin of
+``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``, the server
+op set ``server_eval.cu``, and the per-prime kernels ``ntt_rows.cu`` (K12,
+the stage loop under the shift-add REDC), K13 in ``client_pointwise.cu``
+and the four-step ``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and
+Barrett recombination)), with ``-ffp-contract=off`` (the host twin of
 ``--fmad=false``), and each ``_host`` entry's results must equal the plain
 PyTorch version word for word. The
 CUDA build itself, its launch and its agreement on the card are checked by
@@ -25,14 +28,17 @@ from repro_torch.core import prng, rns
 from repro_torch.core.context import get_context
 from repro_torch.fhe_client.client import FHEClient
 from repro_torch.fhe_server import keys as skeys
+from repro_torch.core.ntt import make_plan
 from repro_torch.kernels import (build, client_pointwise, client_stream,
-                                 common, fft_df, ntt_butterfly, server_eval)
+                                 common, fft_df, ntt_butterfly, ntt_matmul,
+                                 server_eval)
 
 _P = ctypes.c_void_p
 
 
 _SOURCES = ("encode_encrypt.cu", "decrypt_decode.cu", "ntt_limbs.cu",
-            "client_pointwise.cu", "fft_df.cu", "server_eval.cu")
+            "client_pointwise.cu", "fft_df.cu", "server_eval.cu",
+            "ntt_rows.cu", "ntt_matmul.cu")
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint32
@@ -57,6 +63,12 @@ _HOST_ENTRIES = {
     "server_ks_apply_rot_host": ("server_eval.cu", [_P] * 10 + [_I] * 5),
     "server_rotate_host": ("server_eval.cu", [_P] * 12 + [_I] * 5),
     "server_mul_ct_host": ("server_eval.cu", [_P] * 18 + [_I] * 7),
+    "ntt_rows_host": ("ntt_rows.cu", [_P] * 4 + [_I] * 3),
+    "encrypt_limb_host": ("client_pointwise.cu", [_P] * 8 + [_I] * 2
+                          + [_U] * 5),
+    "decrypt_limb_host": ("client_pointwise.cu", [_P] * 6 + [_I] * 2),
+    "ntt_mm_pow_table_host": ("ntt_matmul.cu", [_P] * 2 + [_I] * 3),
+    "ntt_mm_host": ("ntt_matmul.cu", [_P] * 7 + [_I] * 6),
 }
 
 
@@ -374,3 +386,103 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
     assert err == 0
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the per-prime kernels: K12 (ntt_rows.cu), K13 (client_pointwise.cu) and
+# K14 (ntt_matmul.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile", ["tiny", "test"])
+def test_host_ntt_rows_match_plain(host_libs, profile, inverse):
+    """K12's stage loop under the shift-add REDC, every limb's prime; its
+    words also equal K1's (the same loop under the general REDC)."""
+    ctx = get_context(profile)
+    n, rows = ctx.n, 3
+    rng = np.random.default_rng(9)
+    x = _rand_residues(ctx, (ctx.params.n_limbs, rows, n), rng)
+    k1 = ntt_butterfly.limb_rows_plain(_t(x), ctx.plans, inverse)
+    for limb, plan in enumerate(ctx.plans):
+        xl = np.ascontiguousarray(x[limb])
+        want = ntt_butterfly.rows_plain(_t(xl), plan, inverse)
+        kc = common.stacked_kernel_consts([plan])
+        out = np.zeros_like(xl)
+        err = host_libs["ntt_rows_host"](
+            _ptr(xl), _ptr(out), _ptr(np.ascontiguousarray(kc.table)),
+            _ptr(np.ascontiguousarray(common.sa_table([plan]))), rows,
+            kc.logn, int(inverse))
+        assert err == 0
+        np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
+        np.testing.assert_array_equal(out, k1[limb].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("profile,batch,nonce0", [
+    ("tiny", 3, 0xFFFFFFFE), ("test", 2, 9)])
+def test_host_encrypt_decrypt_limb_match_plain(host_libs, profile, batch,
+                                               nonce0):
+    """K13a / K13b on every limb against their plain versions."""
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx = client.ctx
+    n = ctx.n
+    rng = np.random.default_rng(10)
+    pt = _rand_residues(ctx, (batch, ctx.params.n_limbs, n), rng)
+    keys = [client.keys.pk.b_mont, client.keys.pk.a_mont,
+            client.keys.sk.s_mont]
+    b_np, a_np, s_np = (k.numpy().view(np.uint32) for k in keys)
+    for limb, plan in enumerate(ctx.plans):
+        ptl = np.ascontiguousarray(pt[:, limb])
+        w0, w1 = client_pointwise.encrypt_limb_plain(
+            _t(ptl), keys[0][limb], keys[1][limb], ctx, limb, client.seed,
+            nonce0)
+        kc = common.stacked_kernel_consts([plan])
+        table = np.ascontiguousarray(kc.table)
+        sa = np.ascontiguousarray(common.sa_table([plan]))
+        c0, c1, v = _zeros(batch, n), _zeros(batch, n), _zeros(batch, n)
+        bl, al = (np.ascontiguousarray(k[limb]) for k in (b_np, a_np))
+        err = host_libs["encrypt_limb_host"](
+            _ptr(ptl), _ptr(bl), _ptr(al), _ptr(table), _ptr(sa), _ptr(c0),
+            _ptr(c1), _ptr(v), batch, kc.logn, *prng.seed_words(client.seed),
+            nonce0)
+        assert err == 0
+        np.testing.assert_array_equal(c0, w0.numpy().view(np.uint32))
+        np.testing.assert_array_equal(c1, w1.numpy().view(np.uint32))
+        want = client_pointwise.decrypt_limb_plain(w0, w1, keys[2][limb],
+                                                   ctx, limb)
+        m = _zeros(batch, n)
+        sl = np.ascontiguousarray(s_np[limb])
+        err = host_libs["decrypt_limb_host"](
+            _ptr(c0), _ptr(c1), _ptr(sl), _ptr(table), _ptr(sa), _ptr(m),
+            batch, kc.logn)
+        assert err == 0
+        np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile,n", [("tiny", 64), ("test", 1024),
+                                       ("test", 512)],
+                         ids=["tiny-8x8", "test-32x32", "test-n512-32x16"])
+def test_host_ntt_mm_matches_plain(host_libs, profile, n, inverse):
+    """K14 on an (L, 3, N) stack of the profile's primes: the pow table, the
+    digit split, the dp4a tiles and the Barrett recombination, square and
+    non-square (N = 512: 32 x 16) splits."""
+    ctx = get_context(profile)
+    plans = [make_plan(p.prime, n) for p in ctx.plans]
+    L, rows = len(plans), 3
+    rng = np.random.default_rng(n)
+    x = _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2).copy()
+    want = ntt_matmul.limb_rows_mm_plain(_t(x), plans, inverse)
+    consts, fa, fb = (t.numpy() for t in ntt_matmul._device_tables(
+        tuple(p.prime for p in plans), n, inverse, "cpu"))
+    n1, n2 = ntt_matmul.split_n(n)
+    out, y = np.zeros_like(x), np.zeros_like(x)
+    tab = _zeros(L, 2 * n)
+    assert host_libs["ntt_mm_pow_table_host"](
+        _ptr(tab), _ptr(consts), L, n.bit_length() - 1, consts.shape[1]) == 0
+    err = host_libs["ntt_mm_host"](
+        _ptr(x), _ptr(out), _ptr(y), _ptr(tab), _ptr(fa), _ptr(fb),
+        _ptr(consts), L, rows, n1.bit_length() - 1, n2.bit_length() - 1,
+        consts.shape[1], int(inverse))
+    assert err == 0
+    np.testing.assert_array_equal(out, want.numpy().view(np.uint32))

@@ -10,8 +10,9 @@
     configurations not ported yet;
   * keys round-trip through ``keys_from_numpy``; the private-inference
     loop packs, encrypts, decrypts and unpacks activation rows;
-  * the plain path (megakernel or staged) never touches a CUDA launch
-    counter, and every CUDA wrapper refuses CPU tensors;
+  * the plain path (megakernel or staged, and the per-prime entry points
+    of K12-K14) never touches a CUDA launch counter, and every CUDA wrapper
+    refuses CPU tensors; ``ops.ntt_limbs`` refuses an unknown path;
   * no module of the port (the server evaluator ``fhe_server`` and the
     kernel modules included) holds a ``try`` statement, the shape a silent
     fall-back from a kernel to its plain version would take.
@@ -29,7 +30,8 @@ import torch
 from repro_torch.fhe_client.client import (FHEClient, keys_from_numpy,
                                            simulate_private_inference)
 from repro_torch.kernels import (build, client_pointwise, client_stream,
-                                 common, fft_df, ntt_butterfly, ops)
+                                 common, fft_df, ntt_butterfly, ntt_matmul,
+                                 ops)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -190,12 +192,44 @@ def test_staged_plain_path_counts_no_launch():
                            "decrypt_limbs", "special_fft", "special_ifft",
                            "add_ct", "add_pt", "mul_pt", "rescale",
                            "mul_pt_rescale", "mul_ct", "rotate",
-                           "ks_decompose", "ks_apply_rot"}
+                           "ks_decompose", "ks_apply_rot", "ntt_rows",
+                           "intt_rows", "encrypt_limb", "decrypt_limb",
+                           "ntt_rows_mm", "intt_rows_mm"}
     assert not any(counts.values()), counts
 
 
+def test_per_prime_plain_paths_count_no_launch(tiny_client):
+    """K12, K13 and K14's entry points on CPU tensors run the plain
+    versions: every launch counter stays 0."""
+    ctx = tiny_client.ctx
+    keys = tiny_client.keys
+    x = torch.zeros((3, 2, 64), dtype=torch.int32)
+    ops.reset_launches()
+    for path in ops.NTT_PATHS:
+        y = ops.ntt_limbs(x, ctx, path=path)
+        assert torch.equal(ops.intt_limbs(y, ctx, path=path), x)
+    y = ntt_butterfly.intt_rows(ntt_butterfly.ntt_rows(x[0], ctx.plans[0]),
+                                ctx.plans[0])
+    y = ntt_matmul.intt_rows_mm(ntt_matmul.ntt_rows_mm(y, ctx.plans[0]),
+                                ctx.plans[0])
+    c0, c1 = client_pointwise.encrypt_limb(x[0], keys.pk.b_mont[0],
+                                           keys.pk.a_mont[0], ctx, 0,
+                                           tiny_client.seed, 3)
+    client_pointwise.decrypt_limb(c0, c1, keys.sk.s_mont[0], ctx, 0)
+    counts = ops.launches()
+    assert not any(counts.values()), counts
+
+
+def test_ntt_limbs_refuses_unknown_path(tiny_client):
+    x = torch.zeros((3, 1, 64), dtype=torch.int32)
+    for f in (ops.ntt_limbs, ops.intt_limbs):
+        with pytest.raises(ValueError, match="NTT path"):
+            f(x, tiny_client.ctx, path="bogus")
+
+
 @pytest.mark.parametrize("wrapper", [
-    "ntt_limbs", "encrypt_limbs", "decrypt_limbs", "fft_rows"])
+    "ntt_limbs", "encrypt_limbs", "decrypt_limbs", "fft_rows", "ntt_rows",
+    "encrypt_limb", "decrypt_limb", "ntt_rows_mm"])
 def test_staged_cuda_wrappers_refuse_cpu_tensors(tiny_client, wrapper):
     ctx = tiny_client.ctx
     x = torch.zeros((1, 3, 64), dtype=torch.int32)
@@ -210,6 +244,14 @@ def test_staged_cuda_wrappers_refuse_cpu_tensors(tiny_client, wrapper):
         "fft_rows": lambda: fft_df.fft_rows_cuda(
             tuple(torch.zeros((1, 32)) for _ in range(4)), ctx.params.m,
             True),
+        "ntt_rows": lambda: ntt_butterfly.rows_cuda(x[0], ctx.plans[0],
+                                                    False),
+        "encrypt_limb": lambda: client_pointwise.encrypt_limb_cuda(
+            x[:, 0], b[0], b[0], ctx, 0, 1, 0),
+        "decrypt_limb": lambda: client_pointwise.decrypt_limb_cuda(
+            x[:, 0], x[:, 0], s[0], ctx, 0),
+        "ntt_rows_mm": lambda: ntt_matmul.limb_rows_mm_cuda(
+            x.reshape(3, 1, 64), ctx.plans[:3], True),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()
