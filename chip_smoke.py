@@ -30,12 +30,15 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
   6. the server op set (K7-K11): holds each of its nine kernel bodies
      against its plain version, bit for bit, on ciphertexts of the
      staged f64 client and keys of its ``make_evaluation_keys``:
-     ``server`` level 8 B=2, ``boot`` level 6 B=2 and level 24 B=1; checks
+     ``server`` level 8 B=2 (the plain versions under both datapaths'
+     REDC engines: the kernels' one u64 REDC gives the words of both),
+     ``boot`` level 6 B=2 and level 24 B=1 (the df32 engine); checks
      that hoisted rotations give the fused rotation's words at ``boot``
      level 6;
   7. drives the encrypted-inference flow
      (``repro_torch.fhe_server.encrypted_inference.run``: encrypt, keys,
-     linear layer + poly3 on the server, decrypt), d=8, level 6 -> 2, at
+     both shipped as wire payloads, linear layer + poly3 on the server, the
+     result shipped back, decrypt), d=8, level 6 -> 2, at
      ``server`` (error < 2^-12 asserted) and at ``boot`` (the flow's words
      held against the same flow through the plain versions on the card;
      error printed beside the budget), counters set to 0 just before each
@@ -53,7 +56,20 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      plain version on the first 4 rows of each limb; K14 also on one
      ``n15`` limb (256 x 128 split), B=2.
      Then each is timed (queued ahead, as in 5) beside its plain version;
-  9. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+  9. the f64 datapath: ``FHEClient('paper', datapath='f64')`` at B=16 and
+     B=1 (K5 / K6's f64 branches), counters set to 0 just before and read
+     just after, >= 19.29 bits; K5 / K6 f64 == their plain versions on the
+     first 4 rows (K6 at scales that are not powers of two), c0 / c1 == the
+     df32 megakernel's, decoded parts == the staged f64 client's; the host
+     oracle client (``fourier='host'``) at B=16 (K1, K2, K3 launched,
+     >= 19.29 bits); the seeded chain (encrypt_symmetric_seeded -> wire
+     kind 2 -> expand_seeded -> decrypt) == the same chain on the CPU, its
+     payload half a full one; ``ServerEvaluator(datapath='f64')`` on the
+     ``server`` flow's deserialized inputs (counters as above: the same
+     kernels) == the df32 flow, its result through the f64 megakernel ==
+     the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
+     in 5) beside the plain versions and the bounds;
+ 10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound), then, as the last line, ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
@@ -603,8 +619,13 @@ SERVER = {
     "ks_decompose": ("K11a", "server_eval.py:334"),
     "ks_apply_rot": ("K11b", "server_eval.py:340"),
 }
-# (profile, level, batch) of the kernel-vs-plain checks
-SERVER_CHECKS = (("server", 8, 2), ("boot", 6, 2), ("boot", 24, 1))
+# the ops whose bodies multiply: their plain versions take the datapath
+# (the REDC engine); the kernels run the u64 REDC on both
+SERVER_REDC = ("mul_pt", "rescale", "mul_pt_rescale", "mul_ct", "rotate",
+               "ks_apply_rot")
+# (profile, level, batch, plain datapaths) of the kernel-vs-plain checks
+SERVER_CHECKS = (("server", 8, 2, ("df32", "f64")), ("boot", 6, 2, ("df32",)),
+                 ("boot", 24, 1, ("df32",)))
 SERVER_ROTATIONS = (1, 2, 5)
 FLOW_DIM, FLOW_LEVEL, FLOW_SEED = 8, 6, 7
 FLOW_PROFILES = ("server", "boot")
@@ -623,8 +644,8 @@ def _plain_server_ops():
     from repro_torch.kernels import ops, server_eval
     kernel_route = ops._server
 
-    def plain(name, x, *args):
-        return getattr(server_eval, name + "_plain")(*args)
+    def plain(name, x, *args, **kwargs):
+        return getattr(server_eval, name + "_plain")(*args, **kwargs)
 
     ops._server = plain
     try:
@@ -661,9 +682,11 @@ def _server_operands(client, keys, ev, level: int, batch: int, seed: int):
     return o
 
 
-def _server_calls(o, ctx) -> dict:
-    """{kernel: (cuda call, plain call)} on the operands `o`."""
+def _server_calls(o, ctx, datapath: str = "df32") -> dict:
+    """{kernel: (cuda call, plain call)} on the operands `o`; the plain
+    versions of the ops that multiply under `datapath`'s REDC engine."""
     from repro_torch.kernels import server_eval as se
+    dp = {"datapath": datapath}
     return {
         "add_ct": (lambda: se.add_ct_cuda(o["a0"], o["a1"], o["b0"],
                                           o["b1"], ctx),
@@ -672,29 +695,31 @@ def _server_calls(o, ctx) -> dict:
         "add_pt": (lambda: se.add_pt_cuda(o["a0"], o["a1"], o["pt"], ctx),
                    lambda: se.add_pt_plain(o["a0"], o["a1"], o["pt"], ctx)),
         "mul_pt": (lambda: se.mul_pt_cuda(o["a0"], o["a1"], o["pm"], ctx),
-                   lambda: se.mul_pt_plain(o["a0"], o["a1"], o["pm"], ctx)),
+                   lambda: se.mul_pt_plain(o["a0"], o["a1"], o["pm"], ctx,
+                                           **dp)),
         "rescale": (lambda: se.rescale_cuda(o["a0"], o["a1"], ctx),
-                    lambda: se.rescale_plain(o["a0"], o["a1"], ctx)),
+                    lambda: se.rescale_plain(o["a0"], o["a1"], ctx, **dp)),
         "mul_pt_rescale": (
             lambda: se.mul_pt_rescale_cuda(o["a0"], o["a1"], o["pm"], ctx),
-            lambda: se.mul_pt_rescale_plain(o["a0"], o["a1"], o["pm"], ctx)),
+            lambda: se.mul_pt_rescale_plain(o["a0"], o["a1"], o["pm"], ctx,
+                                            **dp)),
         "mul_ct": (lambda: se.mul_ct_relin_cuda(o["a0"], o["a1"], o["b0"],
                                                 o["b1"], o["kb"], o["ka"],
                                                 ctx),
                    lambda: se.mul_ct_relin_plain(o["a0"], o["a1"], o["b0"],
                                                  o["b1"], o["kb"], o["ka"],
-                                                 ctx)),
+                                                 ctx, **dp)),
         "rotate": (lambda: se.rotate_cuda(o["a0"], o["a1"], o["perm"],
                                           o["rb"], o["ra"], ctx),
                    lambda: se.rotate_plain(o["a0"], o["a1"], o["perm"],
-                                           o["rb"], o["ra"], ctx)),
+                                           o["rb"], o["ra"], ctx, **dp)),
         "ks_decompose": (lambda: se.ks_decompose_cuda(o["a1"], ctx),
                          lambda: se.ks_decompose_plain(o["a1"], ctx)),
         "ks_apply_rot": (
             lambda: se.ks_apply_rot_cuda(o["a0"], o["h"], o["perm"],
                                          o["rb"], o["ra"], ctx),
             lambda: se.ks_apply_rot_plain(o["a0"], o["h"], o["perm"],
-                                          o["rb"], o["ra"], ctx)),
+                                          o["rb"], o["ra"], ctx, **dp)),
     }
 
 
@@ -720,21 +745,27 @@ def _check_server_kernels(setups, errs: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.fhe_server.ct import ServerCiphertext
-    for profile, level, batch in SERVER_CHECKS:
+    for profile, level, batch, datapaths in SERVER_CHECKS:
         client, keys, ev = setups[profile]
         o = _server_operands(client, keys, ev, level, batch, seed=level)
-        for name, (kernel, plain) in _server_calls(o, client.ctx).items():
-            got, want = kernel(), plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            e = max(_max_abs_err(a, b) for a, b in zip(got, want))
-            errs[name] = max(errs.get(name, 0.0), e)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                _fail(f"{name} differs from its plain version at {profile} "
-                      f"level {level} B={batch} (max abs err {e})")
+        for dp in datapaths:
+            for name, (kernel, plain) in _server_calls(o, client.ctx,
+                                                       dp).items():
+                if dp != "df32" and name not in SERVER_REDC:
+                    continue                # no REDC: held once above
+                got, want = kernel(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+                errs[name] = max(errs.get(name, 0.0), e)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    _fail(f"{name} differs from its plain version ({dp} "
+                          f"REDC) at {profile} level {level} B={batch} (max "
+                          f"abs err {e})")
         print(f"kernel == plain (bit-identical), K7 x3 K8 K8b K9 K10 K11a "
-              f"K11b: {profile} level {level} B={batch}", flush=True)
+              f"K11b: {profile} level {level} B={batch}, plain REDC engines "
+              f"{datapaths}", flush=True)
     client, keys, ev = setups["boot"]
     ns = client.ctx.params.n_slots
     z = np.random.default_rng(3).standard_normal((2, ns)) * 0.5
@@ -752,11 +783,11 @@ def _check_server_kernels(setups, errs: dict) -> None:
           f"word for word: boot level 6 B=2", flush=True)
 
 
-def _server_flow(profile: str, dev) -> dict:
+def _server_flow(profile: str, dev) -> tuple[dict, dict]:
     """The encrypted-inference main path at `profile`, counters set to 0
-    just before and read just after; then (boot) the same server
-    evaluation through the plain versions on the card, word for word, and
-    a profile of the server part."""
+    just before and read just after; then the same server evaluation
+    through the plain versions on the card, word for word, and a profile of
+    the server part. Returns (launches, the run's output)."""
     import numpy as np
     import torch
     from repro_torch.fhe_server import encrypted_inference as ei
@@ -786,10 +817,11 @@ def _server_flow(profile: str, dev) -> dict:
             _fail(f"{profile} flow never launched {name}: {launches}")
     used = {k: v for k, v in launches.items() if v}
     times = ", ".join(f"{k} {v:.3f}" for k, v in out["times"].items())
+    wire = ", ".join(f"{k} {v} B" for k, v in out["bytes"].items())
     print(f"flow: {profile} d={FLOW_DIM} levels {out['levels'][0]} -> "
           f"{out['levels'][1]}, err {out['err']:.3e} (budget "
-          f"{out['budget']:.3e}), wall {wall:.3f} s ({times}), launches "
-          f"{used}", flush=True)
+          f"{out['budget']:.3e}), wall {wall:.3f} s ({times}), wire "
+          f"payloads {wire}, launches {used}", flush=True)
     xv, w, bias, poly = out["workload"]
     ev = out["evaluator"]
     if profile in FLOW_BUDGET_ASSERTED and not out["err"] < out["budget"]:
@@ -806,7 +838,7 @@ def _server_flow(profile: str, dev) -> dict:
           f"{out['budget']:.3e}", flush=True)
     _profile(lambda: inf.encrypted_linear_poly3(ev, x, w, bias, poly), 1,
              f"server eval (linear + poly3) {profile} d={FLOW_DIM}")
-    return launches
+    return launches, out
 
 
 def _time_server_kernels(setups, card: str):
@@ -1042,6 +1074,362 @@ def _engine_phase(client, card: str):
     return launches, errs, times
 
 
+# --- phase 9: the f64 datapath (K5 / K6 f64 branches, the u64 REDC) ------
+# The bounds of the f64 branches are the least work for the words they
+# compute: K5 f64 gives df32 K5's words (but for rare coefficients at
+# Delta = 2^55) and K6 f64 the same planes up to its float64 /scale, so each
+# is bounded by its df32 branch's count, with the FP64 operations of its own
+# function beside it (64 FP64 lanes per SM: 64 x 132 x 1.98 GHz = 16.7e12
+# FP64 instructions/s, each product and sum its own instruction under
+# --fmad=false; a division counted as one). The library routines the
+# kernels call for the RNS / CRT steps (double fmod, 64-bit %, __ddiv_rn)
+# are loops of many instructions on the card; that is the kernel's cost,
+# part of its gap to the bound, and not counted here.
+F64_OPS_PER_S = 64 * 132 * 1.98e9
+# per coefficient: collapse (1 add), two_prod (17), df_round (2 rint, 3
+# add/sub, quick_two_sum 3)
+F64_DELTA_ROUND = 26
+# per coefficient of the f64 CRT: 2 two_prod (34), dd_add (11), 2 dd_sub
+# (26), compares and selects (4), 2 divisions, 1 add, the df32 split (3)
+F64_CRT = 34 + 11 + 26 + 4 + 2 + 1 + 3
+
+# the f64 branches by counter name: (id, CUDA source, TPU kernel body)
+F64_KERNELS = {
+    "encode_encrypt_stream_f64": ("K5 f64", "encode_encrypt.cu",
+                                  "client_stream.py:96"),
+    "decrypt_decode_stream_f64": ("K6 f64", "decrypt_decode.cu",
+                                  "client_stream.py:200"),
+}
+F64_BATCHES = (MAIN_BATCH, 1)
+F64_PLAIN_ROWS = 4            # K5 / K6 f64 against plain: the first 4 rows
+F64_NONCE0 = 4000
+SEEDED_NONCE = 9
+
+
+def _cost_encode_encrypt_f64(p, batch: int):
+    """(bytes, int32 ops, f32 ops, 0, f64 ops) of K5's f64 branch: the df32
+    branch's count, with the df64 Delta-scale round beside it."""
+    i32, f32 = _ops_encode_encrypt(p, batch)
+    f64 = batch * p.n * F64_DELTA_ROUND
+    return _bytes_encode_encrypt(p, batch), i32, f32, 0.0, float(f64)
+
+
+def _cost_decrypt_decode_f64(p, batch: int):
+    """K6's f64 branch: the df32 branch's count (float64 scales), with the
+    df64 CRT and /scale beside it."""
+    i32, f32 = _ops_decrypt_decode(p, batch)
+    f64 = batch * p.n * F64_CRT
+    nbytes = _bytes_decrypt_decode(p, batch) + batch * 4   # float64 scales
+    return nbytes, i32, f32, 0.0, float(f64)
+
+
+def _bound5_ms(nbytes, i32, f32, i8, f64) -> tuple[float, str]:
+    ms, by = _bound_ms(nbytes, i32, f32, i8)
+    f64_ms = f64 / F64_OPS_PER_S * 1e3
+    if by == "operations":
+        return max(ms, f64_ms), by
+    return (ms, by) if ms >= f64_ms else (f64_ms, "operations")
+
+
+def _hold(errs: dict, name: str, got, want, what: str) -> None:
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+    errs[name] = max(errs.get(name, 0.0), e)
+    if not all(_same_bits(a, b) for a, b in zip(got, want)):
+        _fail(f"{name} differs from {what} (max abs err {e})")
+
+
+def _f64_client_phase(dev, mega32, card: str):
+    """The f64 megakernel client at paper, B=16 and B=1, counters set to 0
+    just before and read just after; K5 / K6 f64 against their plain
+    versions (the first rows; K5 also the rows where the datapaths'
+    Delta-scaled integers differ), c0 / c1 against the df32 megakernel's
+    on every other row, decoded
+    parts against the staged f64 client's; then the host oracle client and
+    the seeded chain. Returns (launches, errs, times)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.core.encoder import boot_precision_bits
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.kernels import client_stream, ops
+
+    def k5_planes(batch):
+        """K5's operands as the f64 core makes them: the df32 split of the
+        float64 (re, im) parts, on the card."""
+        return dfl.dfc_to_planes(dfl.dfc_from_parts(
+            *f64.encrypt_operands(msgs[batch])))
+
+    f64 = FHEClient(MAIN_PROFILE, seed=SEED, device=dev, datapath="f64")
+    staged = FHEClient(MAIN_PROFILE, seed=SEED, device=dev,
+                       pipeline="staged", datapath="f64")
+    ctx, p = f64.ctx, f64.ctx.params
+    msgs = {b: _messages(p.n_slots, b, 90 + b) for b in F64_BATCHES}
+    runs = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for b in F64_BATCHES:
+        f64.nonce = F64_NONCE0
+        cts = f64.encode_encrypt_batch(msgs[b])
+        runs[b] = (cts, f64.decrypt_decode_batch(cts.truncated(2)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    for name in F64_KERNELS:
+        if launches[name] != len(F64_BATCHES):
+            _fail(f"the f64 megakernel path launched {name} "
+                  f"{launches[name]} times: {launches}")
+    used = {k: v for k, v in launches.items() if v}
+    for b in F64_BATCHES:
+        cts, out = runs[b]
+        bits = boot_precision_bits(msgs[b], out)
+        if out.shape != msgs[b].shape or not np.all(np.isfinite(out)) \
+                or not bits >= BOOT_PREC_BITS:
+            _fail(f"f64 megakernel round trip at B={b}: {bits} bits")
+        print(f"f64 megakernel path: {MAIN_PROFILE} B={b} round trip "
+              f"{bits:.2f} bits (bar {BOOT_PREC_BITS})", flush=True)
+    print(f"f64 megakernel path: B={F64_BATCHES} in {wall * 1e3:.1f} ms "
+          f"host clock, launches {used}", flush=True)
+
+    errs = {name: 0.0 for name in F64_KERNELS}
+    cts, _ = runs[MAIN_BATCH]
+    r = F64_PLAIN_ROWS
+    planes = tuple(t[:r] for t in k5_planes(MAIN_BATCH))
+    pkb, pka, s = f64.keys.pk.b_mont, f64.keys.pk.a_mont, f64.keys.sk.s_mont
+    t0 = time.perf_counter()
+    _hold(errs, "encode_encrypt_stream_f64", (cts.c0[:r], cts.c1[:r]),
+          client_stream.encode_encrypt_stream_plain(
+              planes, pkb, pka, ctx, f64.seed, F64_NONCE0, datapath="f64"),
+          f"its plain version at {MAIN_PROFILE} (first {r} rows)")
+    # row scales: Delta, then three that are not powers of two, repeated
+    row_scales = [p.delta, float(ctx.q_list[1]), 0.75 * p.delta,
+                  3.0 * 2.0 ** 40]
+    scale = torch.tensor([row_scales[i % 4] for i in range(MAIN_BATCH)],
+                         dtype=torch.float64, device=dev)
+    got = client_stream.decrypt_decode_stream_cuda(
+        cts.c0[:, :2], cts.c1[:, :2], s, ctx, scale, datapath="f64")
+    _hold(errs, "decrypt_decode_stream_f64", tuple(g[:r] for g in got),
+          client_stream.decrypt_decode_stream_plain(
+              cts.c0[:r, :2], cts.c1[:r, :2], s, ctx, scale[:r],
+              datapath="f64"),
+          f"its plain version at {MAIN_PROFILE} (first {r} rows, scales "
+          f"that are not powers of two)")
+    print(f"kernel == plain (bit-identical), K5 f64 K6 f64 on the first {r} "
+          f"rows: {MAIN_PROFILE} B={MAIN_BATCH}, "
+          f"{time.perf_counter() - t0:.1f} s of plain versions", flush=True)
+
+    mega32.nonce = F64_NONCE0
+    want = mega32.encode_encrypt_batch(msgs[MAIN_BATCH])
+    torch.cuda.synchronize()
+    differ = [i for i in range(MAIN_BATCH)
+              if not (torch.equal(cts.c0[i], want.c0[i])
+                      and torch.equal(cts.c1[i], want.c1[i]))]
+    rows, n_coeffs = _delta_scale_split(f64, msgs[MAIN_BATCH])
+    # K5 f64 against its plain version on those rows too: they hold the
+    # coefficients nearest a rounding tie, where df32 K5 is no witness
+    t0 = time.perf_counter()
+    planes_all = k5_planes(MAIN_BATCH)
+    for i in rows:
+        _hold(errs, "encode_encrypt_stream_f64",
+              (cts.c0[i:i + 1], cts.c1[i:i + 1]),
+              client_stream.encode_encrypt_stream_plain(
+                  tuple(t[i:i + 1] for t in planes_all), pkb, pka, ctx,
+                  f64.seed, F64_NONCE0 + i, datapath="f64"),
+              f"its plain version at {MAIN_PROFILE} row {i}")
+    print(f"kernel == plain (bit-identical), K5 f64 on rows {rows} (where "
+          f"the datapaths' Delta-scaled integers differ): "
+          f"{time.perf_counter() - t0:.1f} s of plain versions", flush=True)
+    if differ != rows:
+        _fail(f"f64 megakernel c0/c1 differ from the df32 megakernel's on "
+              f"rows {differ}; the two datapaths' Delta-scaled integers "
+              f"differ on rows {rows}")
+    print(f"f64 megakernel c0/c1 == df32 megakernel's on "
+          f"{MAIN_BATCH - len(rows)} of {MAIN_BATCH} rows; rows {rows} differ "
+          f"exactly where the two datapaths' Delta-scaled integers do "
+          f"({n_coeffs} coefficients: the df32 pair does not collapse to "
+          f"float64 exactly at Delta=2^{p.delta_bits}, as in the JAX "
+          f"reference)", flush=True)
+    mine = f64.decrypt_planes(cts.truncated(2))
+    theirs = staged.decrypt_planes(cts.truncated(2))
+    torch.cuda.synchronize()
+    if not all(_same_bits(a, b) for a, b in zip(mine, theirs)):
+        _fail("f64 megakernel decoded parts differ from the staged f64 "
+              "client's")
+    print(f"f64 megakernel decoded parts == staged f64 client's (bit for "
+          f"bit): {MAIN_PROFILE} B={MAIN_BATCH}", flush=True)
+
+    # the host oracle client: host FFTs around K1 / K2 and K3
+    host = FHEClient(MAIN_PROFILE, seed=SEED, device=dev, fourier="host")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = host.decrypt_decode_batch(
+        host.encode_encrypt_batch(msgs[MAIN_BATCH]).truncated(2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hl = ops.launches()
+    for name in ("ntt_limbs", "encrypt_limbs", "decrypt_limbs"):
+        if hl[name] == 0:
+            _fail(f"the host oracle client never launched {name}: {hl}")
+    bits = boot_precision_bits(msgs[MAIN_BATCH], out)
+    if not bits >= BOOT_PREC_BITS:
+        _fail(f"host oracle round trip {bits} bits")
+    print(f"host oracle client (fourier='host'): {MAIN_PROFILE} "
+          f"B={MAIN_BATCH} round trip {bits:.2f} bits, {wall * 1e3:.1f} ms "
+          f"host clock, launches {dict((k, v) for k, v in hl.items() if v)}",
+          flush=True)
+
+    _seeded_chain(f64, msgs[1][0], dev)
+
+    times = {}
+    for b in F64_BATCHES:
+        planes_b = k5_planes(b)
+        k0, k1 = client_stream.encode_encrypt_stream_cuda(
+            planes_b, pkb, pka, ctx, f64.seed, 0, datapath="f64")
+        sc = torch.full((b,), p.delta * 0.75, dtype=torch.float64, device=dev)
+        calls = {
+            "encode_encrypt_stream_f64": (
+                lambda: client_stream.encode_encrypt_stream_cuda(
+                    planes_b, pkb, pka, ctx, f64.seed, 0, datapath="f64"),
+                lambda: client_stream.encode_encrypt_stream_plain(
+                    planes_b, pkb, pka, ctx, f64.seed, 0, datapath="f64"),
+                _cost_encode_encrypt_f64(p, b)),
+            "decrypt_decode_stream_f64": (
+                lambda: client_stream.decrypt_decode_stream_cuda(
+                    k0[:, :2], k1[:, :2], s, ctx, sc, datapath="f64"),
+                lambda: client_stream.decrypt_decode_stream_plain(
+                    k0[:, :2], k1[:, :2], s, ctx, sc, datapath="f64"),
+                _cost_decrypt_decode_f64(p, b)),
+        }
+        for name, (kernel, plain, cost) in calls.items():
+            ms = _device_ms(kernel, iters=5)
+            plain_ms = (_cuda_ms(plain, iters=1, warmup=1)
+                        if b == MAIN_BATCH else None)
+            bound = _bound5_ms(*cost)
+            times[name, b] = (ms, plain_ms, bound)
+            pm = f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""
+            print(f"time: {name} {MAIN_PROFILE} B={b}: {ms:.3f} ms{pm}, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]})  [{card}]",
+                  flush=True)
+    return launches, errs, times
+
+
+def _delta_scale_split(client, msgs) -> tuple[list, int]:
+    """Rows (and the number of coefficients) where the two datapaths'
+    Delta-scaled integers differ for `msgs`, by the plain versions: df32
+    rounds the exact df32 pair times Delta, f64 rounds its float64
+    collapse times Delta, which drops bits of a pair spanning more than 53
+    (the reference's two datapaths do the same)."""
+    import torch
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.core import encoder
+    from repro_torch.kernels import fft_df
+    p = client.ctx.params
+    planes = dfl.dfc_to_planes(dfl.dfc_from_parts(
+        *client.encrypt_operands(msgs)))
+    w = dfl.dfc_from_planes(fft_df.bitrev_planes(
+        fft_df.fft_rows_plain(planes, p.m, inverse=True)))
+    d0, d1, d2 = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
+                                            p.delta)
+    v32 = d0.long() + (d1.long() << 22) + (d2.long() << 44)
+    coeffs = torch.cat([dfl.df_to_float(w.re), dfl.df_to_float(w.im)], -1)
+    s = encoder.delta_scale_round(coeffs, p.delta)
+    bad = v32 != s.hi.long() + s.lo.long()
+    return bad.any(dim=1).nonzero().flatten().tolist(), int(bad.sum())
+
+
+def _seeded_chain(client, z, dev) -> None:
+    """encrypt_symmetric_seeded -> wire kind 2 -> deserialize ->
+    expand_seeded -> decrypt on the card, against the same chain on the
+    CPU (the plain versions), word for word; the payload is half a full
+    one's."""
+    import torch
+    from repro_torch.core import encoder, encryptor
+    from repro_torch.fhe_client.service import wire
+    ctx = client.ctx
+    sk_cpu = encryptor.SecretKey(client.keys.sk.s_mont.cpu(),
+                                 client.keys.sk.s_coeffs.cpu())
+
+    def chain(device, sk):
+        pt = encoder.encode(z, ctx, device=device)
+        sct = encryptor.encrypt_symmetric_seeded(pt, sk, ctx,
+                                                 seed=client.seed,
+                                                 nonce=SEEDED_NONCE)
+        buf = wire.serialize_ciphertext_seeded(sct)
+        got = wire.deserialize_ciphertext_seeded(buf, device=device)
+        full = encryptor.expand_seeded(got, ctx, seed=client.seed)
+        return buf, full, encryptor.decrypt(full, sk, ctx)
+
+    t0 = time.perf_counter()
+    buf, full, dec = chain(dev, client.keys.sk)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf_p, full_p, dec_p = chain("cpu", sk_cpu)
+    plain_s = time.perf_counter() - t0
+    full_buf = wire.serialize_ciphertext_batch(
+        encryptor.CiphertextBatch(full.c0[None], full.c1[None],
+                                  full.n_limbs, full.scale))
+    if not (buf == buf_p and torch.equal(full.c1.cpu(), full_p.c1)
+            and torch.equal(dec.cpu(), dec_p)):
+        _fail("the seeded chain on the card differs from the plain chain")
+    if (len(buf) - wire._HDR.size - wire._CT_SEEDED.size) * 2 != (
+            len(full_buf) - wire._HDR.size - wire._CT_BATCH.size):
+        _fail(f"seeded payload {len(buf)} B is not half of {len(full_buf)}")
+    bits = encoder.boot_precision_bits(z, encoder.decode(dec, ctx))
+    if not bits >= BOOT_PREC_BITS:
+        _fail(f"seeded round trip {bits} bits")
+    print(f"seeded chain (encrypt_symmetric_seeded -> wire kind 2 -> "
+          f"expand_seeded -> decrypt): == plain chain word for word; payload "
+          f"{len(buf)} B vs full {len(full_buf)} B; {bits:.2f} bits; card "
+          f"{card_s:.2f} s, plain {plain_s:.2f} s", flush=True)
+
+
+def _f64_server_phase(out, dev) -> None:
+    """ServerEvaluator(datapath='f64') on the ``server`` flow's deserialized
+    inputs, counters set to 0 just before and read just after: the flow's
+    kernels, the df32 flow's words; its 2-limb result through the f64
+    megakernel == its staged f64 decode."""
+    import torch
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.fhe_server import inference as inf
+    from repro_torch.fhe_server.eval_ops import ServerEvaluator
+    from repro_torch.kernels import ops
+    staged = out["client"]                      # default seed: same keys
+    ev = ServerEvaluator(staged.ctx, out["evaluator"].keys, datapath="f64")
+    xv, w, bias, poly = out["workload"]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    y = inf.encrypted_linear_poly3(ev, out["x_ct"], w, bias, poly)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    for name, want in FLOW_LAUNCHES.items():
+        if launches[name] != want:
+            _fail(f"the f64 server evaluation launched {name} "
+                  f"{launches[name]} times, expected {want}: {launches}")
+    y32 = out["y_ct"]
+    if not (torch.equal(y.c0, y32.c0) and torch.equal(y.c1, y32.c1)
+            and y.scale == y32.scale):
+        _fail("the f64 server evaluation differs from the df32 flow")
+    used = {k: v for k, v in launches.items() if v}
+    print(f"flow: server ServerEvaluator(datapath='f64') == the df32 flow "
+          f"word for word; {wall * 1e3:.1f} ms host clock, launches {used}",
+          flush=True)
+    mega = FHEClient(staged.ctx.params, device=dev, datapath="f64")
+    scale = staged._scale_operand([y.scale], y.batch)
+    got = mega.decrypt_impl(y.c0[:, :2], y.c1[:, :2], scale)
+    want = staged.decrypt_impl(y.c0[:, :2], y.c1[:, :2], scale)
+    torch.cuda.synchronize()
+    if not all(_same_bits(a, b) for a, b in zip(got, want)):
+        _fail("the flow's result through the f64 megakernel differs from "
+              "its staged f64 decode")
+    print(f"flow: server 2-limb result (scale {y.scale!r}) through the f64 "
+          f"megakernel == the staged f64 decode, bit for bit", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1183,13 +1571,22 @@ def main() -> int:
     _check_server_kernels(setups, errs)
 
     # --- 7. the encrypted-inference flows (main path of the server slice) -
-    flow_launches = {profile: _server_flow(profile, dev)
-                     for profile in FLOW_PROFILES}
+    flow_launches = {}
+    for profile in FLOW_PROFILES:
+        flow_launches[profile], out = _server_flow(profile, dev)
+        if profile == "server":
+            server_out = out        # phase 9 evaluates it again, f64
+        del out
     server_times = _time_server_kernels(setups, card)
 
     # --- 8. the Fourier engine's per-prime entry points (K12-K14) ---------
     engine_launches, engine_errs, engine_times = _engine_phase(
         client_for(MAIN_PROFILE, "staged"), card)
+
+    # --- 9. the f64 datapath: K5 / K6 f64 branches, the f64 server ----------
+    f64_launches, f64_errs, f64_times = _f64_client_phase(
+        dev, client_for(MAIN_PROFILE), card)
+    _f64_server_phase(server_out, dev)
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
@@ -1332,6 +1729,20 @@ def main() -> int:
             k["inverse"] = entries[1]
             del k["inverse"]["launches"]
         kernels.append(k)
+    for name, (id_, source, replaces) in F64_KERNELS.items():
+        ms, plain_ms, bound = f64_times[name, MAIN_BATCH]
+        ms1, _, bound1 = f64_times[name, 1]
+        kernels.append({
+            "name": name, "id": id_, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "matched_plain": True, "launches": f64_launches[name],
+            "max_abs_err": f64_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "shape": f"{MAIN_PROFILE} B={MAIN_BATCH}",
+            "at_batch_1": {"ms": ms1, "bound_ms": bound1[0],
+                           "bound_by": bound1[1]},
+        })
     print("library_ms: none; no single PyTorch call computes a negacyclic "
           "NTT, a Philox RLWE encrypt, the rotation-group-ordered df32 "
           "SpecialFFT, an RNS rescale or a key switch", flush=True)

@@ -11,12 +11,21 @@ Port of ``repro.core.encoder``:
     ``delta_scale_round`` (exact df64 rounding of coeff * Delta, any
     Delta) and ``coeffs_to_plaintext_data`` (exact fmod RNS reduction and
     the limb-folded NTT, K1);
-  * ``slots_to_coeffs``: the host complex128 SpecialIFFT the server's
-    plaintext encoder runs;
+  * the reference's encode / decode entry points (``encode``,
+    ``encode_batch``, ``decode``, ``decode_coeff``, ``slots_to_coeffs``,
+    ``coeffs_to_slots``), each with its ``fourier='host'|'device'``
+    switch: ``'host'`` is the complex128 numpy SpecialFFT oracle (also what
+    the server's plaintext encoder runs), ``'device'`` the df32 SpecialFFT
+    kernel (K4) between float64 parts;
   * ``boot_precision_bits``.
+
+Plaintexts hold int32 tensors of uint32 words on the caller's device
+(default ``cuda``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +33,37 @@ import torch
 from repro_torch.core import dfloat as dfl
 from repro_torch.core import fft as fftmod
 from repro_torch.core import rns
+
+FOURIERS = ("host", "device")
+
+
+@dataclasses.dataclass
+class Plaintext:
+    """RNS plaintext in the NTT domain: (n_limbs, ..., N) int32 words."""
+
+    data: torch.Tensor
+    n_limbs: int
+    scale: float
+
+
+@dataclasses.dataclass
+class PlaintextBatch:
+    """Batch-major plaintexts in the NTT domain: (B, n_limbs, N) int32
+    words, the layout the limb-folded encrypt kernel reads."""
+
+    data: torch.Tensor
+    n_limbs: int
+    scale: float
+
+
+def _check_fourier(fourier: str) -> None:
+    if fourier not in FOURIERS:
+        raise ValueError(f"fourier must be one of {FOURIERS}, got "
+                         f"{fourier!r}")
+
+
+def _device(device) -> torch.device:
+    return torch.device("cuda" if device is None else device)
 
 
 def _check_pow2_delta(delta) -> None:
@@ -50,11 +90,19 @@ def planes_to_coeff_df(w: dfl.DFComplex) -> dfl.DF:
                   torch.cat([w.re.lo, w.im.lo], dim=-1))
 
 
-def slots_to_coeffs(z, ctx) -> np.ndarray:
-    """(..., n_slots) complex slots -> (..., N) float64 coefficients by the
-    host complex128 SpecialIFFT (re ++ im)."""
+def slots_to_coeffs(z, ctx, fourier: str = "host", device=None):
+    """(..., n_slots) complex slots -> (..., N) float64 coefficients (re ++
+    im): by the host complex128 SpecialIFFT (a numpy array), or with
+    ``fourier='device'`` by the df32 SpecialIFFT kernel (a float64 tensor
+    on `device`)."""
+    _check_fourier(fourier)
     p = ctx.params
     z = np.asarray(z, dtype=np.complex128)
+    if fourier == "device":
+        dev = _device(device)
+        return slots_to_coeffs_device(torch.from_numpy(z.real.copy()).to(dev),
+                                      torch.from_numpy(z.imag.copy()).to(dev),
+                                      ctx)
     if z.shape[-1] != p.n_slots:
         raise ValueError(f"expected {p.n_slots} slots, got {z.shape[-1]}")
     w = fftmod.special_ifft(z, p.m)
@@ -63,13 +111,16 @@ def slots_to_coeffs(z, ctx) -> np.ndarray:
 
 def slots_to_coeffs_device(re: torch.Tensor, im: torch.Tensor,
                            ctx) -> torch.Tensor:
-    """(B, n_slots) float64 slot parts -> (B, N) float64 coefficients: df32
-    split, SpecialIFFT (K4), float64 collapse."""
+    """(..., n_slots) float64 slot parts -> (..., N) float64 coefficients:
+    df32 split, SpecialIFFT (K4), float64 collapse."""
     from repro_torch.kernels import ops as kops    # kernels import core
-    z = dfl.dfc_from_parts(re, im)
+    ns = ctx.params.n_slots
+    shp = re.shape
+    z = dfl.dfc_from_parts(re.reshape(-1, ns), im.reshape(-1, ns))
     w = dfl.dfc_from_planes(kops.special_ifft_planes(dfl.dfc_to_planes(z),
                                                      ctx.params.m))
-    return torch.cat([dfl.df_to_float(w.re), dfl.df_to_float(w.im)], dim=-1)
+    return torch.cat([dfl.df_to_float(w.re).reshape(shp),
+                      dfl.df_to_float(w.im).reshape(shp)], dim=-1)
 
 
 def delta_scale_round(coeffs: torch.Tensor, delta) -> dfl.DF:
@@ -101,12 +152,91 @@ def coeffs_to_slots_device(hi: torch.Tensor, lo: torch.Tensor, ctx,
     broadcastable float64 tensor), df32 split, SpecialFFT (K4), float64
     collapse."""
     from repro_torch.kernels import ops as kops
-    n = ctx.params.n
+    n, ns = ctx.params.n, ctx.params.n_slots
     coeffs = hi / scale + lo / scale
-    z = dfl.dfc_from_parts(coeffs[..., :n // 2], coeffs[..., n // 2:])
+    shp = coeffs[..., :ns].shape
+    z = dfl.dfc_from_parts(coeffs[..., :n // 2].reshape(-1, ns),
+                           coeffs[..., n // 2:].reshape(-1, ns))
     w = dfl.dfc_from_planes(kops.special_fft_planes(dfl.dfc_to_planes(z),
                                                     ctx.params.m))
-    return dfl.df_to_float(w.re), dfl.df_to_float(w.im)
+    return (dfl.df_to_float(w.re).reshape(shp),
+            dfl.df_to_float(w.im).reshape(shp))
+
+
+def coeffs_to_slots(coeffs, ctx, scale, fourier: str = "host",
+                    device=None) -> np.ndarray:
+    """(..., N) integer-valued float64 coefficients -> (..., n_slots)
+    complex128 slots: /scale, then the host complex128 SpecialFFT, or with
+    ``fourier='device'`` the df32 SpecialFFT kernel on `device` (or on the
+    coefficients' device when they are a tensor). `scale` is a scalar or
+    an array broadcasting over the batch dims."""
+    _check_fourier(fourier)
+    p = ctx.params
+    if fourier == "device":
+        if not isinstance(coeffs, torch.Tensor):
+            coeffs = torch.from_numpy(np.asarray(coeffs, np.float64)).to(
+                _device(device))
+        sc = torch.as_tensor(np.asarray(scale, np.float64),
+                             device=coeffs.device)
+        re, im = coeffs_to_slots_device(coeffs, torch.zeros_like(coeffs),
+                                        ctx, sc)
+        return re.cpu().numpy() + 1j * im.cpu().numpy()
+    coeffs = np.asarray(coeffs) / scale                  # |v| < Q/2
+    n = p.n
+    zc = coeffs[..., :n // 2] + 1j * coeffs[..., n // 2:]
+    return fftmod.special_fft(zc, p.m)
+
+
+def encode(z, ctx, n_limbs: int | None = None, fourier: str = "host",
+           device=None) -> Plaintext:
+    """(..., n_slots) complex -> Plaintext at `n_limbs` (default: fresh),
+    its words on `device` (default ``cuda``)."""
+    p = ctx.params
+    n_limbs = n_limbs if n_limbs is not None else p.n_limbs
+    dev = _device(device)
+    coeffs = slots_to_coeffs(z, ctx, fourier=fourier, device=dev)
+    if fourier == "host":
+        coeffs = torch.from_numpy(coeffs).to(dev)
+    return Plaintext(coeffs_to_plaintext_data(coeffs, ctx, n_limbs),
+                     n_limbs, p.delta)
+
+
+def encode_batch(z, ctx, n_limbs: int | None = None, fourier: str = "host",
+                 device=None) -> PlaintextBatch:
+    """(B, n_slots) complex -> batch-major (B, L, N) PlaintextBatch."""
+    pt = encode(z, ctx, n_limbs, fourier=fourier, device=device)
+    return PlaintextBatch(pt.data.transpose(0, 1).contiguous(), pt.n_limbs,
+                          pt.scale)
+
+
+def decode_coeff(m_coeff: torch.Tensor, ctx, scale=None,
+                 fourier: str = "host") -> np.ndarray:
+    """Coefficient-domain decode: (2, ..., N) int32 residue words (after
+    the INTT, e.g. a decrypt kernel's output) -> (..., n_slots) complex128
+    slots by the df64 two-limb CRT, /scale and the SpecialFFT."""
+    from repro_torch.core import modmul
+    _check_fourier(fourier)
+    p = ctx.params
+    scale = scale if scale is not None else p.delta
+    v = rns.crt2_to_df(modmul.u32_to_i64(m_coeff[0]),
+                       modmul.u32_to_i64(m_coeff[1]), ctx.q_list[0],
+                       ctx.q_list[1])
+    if fourier == "device":
+        sc = torch.as_tensor(np.asarray(scale, np.float64),
+                             device=v.hi.device)
+        re, im = coeffs_to_slots_device(v.hi, v.lo, ctx, sc)
+        return re.cpu().numpy() + 1j * im.cpu().numpy()
+    return coeffs_to_slots(v.hi.cpu().numpy() + v.lo.cpu().numpy(), ctx,
+                           scale)
+
+
+def decode(pt_ntt: torch.Tensor, ctx, scale: float | None = None,
+           fourier: str = "host") -> np.ndarray:
+    """(>=2, ..., N) int32 NTT-domain words -> (..., n_slots) complex128:
+    the INTT of the first two limbs (K1), then ``decode_coeff``."""
+    from repro_torch.kernels import ops as kops
+    coeff = kops.intt_limbs(pt_ntt[:2].contiguous(), ctx, n_limbs=2)
+    return decode_coeff(coeff, ctx, scale, fourier=fourier)
 
 
 def boot_precision_bits(z_ref: np.ndarray, z_got: np.ndarray) -> float:

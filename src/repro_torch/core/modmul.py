@@ -218,14 +218,22 @@ def mulmod_naive_u64(a, b, q: int):
 
 
 def mulmod_montgomery_u64(a, b_mont, c: MontgomeryConstants):
-    """REDC(a * b_mont) = a*b mod q, given b in Montgomery form. (t + m q)
-    >> 32 is taken as (t >> 32) + (m q >> 32) + carry, the carry being
-    (t_lo != 0) since t + m q = 0 mod 2^32: no sum reaches 2^63."""
+    """REDC(a * b_mont) = a*b mod q, given b in Montgomery form."""
+    return mulmod_montgomery_u64_t(a, b_mont, c.q, c.qinv_neg)
+
+
+def mulmod_montgomery_u64_t(a, b_mont, q, qinv_neg):
+    """The u64 REDC with the constants as Python ints or broadcastable
+    int64 tensors (the reference's ``mulmod_montgomery_u64_t``, the f64
+    datapath's engine of the server kernels). a < 2^32 and b_mont < q, so
+    t = a b < 2^63; (t + m q) >> 32 (a sum that can pass 2^63) is taken as
+    (t >> 32) + (m q >> 32) + carry, the carry being (t_lo != 0) since
+    t + m q = 0 mod 2^32: nothing leans on int64 overflow."""
     t = a * b_mont
     t_lo = t & MASK32
-    m = mul32x32_lo(t_lo, c.qinv_neg)
-    u = (t >> 32) + ((m * c.q) >> 32) + (t_lo != 0).to(torch.int64)
-    return torch.where(u >= c.q, u - c.q, u)
+    m = mul32x32_lo(t_lo, qinv_neg)
+    u = (t >> 32) + ((m * q) >> 32) + (t_lo != 0).to(torch.int64)
+    return torch.where(u >= q, u - q, u)
 
 
 def to_mont_u64(a, c: MontgomeryConstants):

@@ -9,10 +9,13 @@ Port of ``repro.core.rns``:
     fl64(Q) as the reference does) and the exact /scale collapse to a df32
     pair (``centered_to_df``);
   * the f64 datapath: integer-valued df64 pairs -> residues by exact fmod
-    (``to_rns_df``) and the two-limb CRT to a centered df64 pair
-    (``crt2_to_df``; its products t*q < 2^62 are carried in int64);
+    (``to_rns_df``, or one limb against a float64 modulus:
+    ``to_rns_limb_t``, the step K5's f64 branch runs) and the two-limb CRT
+    to a centered df64 pair (``crt2_to_df``; its products t*q < 2^62 are
+    carried in int64);
   * the key-switch decomposition: ``ks_center_t`` (residue -> centered
-    digit) and ``ks_residue_t`` (digit -> residue on another prime).
+    digit) and ``ks_residue_t`` (digit -> residue on another prime);
+  * the exact Python-int oracles ``to_rns_exact`` / ``crt_exact`` (tests).
 
 Residues are int64 tensors holding uint32 values.
 """
@@ -20,7 +23,9 @@ Residues are int64 tensors holding uint32 values.
 from __future__ import annotations
 
 import functools
+import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import dfloat as dfl
@@ -47,6 +52,17 @@ def to_rns_df(x: dfl.DF, q_list) -> torch.Tensor:
     return r.to(torch.int64)
 
 
+def to_rns_limb_t(x: dfl.DF, qf) -> torch.Tensor:
+    """One limb of ``to_rns_df``: `qf` a float64 modulus (a Python float
+    or a 0-d tensor). The same fmod / select sequence, so the residues
+    equal that limb of the broadcasted pass."""
+    qf = torch.as_tensor(qf, dtype=torch.float64, device=x.hi.device)
+    r = torch.fmod(x.hi, qf) + torch.fmod(x.lo, qf)     # in (-2q, 2q)
+    r = torch.fmod(r, qf)
+    r = torch.where(r < 0, r + qf, r)
+    return r.to(torch.int64)
+
+
 def _prod_df(a: torch.Tensor, b: float) -> dfl.DF:
     hi, lo = dfl.two_prod(a, torch.tensor(b, dtype=torch.float64,
                                           device=a.device))
@@ -60,14 +76,18 @@ def _cond_sub(v: dfl.DF, q: float) -> dfl.DF:
                   torch.where(over, vq.lo, v.lo))
 
 
+def crt2_inverses(q0: int, q1: int) -> tuple[int, int]:
+    """g_i = (Q/q_i)^-1 mod q_i of the two-limb CRT."""
+    return pow(q1 % q0, -1, q0), pow(q0 % q1, -1, q1)
+
+
 def crt2_to_df(c0: torch.Tensor, c1: torch.Tensor, q0: int,
                q1: int) -> dfl.DF:
     """Two-limb CRT -> the centered integer as an exact df64 pair.
     x = [c0 g0]_{q0} q1 + [c1 g1]_{q1} q0 (mod Q); each product t_i q_j <
     2^62 is made exact with two_prod, the sum and the conditional
     subtractions of fl64(Q) stay in df64. c0/c1: int64 residues."""
-    g0 = pow(q1 % q0, -1, q0)
-    g1 = pow(q0 % q1, -1, q1)
+    g0, g1 = crt2_inverses(q0, q1)
     t0 = (c0.to(torch.int64) * g0) % q0          # < 2^63: exact in int64
     t1 = (c1.to(torch.int64) * g1) % q1
     a = _prod_df(t0.to(torch.float64), float(q1))
@@ -202,3 +222,29 @@ def ks_center_t(v: torch.Tensor, q) -> torch.Tensor:
 def ks_residue_t(w: torch.Tensor, q) -> torch.Tensor:
     """Centered digit |w| < q -> its residue mod q (one conditional add)."""
     return torch.where(w < 0, w + q, w)
+
+
+# ---------------------------------------------------------------------------
+# exact oracles (tests only)
+# ---------------------------------------------------------------------------
+
+
+def to_rns_exact(values, q_list) -> np.ndarray:
+    """Python ints -> (L, len(values)) uint32 residues."""
+    return np.array([[int(v) % q for v in values] for q in q_list],
+                    dtype=np.uint32)
+
+
+def crt_exact(residues: np.ndarray, q_list) -> list[int]:
+    """Full CRT of (L, N) residues to centered Python ints."""
+    qq = math.prod(int(q) for q in q_list)
+    basis = []
+    for q in q_list:
+        m = qq // int(q)
+        basis.append(m * pow(m % int(q), -1, int(q)))
+    out = []
+    for j in range(residues.shape[1]):
+        v = sum(int(residues[i, j]) * basis[i]
+                for i in range(len(q_list))) % qq
+        out.append(v - qq if v > qq // 2 else v)
+    return out

@@ -1,26 +1,40 @@
 """FHE client: batched CKKS encode+encrypt and decrypt+decode on the card,
 and the evaluation keys a server evaluates with.
 
-Port of ``repro.fhe_client.client.FHEClient`` with ``fourier='device'``, in
-both of the reference's pipelines:
+Port of ``repro.fhe_client.client.FHEClient``, in every configuration of
+the reference:
 
-  * ``pipeline='megakernel'`` (the default): each direction is one CUDA
-    megakernel launch (K5, K6), on the df32 datapath;
-  * ``pipeline='staged'``: the same client operation split into separate
-    launches, with plain eager torch glue between them on the card. On the
-    df32 datapath (the default) encode is SpecialIFFT (K4) -> Delta-scale
-    digits and RNS -> limb-folded NTT (K1) -> folded encrypt (K2), and
-    decode folded decrypt + INTT (K3) -> CRT and /Delta -> SpecialFFT (K4).
-    ``datapath='f64'`` keeps the same kernels and carries the glue in
-    float64: the df64 Delta-scale and fmod RNS, the df64 two-limb CRT and a
-    float64 /scale. It takes any scale (the df32 datapath only powers of
-    two), which a server's ct x ct rescales produce.
+  * ``fourier='device'`` (the default) keeps the whole chain on the card,
+    in one of two pipelines:
+
+      - ``pipeline='megakernel'`` (the default): each direction is one
+        CUDA megakernel launch (K5, K6);
+      - ``pipeline='staged'``: the same client operation split into
+        separate launches, with plain eager torch glue between them on the
+        card: SpecialIFFT (K4) -> Delta-scale and RNS -> limb-folded NTT
+        (K1) -> folded encrypt (K2), and folded decrypt + INTT (K3) -> CRT
+        and /scale -> SpecialFFT (K4);
+
+    and one of two datapaths: ``'df32'`` (the default) carries the
+    Delta-scale and the CRT in float32 pairs and uint32 words and takes
+    power-of-two scales only; ``'f64'`` carries them in float64 and 64-bit
+    integers (df64 Delta-scale, fmod RNS, df64 CRT, float64 /scale) and
+    takes any scale, which a server's ct x ct rescales produce. Both give
+    the same ciphertext words (at Delta = 2^55 up to a rare coefficient
+    that the f64 datapath's float64 collapse rounds to its neighbour, as
+    the reference's does).
+  * ``fourier='host'``: the reference's complex128 oracle client. The
+    SpecialIFFT / SpecialFFT are numpy complex128 transforms on the host
+    (that is this configuration's definition, not a fall-back); between
+    them the card runs the f64 Delta-scale and RNS, the limb-folded NTT
+    (K1) and encrypt (K2), and the decrypt + INTT (K3) and the df64 CRT.
+    It is ``pipeline='staged'``, ``datapath='f64'`` by construction.
 
 ``kernels.ops`` sends CUDA tensors to the kernels and CPU tensors to their
 plain PyTorch versions. Messages are packed as in the reference;
 ciphertexts from the same seed and nonce base are bit-identical to the JAX
-client's, whatever the pipeline or datapath. ``make_evaluation_keys`` makes
-the relinearization and rotation keys of ``fhe_server.ServerEvaluator``.
+client's, whatever the configuration. ``make_evaluation_keys`` makes the
+relinearization and rotation keys of ``fhe_server.ServerEvaluator``.
 
 The client runs on ``device`` (default ``cuda``; no silent CPU fall-back:
 the tests pass ``device='cpu'`` explicitly).
@@ -39,16 +53,11 @@ from repro_torch.core.context import CKKSContext, get_context
 from repro_torch.core.encryptor import CiphertextBatch
 from repro_torch.fhe_server import keys as server_keys
 from repro_torch.fhe_server.ct import ServerPlaintext
+from repro_torch.kernels import common as kcommon
 from repro_torch.kernels import ops as kops
 
+FOURIERS = ("device", "host")
 PIPELINES = ("staged", "megakernel")
-DATAPATHS = ("df32", "f64")
-
-# configurations of the reference client that the port has not ported yet,
-# and the ROADMAP.md item that will port each
-_FOURIER_TODO = "fourier='host' (ROADMAP.md queue 1, item 6)"
-_F64_MEGA_TODO = ("datapath='f64' with pipeline='megakernel': the f64 "
-                  "branches of K5/K6 (ROADMAP.md queue 2)")
 
 
 @dataclasses.dataclass
@@ -111,29 +120,38 @@ def server_plaintext_from_numpy(data, data_mont, level: int, scale: float,
 class FHEClient:
     """Client-side encode/encrypt + decode/decrypt over model activations.
 
-    ``profile`` is a profile name or a ``CKKSParams``. ``pipeline`` is
-    ``'megakernel'`` (default) or ``'staged'``; ``datapath`` is ``'df32'``
-    (default) or ``'f64'`` (staged pipeline only). ``fourier='host'`` and
-    ``datapath='f64'`` with the megakernel are not ported yet and raise
-    ``NotImplementedError`` naming the ROADMAP item that will port them.
+    ``profile`` is a profile name or a ``CKKSParams``. ``fourier`` is
+    ``'device'`` (default) or ``'host'``; ``pipeline`` is ``'megakernel'``
+    (the default for the device Fourier engine) or ``'staged'`` (the
+    default, and the only pipeline, for the host one); ``datapath`` is
+    ``'df32'`` (the device default, power-of-two scales) or ``'f64'`` (the
+    host default and only datapath). Any other combination raises
+    ``ValueError``, as in the reference.
     """
 
     def __init__(self, profile="test", seed: int | None = None, device=None,
                  fourier: str = "device", pipeline: str | None = None,
                  datapath: str | None = None):
-        if fourier != "device":
-            raise NotImplementedError(f"fourier={fourier!r} is not ported "
-                                      f"yet: {_FOURIER_TODO}")
-        pipeline = "megakernel" if pipeline is None else pipeline
+        if fourier not in FOURIERS:
+            raise ValueError(f"fourier must be one of {FOURIERS}, got "
+                             f"{fourier!r}")
+        if pipeline is None:
+            pipeline = "megakernel" if fourier == "device" else "staged"
         if pipeline not in PIPELINES:
             raise ValueError(f"pipeline must be one of {PIPELINES}, got "
                              f"{pipeline!r}")
-        datapath = "df32" if datapath is None else datapath
-        if datapath not in DATAPATHS:
-            raise ValueError(f"datapath must be one of {DATAPATHS}, got "
-                             f"{datapath!r}")
-        if datapath == "f64" and pipeline == "megakernel":
-            raise NotImplementedError(f"not ported yet: {_F64_MEGA_TODO}")
+        if pipeline == "megakernel" and fourier != "device":
+            raise ValueError("pipeline='megakernel' runs the df32 Fourier "
+                             "stages inside the kernel and requires "
+                             "fourier='device'")
+        if datapath is None:
+            datapath = "df32" if fourier == "device" else "f64"
+        kcommon.check_datapath(datapath)
+        if datapath == "df32" and fourier != "device":
+            raise ValueError("datapath='df32' is the device kernels' datapath "
+                             "and requires fourier='device' (the host "
+                             "oracle is f64 by construction)")
+        self.fourier = fourier
         self.pipeline = pipeline
         self.datapath = datapath
         if device is None:
@@ -193,12 +211,24 @@ class FHEClient:
 
     # --- operands and results -----------------------------------------------
 
+    @property
+    def n_encrypt_operands(self) -> int:
+        """The number of tensors ``encrypt_operands`` returns."""
+        if self.fourier != "device":
+            return 1
+        return 4 if self.datapath == "df32" else 2
+
     def encrypt_operands(self, messages) -> tuple:
         """(B, n_slots) complex -> the encrypt core's operands on the
         client's device: four float32 df planes (re_hi, re_lo, im_hi,
         im_lo), split in host numpy as in the reference, on the df32
-        datapath; the float64 (re, im) parts on the f64 datapath."""
+        datapath; the float64 (re, im) parts on the f64 datapath; the
+        (B, N) float64 coefficients of the host SpecialIFFT for
+        ``fourier='host'``."""
         msgs = np.asarray(messages, np.complex128)
+        if self.fourier == "host":
+            coeffs = encoder.slots_to_coeffs(msgs, self.ctx)
+            return (torch.from_numpy(coeffs).to(self.device),)
         if self.datapath == "f64":
             return (torch.from_numpy(msgs.real.copy()).to(self.device),
                     torch.from_numpy(msgs.imag.copy()).to(self.device))
@@ -222,14 +252,20 @@ class FHEClient:
         return torch.tensor(s, device=self.device)
 
     def decrypt_operands(self, cts: CiphertextBatch) -> tuple:
-        """(c0, c1, scale): the 2-limb views and (B,) float32 scales."""
+        """(c0, c1, scale): the 2-limb views and the datapath's scale
+        operand (``_scale_operand``)."""
         return (cts.c0[:, :2], cts.c1[:, :2],
                 self._scale_operand(cts.scale, len(cts)))
 
-    def decrypt_results(self, parts) -> np.ndarray:
+    def decrypt_results(self, parts, scale=None) -> np.ndarray:
         """The decrypt core's parts -> (B, n_slots) complex128: four float32
         planes collapsed in float64 (df32), or the float64 (re, im) parts
-        (f64)."""
+        (f64); for ``fourier='host'`` the df64 CRT pair, finished here by
+        the host /scale (`scale`: a scalar or a (B, 1) array) and
+        SpecialFFT."""
+        if self.fourier == "host":
+            hi, lo = (p.cpu().numpy() for p in parts)
+            return encoder.coeffs_to_slots(hi + lo, self.ctx, scale)
         if self.datapath == "f64":
             re, im = (p.cpu().numpy() for p in parts)
             return re + 1j * im
@@ -255,7 +291,7 @@ class FHEClient:
         self._nonce += int(count)
         return base
 
-    # --- the cores of the two pipelines ---------------------------------------
+    # --- the cores of the configurations -------------------------------------
 
     def _encrypt_core_mega32_impl(self, rh, rl, ih, il, nonce0: int):
         """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N): one
@@ -269,6 +305,48 @@ class FHEClient:
         planes: one megakernel launch (K6)."""
         return kops.decrypt_decode_stream(c0, c1, self.keys.sk.s_mont,
                                           self.ctx, scale)
+
+    def _encrypt_core_mega_impl(self, re, im, nonce0: int):
+        """(B, n_slots) float64 slot parts -> (c0, c1) (B, L, N): the df32
+        split on the card, then one megakernel launch on the f64 datapath
+        (K5's f64 branch)."""
+        z = dfl.dfc_from_parts(re, im)
+        return kops.encode_encrypt_stream(
+            dfl.dfc_to_planes(z), self.keys.pk.b_mont, self.keys.pk.a_mont,
+            self.ctx, self.seed, nonce0, datapath="f64")
+
+    def _decrypt_core_mega_impl(self, c0, c1, scale):
+        """(B, 2, N) ciphertext views, (B, 1) float64 scales of any value ->
+        (B, n_slots) float64 (re, im) slot parts: one megakernel launch on
+        the f64 datapath (K6's f64 branch), then the float64 collapse."""
+        planes = kops.decrypt_decode_stream(
+            c0, c1, self.keys.sk.s_mont, self.ctx,
+            scale.reshape(-1).contiguous(), datapath="f64")
+        w = dfl.dfc_from_planes(planes)
+        return dfl.df_to_float(w.re), dfl.df_to_float(w.im)
+
+    def _encrypt_core_impl(self, coeffs, nonce0: int):
+        """The host oracle's device part: (B, N) float64 coefficients of the
+        host SpecialIFFT -> (c0, c1) (B, L, N): df64 Delta-scale and fmod
+        RNS, limb-folded NTT (K1), fused encrypt (K2)."""
+        ctx = self.ctx
+        pt = encoder.coeffs_to_plaintext_data(coeffs, ctx,
+                                              ctx.params.n_limbs)
+        return kops.encrypt_fused(pt.transpose(0, 1), self.keys.pk.b_mont,
+                                  self.keys.pk.a_mont, ctx, seed=self.seed,
+                                  nonce0=nonce0)              # (B, L, N)
+
+    def _decrypt_core_impl(self, c0, c1):
+        """The host oracle's device part: (B, 2, N) ciphertext views -> the
+        centered df64 CRT pair (hi, lo), (B, N) each: fused decrypt + INTT
+        (K3), df64 two-limb CRT. ``decrypt_results`` finishes on the
+        host."""
+        ctx = self.ctx
+        m = kops.decrypt_fused(c0, c1, self.keys.sk.s_mont, ctx)
+        v = rns.crt2_to_df(modmul.u32_to_i64(m[:, 0]),
+                           modmul.u32_to_i64(m[:, 1]), ctx.q_list[0],
+                           ctx.q_list[1])
+        return v.hi, v.lo
 
     def _encrypt_core_dev32_impl(self, rh, rl, ih, il, nonce0: int):
         """The staged encode+encrypt: SpecialIFFT (K4), df32 Delta-scale
@@ -304,45 +382,41 @@ class FHEClient:
         """The staged encode+encrypt on the f64 datapath: SpecialIFFT (K4)
         between float64 and df32, exact df64 Delta-scale and fmod RNS,
         limb-folded NTT (K1), fused encrypt (K2)."""
-        ctx = self.ctx
-        coeffs = encoder.slots_to_coeffs_device(re, im, ctx)    # (B, N)
-        pt = encoder.coeffs_to_plaintext_data(coeffs, ctx,
-                                              ctx.params.n_limbs)
-        return kops.encrypt_fused(pt.transpose(0, 1), self.keys.pk.b_mont,
-                                  self.keys.pk.a_mont, ctx, seed=self.seed,
-                                  nonce0=nonce0)              # (B, L, N)
+        return self._encrypt_core_impl(
+            encoder.slots_to_coeffs_device(re, im, self.ctx), nonce0)
 
     def _decrypt_core_dev_impl(self, c0, c1, scale):
         """The staged decrypt+decode on the f64 datapath: fused decrypt +
         INTT (K3), df64 two-limb CRT, float64 /scale, SpecialFFT (K4).
         `scale`: (B, 1) float64, any value."""
-        ctx = self.ctx
-        m = kops.decrypt_fused(c0, c1, self.keys.sk.s_mont, ctx)
-        v = rns.crt2_to_df(modmul.u32_to_i64(m[:, 0]),
-                           modmul.u32_to_i64(m[:, 1]), ctx.q_list[0],
-                           ctx.q_list[1])
-        return encoder.coeffs_to_slots_device(v.hi, v.lo, ctx, scale)
+        hi, lo = self._decrypt_core_impl(c0, c1)
+        return encoder.coeffs_to_slots_device(hi, lo, self.ctx, scale)
 
     @property
     def encrypt_impl(self):
         """Encrypt core ``f(*operands, nonce0) -> (c0, c1)`` of the
-        configured pipeline and datapath (row-independent over the
-        batch)."""
+        configured Fourier engine, pipeline and datapath (row-independent
+        over the batch)."""
+        if self.fourier != "device":
+            return self._encrypt_core_impl
         if self.pipeline == "megakernel":
-            return self._encrypt_core_mega32_impl
-        if self.datapath == "f64":
-            return self._encrypt_core_dev_impl
-        return self._encrypt_core_dev32_impl
+            return (self._encrypt_core_mega32_impl if self.datapath == "df32"
+                    else self._encrypt_core_mega_impl)
+        return (self._encrypt_core_dev32_impl if self.datapath == "df32"
+                else self._encrypt_core_dev_impl)
 
     @property
     def decrypt_impl(self):
         """Decrypt core ``f(c0, c1, scale) -> parts`` of the configured
-        pipeline and datapath."""
+        Fourier engine, pipeline and datapath (the host oracle applies its
+        scale on the host, in ``decrypt_results``)."""
+        if self.fourier != "device":
+            return lambda c0, c1, scale: self._decrypt_core_impl(c0, c1)
         if self.pipeline == "megakernel":
-            return self._decrypt_core_mega32_impl
-        if self.datapath == "f64":
-            return self._decrypt_core_dev_impl
-        return self._decrypt_core_dev32_impl
+            return (self._decrypt_core_mega32_impl if self.datapath == "df32"
+                    else self._decrypt_core_mega_impl)
+        return (self._decrypt_core_dev32_impl if self.datapath == "df32"
+                else self._decrypt_core_dev_impl)
 
     # --- the two client operations -------------------------------------------
 
@@ -364,7 +438,7 @@ class FHEClient:
 
     def decrypt_decode_batch(self, cts: CiphertextBatch) -> np.ndarray:
         """CiphertextBatch -> (B, n_slots) complex messages."""
-        return self.decrypt_results(self.decrypt_planes(cts))
+        return self.decrypt_results(self.decrypt_planes(cts), cts.scale)
 
     # --- list[Ciphertext] interop --------------------------------------------
 
@@ -381,13 +455,28 @@ class FHEClient:
         cts = list(cts)
         c0 = torch.stack([ct.c0[:2] for ct in cts])
         c1 = torch.stack([ct.c1[:2] for ct in cts])
-        scale = self._scale_operand([ct.scale for ct in cts], len(cts))
-        return self.decrypt_results(self.decrypt_impl(c0, c1, scale))
+        scales = np.array([ct.scale for ct in cts], np.float64)[:, None]
+        parts = self.decrypt_impl(c0, c1,
+                                  self._scale_operand(scales, len(cts)))
+        return self.decrypt_results(parts, scales)
+
+    # --- traffic accounting ---------------------------------------------------
 
     def ciphertext_bytes(self, seeded: bool = False) -> int:
+        """Words of one fresh ciphertext in bytes (seeded: c0 and the
+        128-bit stream id of a)."""
         p = self.ctx.params
         polys = 1 if seeded else 2
         return polys * p.n_limbs * p.n * 4 + (16 if seeded else 0)
+
+    def upload_report(self, batch: int) -> dict:
+        return {
+            "batch": batch,
+            "ct_bytes": self.ciphertext_bytes(),
+            "ct_bytes_seeded": self.ciphertext_bytes(seeded=True),
+            "compression": self.ciphertext_bytes()
+            / self.ciphertext_bytes(seeded=True),
+        }
 
 
 def simulate_private_inference(client: FHEClient, serve_fn, x: np.ndarray,

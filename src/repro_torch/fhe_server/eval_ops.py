@@ -13,9 +13,11 @@ owns:
     copy, made once per key and level);
   * the per-rotation NTT permutations, (1, N) int32 on the keys' device.
 
-Only the device datapath (``'df32'``: uint32 REDC on 16-bit limbs or native
-32-bit words, bit-identical to the reference's) is ported; ``'f64'`` (the
-reference's u64 REDC oracle) raises ``NotImplementedError``.
+``datapath`` is the reference's label of the pointwise REDC engine of the
+ops that multiply: ``'df32'`` (the default) the uint32 REDC, ``'f64'`` the
+u64 REDC (``modmul.mulmod_montgomery_u64_t``). Both give the same words.
+The plain versions (CPU tensors) run the engine it names; the kernels run
+the u64 REDC on both.
 """
 
 from __future__ import annotations
@@ -26,10 +28,9 @@ from repro_torch.core.context import CKKSContext
 from repro_torch.fhe_server import keys as keysmod
 from repro_torch.fhe_server.ct import (ServerCiphertext, ServerPlaintext,
                                        combined_scale)
+from repro_torch.kernels import common as kcommon
 from repro_torch.kernels import ops as kops
 
-_F64_TODO = ("datapath='f64' (the u64 REDC oracle) is not ported yet: "
-             "ROADMAP.md queue 1, item 9 (leftovers)")
 
 
 def _scales_match(a: float, b: float) -> bool:
@@ -48,10 +49,7 @@ class ServerEvaluator:
     def __init__(self, ctx: CKKSContext,
                  eval_keys: "keysmod.EvaluationKeys | None" = None,
                  datapath: str = "df32"):
-        if datapath == "f64":
-            raise NotImplementedError(_F64_TODO)
-        if datapath != "df32":
-            raise ValueError(f"datapath must be 'df32', got {datapath!r}")
+        kcommon.check_datapath(datapath)
         self.ctx = ctx
         self.keys = eval_keys
         self.datapath = datapath
@@ -119,7 +117,7 @@ class ServerEvaluator:
             raise ValueError(f"plaintext level {pt.level} / shape "
                              f"{tuple(pt.data.shape)} for level {x.level}")
         c0, c1 = kops.server_mul_pt(x.c0, x.c1, pt.data_mont, self.ctx,
-                                    rescale=rescale)
+                                    rescale=rescale, datapath=self.datapath)
         if rescale:
             return ServerCiphertext(
                 c0, c1, x.level - 1,
@@ -131,7 +129,8 @@ class ServerEvaluator:
     def rescale(self, x: ServerCiphertext):
         if x.level < 3:
             raise ValueError("rescale below the 2-limb decrypt floor")
-        c0, c1 = kops.server_rescale(x.c0, x.c1, self.ctx)
+        c0, c1 = kops.server_rescale(x.c0, x.c1, self.ctx,
+                                     datapath=self.datapath)
         return ServerCiphertext(
             c0, c1, x.level - 1,
             combined_scale(x.scale, divisor=self._q_drop(x.level)))
@@ -142,7 +141,8 @@ class ServerEvaluator:
         lvl = min(x.level, y.level)
         x, y = x.drop_to(lvl), y.drop_to(lvl)
         kb, ka = self._sliced_key(self.keys.relin, lvl)
-        c0, c1 = kops.server_mul_ct(x.c0, x.c1, y.c0, y.c1, kb, ka, self.ctx)
+        c0, c1 = kops.server_mul_ct(x.c0, x.c1, y.c0, y.c1, kb, ka, self.ctx,
+                                    datapath=self.datapath)
         scale = combined_scale(x.scale, y.scale, divisor=self._q_drop(lvl))
         return ServerCiphertext(c0, c1, lvl - 1, scale)
 
@@ -156,7 +156,7 @@ class ServerEvaluator:
             return x
         kb, ka = self._rot_key(rn, x.level)
         c0, c1 = kops.server_rotate(x.c0, x.c1, self._perm(rn, x.c0.device),
-                                    kb, ka, self.ctx)
+                                    kb, ka, self.ctx, datapath=self.datapath)
         return ServerCiphertext(c0, c1, x.level, x.scale)
 
     def hoisted_rotations(self, x: ServerCiphertext, rotations):
@@ -170,7 +170,8 @@ class ServerEvaluator:
             for rn in need:
                 kb, ka = self._rot_key(rn, x.level)
                 c0, c1 = kops.server_ks_apply_rot(
-                    x.c0, h, self._perm(rn, x.c0.device), kb, ka, self.ctx)
+                    x.c0, h, self._perm(rn, x.c0.device), kb, ka, self.ctx,
+                    datapath=self.datapath)
                 out[rn] = ServerCiphertext(c0, c1, x.level, x.scale)
         for r, rn in zip(rotations, rns_):
             out[r] = x if rn == 0 else out[rn]

@@ -1,6 +1,6 @@
 """The client megakernels: CUDA wrappers and their plain PyTorch versions.
 
-Port of ``repro.kernels.client_stream`` (df32 datapath):
+Port of ``repro.kernels.client_stream``, both datapaths:
 
   * ``encode_encrypt_stream_cuda`` launches ``csrc/encode_encrypt.cu``
     (replaces the TPU kernel ``_encode_encrypt_kernel``);
@@ -8,6 +8,15 @@ Port of ``repro.kernels.client_stream`` (df32 datapath):
   * ``decrypt_decode_stream_cuda`` launches ``csrc/decrypt_decode.cu``
     (replaces ``_decrypt_decode_kernel``); ``decrypt_decode_stream_plain``
     is its plain version.
+
+``datapath='df32'`` carries the Delta-scale and the CRT in float32 pairs
+and uint32 words (exact base-2^22 digits, word-pair CRT; power-of-two
+scales only); ``datapath='f64'`` in float64 and 64-bit integers (the df64
+Delta-scale round and fmod RNS reduction, the df64 CRT and a float64
+/scale, any scale). Both give the same ciphertext words wherever the
+df32 pair collapses to float64 exactly; at Delta = 2^55 a rare
+coefficient rounds to the neighbouring integer on the f64 datapath, as in
+the reference. Each branch counts its launches under its own name.
 
 The plain versions run the same stage functions in the same order as the
 reference kernel bodies, so on the CPU they are held bit for bit against
@@ -33,7 +42,12 @@ from repro_torch.core.modmul import MASK32
 from repro_torch.core.ntt import bitrev_indices
 from repro_torch.kernels import client_pointwise, common, fft_df
 
-LAUNCHES = {"encode_encrypt_stream": 0, "decrypt_decode_stream": 0}
+LAUNCHES = {"encode_encrypt_stream": 0, "decrypt_decode_stream": 0,
+            "encode_encrypt_stream_f64": 0, "decrypt_decode_stream_f64": 0}
+
+
+def _counter(name: str, datapath: str) -> str:
+    return name + ("_f64" if datapath == "f64" else "")
 
 
 def reset_launches() -> None:
@@ -83,11 +97,14 @@ def device_tables(ctx: CKKSContext, n_limbs: int, inverse: bool, device):
 
 
 def encode_encrypt_stream_plain(planes, pk_b_mont, pk_a_mont,
-                                ctx: CKKSContext, seed: int, nonce0: int):
+                                ctx: CKKSContext, seed: int, nonce0: int,
+                                datapath: str = "df32"):
     """Four (B, n_slots) float32 slot planes -> (c0, c1), each (B, L, N)
-    int32: SpecialIFFT, bit-reversal, exact Delta-scale digits, then per
-    limb RNS, NTT and the Philox encrypt pointwise (row r under nonce
-    nonce0 + r)."""
+    int32: SpecialIFFT, bit-reversal, the exact Delta-scale (df32: base-2^22
+    digits; f64: float64 collapse, then the df64 round), then per limb RNS
+    (digits, or fmod), NTT and the Philox encrypt pointwise (row r under
+    nonce nonce0 + r)."""
+    common.check_datapath(datapath)
     p = ctx.params
     dev = planes[0].device
     batch = planes[0].shape[0]
@@ -95,17 +112,26 @@ def encode_encrypt_stream_plain(planes, pk_b_mont, pk_a_mont,
     kc = stream_consts(ctx, L, inverse=True)[0]
     w = dfl.dfc_from_planes(fft_df.bitrev_planes(
         fft_df.fft_rows_plain(planes, p.m, inverse=True)))
-    digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
-                                        p.delta)
+    if datapath == "df32":
+        digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
+                                            p.delta)
+        digit_mont = common.stacked_digit_consts(ctx.q_list[:L])
+    else:
+        coeffs = torch.cat([dfl.df_to_float(w.re), dfl.df_to_float(w.im)],
+                           dim=-1)
+        scaled = encoder.delta_scale_round(coeffs, p.delta)
     vee = client_pointwise.sample_vee_k(
         seed, client_pointwise.nonce_column(nonce0, batch, dev), n)
-    digit_mont = common.stacked_digit_consts(ctx.q_list[:L])
     b_mont = modmul.u32_to_i64(pk_b_mont)
     a_mont = modmul.u32_to_i64(pk_a_mont)
     c0 = torch.empty((batch, L, n), dtype=torch.int32, device=dev)
     c1 = torch.empty_like(c0)
     for l in range(L):
-        pt_l = client_pointwise.rns_digit_stage(digits, kc, l, *digit_mont[l])
+        if datapath == "df32":
+            pt_l = client_pointwise.rns_digit_stage(digits, kc, l,
+                                                    *digit_mont[l])
+        else:
+            pt_l = rns.to_rns_limb_t(scaled, float(ctx.q_list[l]))
         pt_l = common.ntt_stages_t(pt_l, kc, l)
         c0_l, c1_l = client_pointwise.encrypt_limb_stage(
             vee, pt_l, b_mont[l], a_mont[l], kc, l)
@@ -115,9 +141,11 @@ def encode_encrypt_stream_plain(planes, pk_b_mont, pk_a_mont,
 
 
 def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
-                               ctx: CKKSContext, seed: int, nonce0: int):
+                               ctx: CKKSContext, seed: int, nonce0: int,
+                               datapath: str = "df32"):
     """CUDA launch of ``encode_encrypt.cu`` on the current stream; same
     inputs and outputs as ``encode_encrypt_stream_plain``."""
+    common.check_datapath(datapath)
     p = ctx.params
     dev = planes[0].device
     if dev.type != "cuda":
@@ -129,13 +157,19 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
     common.check_tensor(pk_b_mont, "pk_b_mont", torch.int32, (L, n), dev)
     common.check_tensor(pk_a_mont, "pk_a_mont", torch.int32, (L, n), dev)
     kc = stream_consts(ctx, L, inverse=True)[0]
-    encoder._check_pow2_delta(p.delta)
+    if datapath == "df32":
+        encoder._check_pow2_delta(p.delta)
     tw_t, rev_t, table_t, dm_t = device_tables(ctx, L, True, dev)
     c0 = torch.empty((batch, L, n), dtype=torch.int32, device=dev)
     c1 = torch.empty_like(c0)
     fft_scratch = torch.empty((batch, 4, ns), dtype=torch.float32,
                               device=dev)
-    digit_scratch = torch.empty((batch, 3, n), dtype=torch.int32, device=dev)
+    # the Delta-scaled coefficients between the two phases: three int32
+    # digit rows (df32) or the float64 (hi, lo) pair (f64) per batch row
+    if datapath == "df32":
+        scaled = torch.empty((batch, 3, n), dtype=torch.int32, device=dev)
+    else:
+        scaled = torch.empty((batch, 2, n), dtype=torch.float64, device=dev)
     ntt_scratch = torch.empty((batch, L, 2, n), dtype=torch.int32,
                               device=dev)
     sw = prng.seed_words(seed)
@@ -143,11 +177,11 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
                   *(t.data_ptr() for t in planes), tw_t.data_ptr(),
                   rev_t.data_ptr(), table_t.data_ptr(), dm_t.data_ptr(),
                   pk_b_mont.data_ptr(), pk_a_mont.data_ptr(), c0.data_ptr(),
-                  c1.data_ptr(), fft_scratch.data_ptr(),
-                  digit_scratch.data_ptr(), ntt_scratch.data_ptr(), batch, L,
-                  p.logn, kc.n_scalars, float(p.delta), *sw,
+                  c1.data_ptr(), fft_scratch.data_ptr(), scaled.data_ptr(),
+                  ntt_scratch.data_ptr(), batch, L, p.logn, kc.n_scalars,
+                  int(datapath == "f64"), float(p.delta), *sw,
                   int(nonce0) & MASK32)
-    LAUNCHES["encode_encrypt_stream"] += 1
+    LAUNCHES[_counter("encode_encrypt_stream", datapath)] += 1
     return c0, c1
 
 
@@ -156,9 +190,12 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
 # ---------------------------------------------------------------------------
 
 
-def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale):
-    """(B, >=2, N) int32 ciphertext stacks, (L, N) secret key, (B,) float32
-    power-of-two scales -> four (B, n_slots) float32 slot planes."""
+def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale,
+                                datapath: str = "df32"):
+    """(B, >=2, N) int32 ciphertext stacks, (L, N) secret key, (B,) scales
+    (float32 powers of two on the df32 datapath, any float64 on the f64
+    datapath) -> four (B, n_slots) float32 slot planes."""
+    common.check_datapath(datapath)
     p = ctx.params
     ns = p.n_slots
     kc = stream_consts(ctx, 2, inverse=False)[0]
@@ -166,6 +203,13 @@ def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale):
             modmul.u32_to_i64(c0[:, l]), modmul.u32_to_i64(c1[:, l]),
             modmul.u32_to_i64(s_mont[l]), kc, l)
          for l in range(2)]
+    if datapath == "f64":
+        v = rns.crt2_to_df(m[0], m[1], ctx.q_list[0], ctx.q_list[1])
+        sc = scale.reshape(-1, 1)
+        coeffs = v.hi / sc + v.lo / sc
+        z = dfl.dfc_from_parts(coeffs[:, :ns], coeffs[:, ns:])
+        return fft_df.fft_rows_plain(
+            fft_df.bitrev_planes(dfl.dfc_to_planes(z)), p.m, inverse=False)
     sign, vh, vl = rns.crt2_centered_u32(m[0], m[1], ctx.q_list[0],
                                          ctx.q_list[1])
     inv = 1.0 / scale.reshape(-1, 1)
@@ -175,10 +219,13 @@ def decrypt_decode_stream_plain(c0, c1, s_mont, ctx: CKKSContext, scale):
                                  inverse=False)
 
 
-def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
+def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale,
+                               datapath: str = "df32"):
     """CUDA launch of ``decrypt_decode.cu``; same inputs and outputs as
-    ``decrypt_decode_stream_plain``. c0/c1 may be the 2-limb view of a
-    (B, L, N) batch (rows of any stride, each row's limbs contiguous)."""
+    ``decrypt_decode_stream_plain`` (`scale` a contiguous (B,) float32 or,
+    f64, float64 tensor). c0/c1 may be the 2-limb view of a (B, L, N)
+    batch (rows of any stride, each row's limbs contiguous)."""
+    common.check_datapath(datapath)
     p = ctx.params
     dev = c0.device
     if dev.type != "cuda":
@@ -187,7 +234,8 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
     batch = c0.shape[0]
     common.check_limb_views(c0, c1, 2, n, dev)
     common.check_key_rows(s_mont, "s_mont", 2, n, dev)
-    common.check_tensor(scale, "scale", torch.float32, (batch,), dev)
+    common.check_tensor(scale, "scale", torch.float32 if datapath == "df32"
+                        else torch.float64, (batch,), dev)
     kc = stream_consts(ctx, 2, inverse=False)[0]
     tw_t, rev_t, table_t, _ = device_tables(ctx, 2, False, dev)
     outs = [torch.empty((batch, ns), dtype=torch.float32, device=dev)
@@ -201,8 +249,9 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale):
                   c1.data_ptr(), c0.stride(0), s_mont.data_ptr(),
                   scale.data_ptr(), tw_t.data_ptr(), rev_t.data_ptr(),
                   table_t.data_ptr(), *(o.data_ptr() for o in outs),
-                  m_scratch.data_ptr(), batch, p.logn, kc.n_scalars, q0, q1,
-                  k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"], qq,
+                  m_scratch.data_ptr(), batch, p.logn, kc.n_scalars,
+                  int(datapath == "f64"), q0, q1, k["g0_mont"], k["g1_mont"],
+                  k["qinv0"], k["qinv1"], *rns.crt2_inverses(q0, q1), qq,
                   half)
-    LAUNCHES["decrypt_decode_stream"] += 1
+    LAUNCHES[_counter("decrypt_decode_stream", datapath)] += 1
     return tuple(outs)

@@ -48,7 +48,7 @@ class FourierConfig:
     mode:
       * ``'ntt'``  — modular negacyclic NTT over RNS limb stacks (K1);
       * ``'fft'``  — df32 complex canonical-embedding SpecialFFT (K4);
-      * ``'host'`` — complex128 numpy oracle (not ported yet).
+      * ``'host'`` — complex128 numpy oracle on the host.
 
     The reference's ``block_rows`` / ``interpret`` are TPU grid knobs; on
     the card every kernel runs one block per row, so only ``mode`` is kept.
@@ -58,6 +58,16 @@ class FourierConfig:
 
 
 FOURIER_MODES = ("ntt", "fft", "host")
+
+# the dtype paths of the Delta-scale / RNS / CRT interior (client) and of
+# the pointwise REDC (server)
+DATAPATHS = ("df32", "f64")
+
+
+def check_datapath(datapath: str) -> None:
+    if datapath not in DATAPATHS:
+        raise ValueError(f"datapath must be one of {DATAPATHS}, got "
+                         f"{datapath!r}")
 
 
 @dataclasses.dataclass(frozen=True)

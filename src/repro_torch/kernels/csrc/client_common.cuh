@@ -3,8 +3,10 @@
 // client_pointwise.cu, fft_df.cu, and the per-prime kernels ntt_rows.cu,
 // ntt_matmul.cu): the two uint32 Montgomery REDC policies (MontRedc: the
 // general one with -q^-1; SaRedc: the shift-add NTT-friendly one of paper
-// eq. 9-11), Philox-4x32-10, the df32 error-free transforms, the exact
-// Delta-scale digit split, the two-limb CRT, the NTT/INTT stage loops with
+// eq. 9-11), the u64 REDC of the server kernels, Philox-4x32-10, the df32
+// error-free transforms, the exact Delta-scale digit split, the two-limb
+// CRT, the f64 datapath's df64 transforms (exact Delta-scale round, fmod
+// RNS, df64 CRT), the NTT/INTT stage loops with
 // on-the-fly twiddle doubling from the (L, K) seed table (templated on the
 // REDC policy), the df32 SpecialFFT stage loop, and the (limb, row)
 // encrypt and decrypt block bodies.
@@ -12,8 +14,10 @@
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
 // written operation for operation in the reference's order and must be
-// compiled with --fmad=false (no multiply-add contraction), IEEE division
-// and no flush-to-zero. Rounding to nearest-even is rintf, never roundf.
+// compiled with --fmad=false (no multiply-add contraction, float and
+// double alike; g++: -ffp-contract=off), IEEE division and no
+// flush-to-zero. Rounding to nearest-even is rintf / rint, never roundf /
+// round (which round half away from zero).
 //
 // Work layout: a block body walks its index ranges with a stride of the
 // block size and separates dependent phases with RT_SYNC(). The NTT and
@@ -38,6 +42,7 @@
 #define RT_SYNC() __syncthreads()
 RT_FN uint32_t rt_mulhi(uint32_t a, uint32_t b) { return __umulhi(a, b); }
 RT_FN int rt_popc(uint32_t x) { return __popc(x); }
+RT_FN double rt_ddiv(double a, double b) { return __ddiv_rn(a, b); }
 #else
 #define RT_FN static inline
 #define RT_BODY static
@@ -48,6 +53,7 @@ RT_FN uint32_t rt_mulhi(uint32_t a, uint32_t b) {
   return (uint32_t)(((uint64_t)a * b) >> 32);
 }
 RT_FN int rt_popc(uint32_t x) { return __builtin_popcount(x); }
+RT_FN double rt_ddiv(double a, double b) { return a / b; }
 #endif
 
 namespace rt {
@@ -149,6 +155,19 @@ RT_FN uint32_t redc(const SaRedc &r, uint32_t a, uint32_t b) {
       ((uint64_t)m << r.p_bw) + (mul_by_k64(m, r) << r.np1) + m;
   const uint32_t u = t_hi + (uint32_t)(mq >> 32) + (t_lo != 0u ? 1u : 0u);
   return u >= r.q ? u - r.q : u;
+}
+
+// The reference's u64 REDC (modmul.mulmod_montgomery_u64_t): t = a*b in one
+// 64-bit product, m = (uint32)t * -q^-1, u = (t + m q) >> 32, one
+// conditional subtraction. a < 2^32 and b < q < 2^31, so t < 2^63 and
+// t + m q < 2^63 + 2^63: the sum fits a uint64_t. The pointwise REDC of the
+// server kernels (server_common.cuh, server_eval.cu) on both datapaths; the
+// same words as redc_mul.
+RT_FN uint32_t redc_u64(uint32_t a, uint32_t b, uint32_t q, uint32_t qinv) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * qinv;
+  const uint32_t u = (uint32_t)((t + (uint64_t)m * q) >> 32);
+  return u >= q ? u - q : u;
 }
 
 // signed value in (-q, q) -> residue
@@ -358,6 +377,114 @@ RT_FN void round_digits(float hi, float lo, int32_t &d0, int32_t &d1,
   d0 = (int32_t)fd0;
   d1 = (int32_t)fd1;
   d2 = (int32_t)fd2;
+}
+
+// ---------------------------------------------------------------------------
+// the f64 datapath: df64 error-free transforms (core/dfloat.py on float64,
+// Veltkamp splitter 2^27 + 1), the exact Delta-scale round
+// (encoder.delta_scale_round), the fmod RNS step (rns.to_rns_limb_t) and
+// the df64 two-limb CRT (rns.crt2_to_df). Overloads of the df32 names on
+// double; each product and sum rounds on its own (--fmad=false).
+// ---------------------------------------------------------------------------
+struct dd {
+  double hi, lo;
+};
+
+RT_FN void two_sum(double a, double b, double &s, double &e) {
+  s = a + b;
+  double bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+RT_FN dd quick_two_sum(double a, double b) {
+  double s = a + b;
+  dd r;
+  r.hi = s;
+  r.lo = b - (s - a);
+  return r;
+}
+
+RT_FN void two_prod(double a, double b, double &p, double &e) {
+  const double c = 134217729.0;  // Veltkamp splitter 2^27 + 1
+  p = a * b;
+  double ca = c * a;
+  double a_hi = ca - (ca - a);
+  double a_lo = a - a_hi;
+  double cb = c * b;
+  double b_hi = cb - (cb - b);
+  double b_lo = b - b_hi;
+  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
+}
+
+RT_FN dd dd_add(dd x, dd y) {
+  double s, e;
+  two_sum(x.hi, y.hi, s, e);
+  e = e + x.lo + y.lo;
+  return quick_two_sum(s, e);
+}
+
+RT_FN dd dd_sub(dd x, dd y) {
+  dd ny;
+  ny.hi = -y.hi;
+  ny.lo = -y.lo;
+  return dd_add(x, ny);
+}
+
+// round(x * Delta), exact, as an integer-valued pair: two_prod, then
+// df_round (rint: half to even, as torch.round / jnp.round)
+RT_FN dd delta_scale_round(double x, double delta) {
+  dd v;
+  two_prod(x, delta, v.hi, v.lo);
+  const double rh = rint(v.hi);
+  const double frac = (v.hi - rh) + v.lo;  // exact: |v.hi - rh| <= 0.5
+  const double rl = rint(frac);
+  return quick_two_sum(rh, rl);
+}
+
+// the residue of the integer hi + lo mod q: fmod of an integer-valued
+// double by q < 2^31 is exact (a library routine on the card, not one
+// instruction)
+RT_FN uint32_t fmod_residue(dd x, double qf) {
+  double r = fmod(x.hi, qf) + fmod(x.lo, qf);  // in (-2q, 2q)
+  r = fmod(r, qf);
+  if (r < 0.0) r = r + qf;
+  return (uint32_t)r;
+}
+
+// two-limb CRT -> the centered integer as an exact df64 pair:
+// t_i = c_i g_i mod q_i in 64-bit integers (a 64-bit remainder: a library
+// routine on the card), t0 q1 + t1 q0 in df64 (each product < 2^62 exact
+// by two_prod), minus fl64(Q) when >= fl64(Q), then minus fl64(Q) again
+// when above fl64(Q) / 2
+struct Crt2F64 {
+  uint32_t q0, q1, g0, g1;
+  double qq;  // fl64(q0 * q1)
+};
+
+RT_FN dd crt2_to_dd(uint32_t c0, uint32_t c1, const Crt2F64 &k) {
+  const uint64_t t0 = (uint64_t)c0 * k.g0 % k.q0;
+  const uint64_t t1 = (uint64_t)c1 * k.g1 % k.q1;
+  dd a, b;
+  two_prod((double)t0, (double)k.q1, a.hi, a.lo);
+  two_prod((double)t1, (double)k.q0, b.hi, b.lo);
+  dd v = dd_add(a, b);  // < 2Q
+  dd qq;
+  qq.hi = k.qq;
+  qq.lo = 0.0;
+  const dd vq = dd_sub(v, qq);
+  if (v.hi >= k.qq) v = vq;
+  const dd vc = dd_sub(v, qq);
+  if (v.hi > k.qq / 2.0) v = vc;
+  return v;
+}
+
+// float64 -> df32 pair (dfloat.df_from): hi the rounded cast, lo the
+// rounded residual
+RT_FN df df_from(double x) {
+  df r;
+  r.hi = (float)x;
+  r.lo = (float)(x - (double)r.hi);
+  return r;
 }
 
 // ---------------------------------------------------------------------------

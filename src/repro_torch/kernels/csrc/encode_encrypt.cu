@@ -1,19 +1,27 @@
 // encode+encrypt megakernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/client_stream.py
-// :_encode_encrypt_kernel (pallas_call in encode_encrypt_stream), df32
-// datapath: df32 SpecialIFFT, bit-reversal, exact RNE Delta-scale into
-// balanced base-2^22 digits, then per limb: RNS reduction, NTT, Philox
-// (v, e0, e1) keyed by (seed, nonce0 + row), c0 = v*b + e0 + pt,
-// c1 = v*a + e1. Output words are bit-identical to the plain version
-// (client_stream.encode_encrypt_stream_plain) and to the JAX reference.
+// :_encode_encrypt_kernel (pallas_call in encode_encrypt_stream), both of
+// its datapaths: df32 SpecialIFFT, bit-reversal, then the exact
+// Delta-scale, then per limb: RNS reduction, NTT, Philox (v, e0, e1) keyed
+// by (seed, nonce0 + row), c0 = v*b + e0 + pt, c1 = v*a + e1.
+//   df32: exact RNE Delta-scale of the df32 pair into balanced base-2^22
+//         digits; per limb the digits' residues by uint32 Montgomery
+//         products;
+//   f64:  the pair collapsed to float64, then round(x * Delta) exactly as
+//         a df64 pair (two_prod, rint); per limb the pair's residue by
+//         fmod (exact on integer-valued doubles).
+// Both give the same words. Output words are bit-identical to the plain
+// version (client_stream.encode_encrypt_stream_plain) and to the JAX
+// reference.
 //
 // Two kernels launched back to back on the caller's stream by one entry
 // point, because the two phases want different grids:
 //   1. encode_rows_kernel, grid (B): one block per batch row runs the
 //      SpecialIFFT stages on a copy of the row's four planes (global
 //      scratch), then bit-reverses, scales by 1/n and Delta and writes the
-//      three digit rows (B, 3, N) int32 to global scratch;
+//      three digit rows (B, 3, N) int32 (df32) or the two float64 rows
+//      (hi, lo) (B, 2, N) (f64) to global scratch;
 //   2. encrypt_limbs_kernel, grid (L, B): one block per (limb, row) builds
 //      the limb's plaintext residues into a (B, L, 2, N) scratch, then runs
 //      the encrypt block body it shares with the staged kernel K2
@@ -28,7 +36,10 @@
 // the integer work the function needs (per limb 3 NTTs of 16 stages, since
 // pt + e0 can share one, and 5 Philox-10 words per coefficient per row) is
 // larger: operations, not bytes, bound it. This kernel does more than
-// that: 4 NTTs per limb, and the Philox words regenerated per limb. This
+// that: 4 NTTs per limb, and the Philox words regenerated per limb. On
+// the f64 datapath the per-(limb, coefficient) RNS step is three fmod
+// calls, each a loop of FP64 instructions on the card (a library routine,
+// exact), at the H100's FP64 rate of half its FP32 one. This
 // first version is simple rather than fast: the NTT rows (256 KB each)
 // do not fit a block's 227 KB of shared memory, so every butterfly stage
 // reads and writes global memory (kept in the 50 MB L2 as far as it goes)
@@ -47,10 +58,12 @@ struct EncArgs {
   const uint32_t *pk_b, *pk_a;     // (L, N) Montgomery form
   uint32_t *c0, *c1;               // (B, L, N)
   float *fft;                      // (B, 4, ns) scratch
-  int32_t *digits;                 // (B, 3, N) scratch
+  void *scaled;                    // (B, 3, N) int32 digits (df32) or
+                                   // (B, 2, N) float64 (hi, lo) (f64)
   uint32_t *ntt;                   // (B, L, 2, N) scratch
   int n_limbs, logn, n_scalars;
-  float delta;
+  int f64;                         // datapath: 0 df32, 1 f64
+  double delta;
   rt::Seed seed;
   uint32_t nonce0;
 };
@@ -71,16 +84,25 @@ RT_BODY void encode_row(const EncArgs &a, int b) {
   RT_SYNC();
   rt::fft_inv_stages(x, logns, a.tw);
   // bit-reversal + 1/n, then coefficient k = re (k < ns) ++ im (k >= ns)
-  int32_t *dg = a.digits + (size_t)b * 3 * n;
+  int32_t *dg = static_cast<int32_t *>(a.scaled) + (size_t)b * 3 * n;
+  double *sd = static_cast<double *>(a.scaled) + (size_t)b * 2 * n;
+  const float delta32 = (float)a.delta;  // a power of two (df32 only)
   for (int k = RT_TID; k < n; k += RT_NT) {
     const int j = k < ns ? k : k - ns;
     const rt::dfc z = rt::ifft_scale(rt::load_dfc(x, a.rev[j]), logns);
     const rt::df c = k < ns ? z.re : z.im;
-    int32_t d0, d1, d2;
-    rt::round_digits(c.hi * a.delta, c.lo * a.delta, d0, d1, d2);
-    dg[k] = d0;
-    dg[n + k] = d1;
-    dg[2 * n + k] = d2;
+    if (a.f64) {
+      const rt::dd v =
+          rt::delta_scale_round((double)c.hi + (double)c.lo, a.delta);
+      sd[k] = v.hi;
+      sd[n + k] = v.lo;
+    } else {
+      int32_t d0, d1, d2;
+      rt::round_digits(c.hi * delta32, c.lo * delta32, d0, d1, d2);
+      dg[k] = d0;
+      dg[n + k] = d1;
+      dg[2 * n + k] = d2;
+    }
   }
 }
 
@@ -91,13 +113,27 @@ RT_BODY void encrypt_limb(const EncArgs &a, int l, int b, uint32_t *tw) {
   const uint32_t c22 = a.digit_mont[2 * l], c44 = a.digit_mont[2 * l + 1];
   const size_t off = ((size_t)b * a.n_limbs + l) * n;
   uint32_t *pt = a.ntt + 2 * off;
-  const int32_t *dg = a.digits + (size_t)b * 3 * n;
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    const uint32_t r0 = rt::to_residue(dg[i], q);
-    const uint32_t m1 = rt::redc_mul(rt::to_residue(dg[n + i], q), c22, q, qinv);
-    const uint32_t m2 =
-        rt::redc_mul(rt::to_residue(dg[2 * n + i], q), c44, q, qinv);
-    pt[i] = rt::addmod(rt::addmod(r0, m1, q), m2, q);
+  if (a.f64) {
+    const double *sd =
+        static_cast<const double *>(a.scaled) + (size_t)b * 2 * n;
+    const double qf = (double)q;
+    for (int i = RT_TID; i < n; i += RT_NT) {
+      rt::dd v;
+      v.hi = sd[i];
+      v.lo = sd[n + i];
+      pt[i] = rt::fmod_residue(v, qf);
+    }
+  } else {
+    const int32_t *dg =
+        static_cast<const int32_t *>(a.scaled) + (size_t)b * 3 * n;
+    for (int i = RT_TID; i < n; i += RT_NT) {
+      const uint32_t r0 = rt::to_residue(dg[i], q);
+      const uint32_t m1 =
+          rt::redc_mul(rt::to_residue(dg[n + i], q), c22, q, qinv);
+      const uint32_t m2 =
+          rt::redc_mul(rt::to_residue(dg[2 * n + i], q), c44, q, qinv);
+      pt[i] = rt::addmod(rt::addmod(r0, m1, q), m2, q);
+    }
   }
   // the shared body's first barrier orders these writes before the NTT
   rt::EncLimb e = {a.c0 + off, a.c1 + off, pt + n, pt,
@@ -127,14 +163,14 @@ extern "C" int encode_encrypt_stream_launch(
     const float *rh, const float *rl, const float *ih, const float *il,
     const float *tw, const int32_t *rev, const uint32_t *table,
     const uint32_t *digit_mont, const uint32_t *pk_b, const uint32_t *pk_a,
-    uint32_t *c0, uint32_t *c1, float *fft_scratch, int32_t *digit_scratch,
+    uint32_t *c0, uint32_t *c1, float *fft_scratch, void *scaled_scratch,
     uint32_t *ntt_scratch, int batch, int n_limbs, int logn, int n_scalars,
-    float delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
+    int f64, double delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
     uint32_t seed3, uint32_t nonce0, void *stream) {
   EncArgs a = {rh,     rl,          ih,          il,   tw,   rev,
                table,  digit_mont,  pk_b,        pk_a, c0,   c1,
-               fft_scratch, digit_scratch, ntt_scratch, n_limbs, logn,
-               n_scalars, delta, {seed0, seed1, seed2, seed3}, nonce0};
+               fft_scratch, scaled_scratch, ntt_scratch, n_limbs, logn,
+               n_scalars, f64, delta, {seed0, seed1, seed2, seed3}, nonce0};
   cudaStream_t s = (cudaStream_t)stream;
   const int threads = 1024;
   encode_rows_kernel<<<batch, threads, 0, s>>>(a);
@@ -156,14 +192,14 @@ extern "C" int encode_encrypt_stream_host(
     const float *rh, const float *rl, const float *ih, const float *il,
     const float *tw, const int32_t *rev, const uint32_t *table,
     const uint32_t *digit_mont, const uint32_t *pk_b, const uint32_t *pk_a,
-    uint32_t *c0, uint32_t *c1, float *fft_scratch, int32_t *digit_scratch,
+    uint32_t *c0, uint32_t *c1, float *fft_scratch, void *scaled_scratch,
     uint32_t *ntt_scratch, int batch, int n_limbs, int logn, int n_scalars,
-    float delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
+    int f64, double delta, uint32_t seed0, uint32_t seed1, uint32_t seed2,
     uint32_t seed3, uint32_t nonce0) {
   EncArgs a = {rh,     rl,          ih,          il,   tw,   rev,
                table,  digit_mont,  pk_b,        pk_a, c0,   c1,
-               fft_scratch, digit_scratch, ntt_scratch, n_limbs, logn,
-               n_scalars, delta, {seed0, seed1, seed2, seed3}, nonce0};
+               fft_scratch, scaled_scratch, ntt_scratch, n_limbs, logn,
+               n_scalars, f64, delta, {seed0, seed1, seed2, seed3}, nonce0};
   std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
   for (int b = 0; b < batch; ++b) encode_row(a, b);
   for (int b = 0; b < batch; ++b)

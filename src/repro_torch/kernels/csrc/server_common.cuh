@@ -8,8 +8,12 @@
 // kernels/server_eval.py (and of the JAX reference's stage helpers
 // _to_digit, _digit_to_row, _ks_accumulate, _ks_moddown and _rescale2):
 // integer arithmetic only, on the uint32 helpers and the NTT / INTT stage
-// loops of client_common.cuh. Like that header, this one compiles as plain
-// C++ (one thread per block, barriers as no-ops) for the host-build tests.
+// loops of client_common.cuh. The pointwise REDC (the reference's _mm) is
+// redc_u64, the reference's u64 REDC, on both datapaths: it gives the words
+// of the df32 datapath's uint32 REDC too, so one body serves both; the NTT /
+// INTT stage loops keep the uint32 REDC, as the reference's do. Like that
+// header, this one compiles as plain C++ (one thread per block, barriers as
+// no-ops) for the host-build tests.
 #pragma once
 
 #include "client_common.cuh"
@@ -35,7 +39,7 @@ RT_FN void lift_row(const uint32_t *src, const int32_t *perm,
   uint32_t *u = reinterpret_cast<uint32_t *>(dst);
   for (int i = RT_TID; i < n; i += RT_NT) {
     uint32_t v = src[perm ? perm[i] : i];
-    if (pm) v = redc_mul(v, pm[i], q, qinv);
+    if (pm) v = redc_u64(v, pm[i], q, qinv);
     u[i] = v;
   }
   RT_SYNC();
@@ -72,8 +76,8 @@ RT_FN void scale_down_row(const uint32_t *x, const uint32_t *pm,
   extend_row(w, dst, logn, trow, tw);
   for (int i = RT_TID; i < n; i += RT_NT) {
     uint32_t xv = x[i];
-    if (pm) xv = redc_mul(xv, pm[i], q, qinv);
-    uint32_t r = redc_mul(submod(xv, dst[i], q), c, q, qinv);
+    if (pm) xv = redc_u64(xv, pm[i], q, qinv);
+    uint32_t r = redc_u64(submod(xv, dst[i], q), c, q, qinv);
     if (add) r = addmod(add[add_perm ? add_perm[i] : i], r, q);
     dst[i] = r;
   }
@@ -95,12 +99,12 @@ RT_FN void mac_cols(const uint32_t *h, const int32_t *perm,
   for (int k = c0 + (int)RT_TID; k < c1; k += RT_NT) {
     const int kk = perm ? perm[k] : k;
     uint32_t hv = h[kk];
-    uint32_t sb = redc_mul(hv, kb[k], q, qinv);
-    uint32_t sa = redc_mul(hv, ka[k], q, qinv);
+    uint32_t sb = redc_u64(hv, kb[k], q, qinv);
+    uint32_t sa = redc_u64(hv, ka[k], q, qinv);
     for (int j = 1; j < l; ++j) {
       hv = h[j * n + kk];
-      sb = addmod(sb, redc_mul(hv, kb[j * kstride + k], q, qinv), q);
-      sa = addmod(sa, redc_mul(hv, ka[j * kstride + k], q, qinv), q);
+      sb = addmod(sb, redc_u64(hv, kb[j * kstride + k], q, qinv), q);
+      sa = addmod(sa, redc_u64(hv, ka[j * kstride + k], q, qinv), q);
     }
     acc_b[k] = sb;
     acc_a[k] = sa;

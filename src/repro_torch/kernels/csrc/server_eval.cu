@@ -10,7 +10,11 @@
 //   K11a _ks_decompose_kernel                             (server_ks_decompose)
 //   K11b _ks_apply_rot_kernel                             (server_ks_apply_rot)
 // Output words are bit-identical to the plain versions in
-// kernels/server_eval.py and to the JAX reference.
+// kernels/server_eval.py and to the JAX reference, on both of its
+// datapaths: the stages that multiply run the reference's u64 REDC
+// (rt::redc_u64, the 'f64' datapath's modmul.mulmod_montgomery_u64_t),
+// which gives the words of the 'df32' datapath's uint32 REDC as well, so
+// one kernel serves ServerEvaluator(datapath='df32') and ('f64').
 //
 // The Pallas bodies take a whole ciphertext row per grid step with the limb
 // loop unrolled; at N = 2^16 one limb row is 256 KB, more than an SM's
@@ -92,8 +96,8 @@ struct PointwiseStage {
         o0[e] = rt::addmod(a0[e], pt[k], q);
         o1[e] = a1[e];
       } else {
-        o0[e] = rt::redc_mul(a0[e], pt[k], q, qinv);
-        o1[e] = rt::redc_mul(a1[e], pt[k], q, qinv);
+        o0[e] = rt::redc_u64(a0[e], pt[k], q, qinv);
+        o1[e] = rt::redc_u64(a1[e], pt[k], q, qinv);
       }
     }
   }
@@ -115,12 +119,12 @@ struct TensorStage {
     const int c0 = chunk * kChunk, c1 = g.cols_end(chunk);
     for (int k = c0 + (int)RT_TID; k < c1; k += RT_NT) {
       const size_t e = row + k;
-      const uint32_t b0m = rt::redc_mul(b0[e], r2, q, qinv);
-      const uint32_t b1m = rt::redc_mul(b1[e], r2, q, qinv);
-      d0[e] = rt::redc_mul(a0[e], b0m, q, qinv);
-      d1[e] = rt::addmod(rt::redc_mul(a0[e], b1m, q, qinv),
-                         rt::redc_mul(a1[e], b0m, q, qinv), q);
-      d2[e] = rt::redc_mul(a1[e], b1m, q, qinv);
+      const uint32_t b0m = rt::redc_u64(b0[e], r2, q, qinv);
+      const uint32_t b1m = rt::redc_u64(b1[e], r2, q, qinv);
+      d0[e] = rt::redc_u64(a0[e], b0m, q, qinv);
+      d1[e] = rt::addmod(rt::redc_u64(a0[e], b1m, q, qinv),
+                         rt::redc_u64(a1[e], b0m, q, qinv), q);
+      d2[e] = rt::redc_u64(a1[e], b1m, q, qinv);
     }
   }
 };

@@ -6,15 +6,17 @@ version; any other device raises. There is no fall-back: a CUDA input whose
 kernel cannot be built or launched raises.
 
   * ``fourier``: the reconfigurable Fourier engine's mode switch between
-    the limb-folded NTT (K1, ``ntt_limbs`` / ``intt_limbs``) and the df32
-    SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``);
+    the limb-folded NTT (K1, ``ntt_limbs`` / ``intt_limbs``), the df32
+    SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``) and
+    the complex128 numpy oracle (``core.fft``, on the host);
   * ``ntt_limbs`` / ``intt_limbs`` with ``path='matmul'``: the four-step
     NTT (K14, ``ntt_matmul``), natural-order output;
   * ``encrypt_fused`` / ``decrypt_fused``: the limb-folded encrypt (K2) and
     decrypt (K3);
   * ``encode_encrypt_stream`` / ``decrypt_decode_stream``: the megakernels
-    (K5, K6);
-  * ``server_*``: the server-side CKKS op set (K7-K11, ``server_eval``).
+    (K5, K6), on either datapath;
+  * ``server_*``: the server-side CKKS op set (K7-K11, ``server_eval``);
+    ``datapath`` picks the plain versions' REDC engine.
 
 Each module's CUDA wrappers count their launches; ``launches()`` reads all
 counters and ``reset_launches()`` sets them to 0.
@@ -22,6 +24,9 @@ counters and ``reset_launches()`` sets them to 0.
 
 from __future__ import annotations
 
+import numpy as np
+
+from repro_torch.core import fft as fftmod
 from repro_torch.core.context import CKKSContext
 from repro_torch.kernels import (client_pointwise, client_stream, common,
                                  fft_df, ntt_butterfly, ntt_matmul,
@@ -59,7 +64,8 @@ def fourier(x, ctx: CKKSContext, cfg: common.FourierConfig | None = None,
         NTT/INTT (K1, one launch for the stack);
       * ``'fft'``: x is a four-plane df32 tuple of (rows, n) float32 ->
         SpecialFFT/IFFT (K4);
-      * ``'host'``: the complex128 numpy oracle, not ported yet.
+      * ``'host'``: x is (rows, n) complex128 -> the numpy oracle
+        SpecialFFT / SpecialIFFT on the host.
     """
     cfg = common.FourierConfig() if cfg is None else cfg
     if cfg.mode == "ntt":
@@ -69,9 +75,9 @@ def fourier(x, ctx: CKKSContext, cfg: common.FourierConfig | None = None,
         f = special_ifft_planes if inverse else special_fft_planes
         return f(x, ctx.params.m)
     if cfg.mode == "host":
-        raise NotImplementedError(
-            "fourier mode 'host' is not ported yet: the complex128 oracle "
-            "(ROADMAP.md queue 1, item 6)")
+        # through the module attribute, so a test can count the calls
+        f = fftmod.special_ifft if inverse else fftmod.special_fft
+        return f(np.asarray(x), ctx.params.m)
     raise ValueError(f"unknown Fourier mode {cfg.mode!r}; expected one of "
                      f"{common.FOURIER_MODES}")
 
@@ -173,22 +179,24 @@ def special_ifft_planes(planes, m: int):
 
 
 def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
-                          seed: int, nonce0: int):
+                          seed: int, nonce0: int, datapath: str = "df32"):
     """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N) int32."""
     if common.route(planes[0].device) == "cuda":
         return client_stream.encode_encrypt_stream_cuda(
-            planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+            planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
     return client_stream.encode_encrypt_stream_plain(
-        planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+        planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
 
 
-def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale):
-    """(B, >=2, N) int32 ciphertext stacks -> four (B, n_slots) planes."""
+def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
+                          datapath: str = "df32"):
+    """(B, >=2, N) int32 ciphertext stacks, (B,) scales (float32 on the
+    df32 datapath, float64 on the f64 one) -> four (B, n_slots) planes."""
     if common.route(c0.device) == "cuda":
         return client_stream.decrypt_decode_stream_cuda(c0, c1, s_mont, ctx,
-                                                        scale)
+                                                        scale, datapath)
     return client_stream.decrypt_decode_stream_plain(c0, c1, s_mont, ctx,
-                                                     scale)
+                                                     scale, datapath)
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +205,18 @@ def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale):
 # Ciphertexts (B, l, N), plaintexts (l, N), keys (l, l+1, N), permutations
 # (1, N) int32. A CUDA call takes contiguous operands: a non-contiguous view
 # (``ServerCiphertext.drop_to`` of a batch, a key slice) is copied first.
+# ``datapath`` picks the pointwise REDC engine of the plain versions of the
+# ops that multiply: 'df32' the uint32 REDC, 'f64' the u64 REDC (the same
+# words). The kernels run the u64 REDC on both and take no datapath.
 
 
-def _server(name: str, x, *args):
+def _server(name: str, x, *args, **kwargs):
     if common.route(x.device) == "cuda":
+        common.check_datapath(kwargs.pop("datapath", "df32"))
         args = tuple(a.contiguous() if hasattr(a, "contiguous") else a
                      for a in args)
-        return getattr(server_eval, name + "_cuda")(*args)
-    return getattr(server_eval, name + "_plain")(*args)
+        return getattr(server_eval, name + "_cuda")(*args, **kwargs)
+    return getattr(server_eval, name + "_plain")(*args, **kwargs)
 
 
 def server_add_ct(c0a, c1a, c0b, c1b, ctx: CKKSContext):
@@ -215,27 +227,34 @@ def server_add_pt(c0, c1, pt, ctx: CKKSContext):
     return _server("add_pt", c0, c0, c1, pt, ctx)
 
 
-def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, rescale: bool = False):
+def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, rescale: bool = False,
+                  datapath: str = "df32"):
     """ct x pt (K7), or fused with the rescale that follows (K8b)."""
     return _server("mul_pt_rescale" if rescale else "mul_pt", c0, c0, c1,
-                   pt_mont, ctx)
+                   pt_mont, ctx, datapath=datapath)
 
 
-def server_rescale(c0, c1, ctx: CKKSContext):
-    return _server("rescale", c0, c0, c1, ctx)
+def server_rescale(c0, c1, ctx: CKKSContext, datapath: str = "df32"):
+    return _server("rescale", c0, c0, c1, ctx, datapath=datapath)
 
 
-def server_mul_ct(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext):
-    return _server("mul_ct_relin", a0, a0, a1, b0, b1, ksk_b, ksk_a, ctx)
+def server_mul_ct(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext,
+                  datapath: str = "df32"):
+    return _server("mul_ct_relin", a0, a0, a1, b0, b1, ksk_b, ksk_a, ctx,
+                   datapath=datapath)
 
 
-def server_rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext):
-    return _server("rotate", c0, c0, c1, perm, ksk_b, ksk_a, ctx)
+def server_rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext,
+                  datapath: str = "df32"):
+    return _server("rotate", c0, c0, c1, perm, ksk_b, ksk_a, ctx,
+                   datapath=datapath)
 
 
 def server_ks_decompose(c1, ctx: CKKSContext):
     return _server("ks_decompose", c1, c1, ctx)
 
 
-def server_ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext):
-    return _server("ks_apply_rot", c0, c0, h, perm, ksk_b, ksk_a, ctx)
+def server_ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext,
+                        datapath: str = "df32"):
+    return _server("ks_apply_rot", c0, c0, h, perm, ksk_b, ksk_a, ctx,
+                   datapath=datapath)

@@ -10,11 +10,16 @@ Port of ``repro.kernels.server_eval``:
     level) and kept on each device it is used on;
   * the plain versions (``*_plain``): the reference's kernel bodies in its
     order of operations, on int64 tensors holding uint32 words, with the
-    df32 engine's REDC (``modmul.mulmod_montgomery_limb_t``) and the plain
-    NTT / INTT stage loops (``common.ntt_stages_t`` / ``intt_stages_t``);
+    pointwise REDC engine of the datapath (``'df32'``:
+    ``modmul.mulmod_montgomery_limb_t``; ``'f64'``: the u64 REDC
+    ``modmul.mulmod_montgomery_u64_t``, the same words) and the plain NTT /
+    INTT stage loops (``common.ntt_stages_t`` / ``intt_stages_t``, the
+    same on both datapaths, as in the reference);
   * the CUDA wrappers (``*_cuda``): ``csrc/server_eval.cu``, one C entry
     point per op (a short sequence of launches on the current stream),
-    each counting its calls in ``LAUNCHES``.
+    each counting its calls in ``LAUNCHES``. Their pointwise REDC is the
+    u64 one on both datapaths (it gives the words of either engine), so
+    they take no ``datapath``.
 
 Inputs and outputs are int32 tensors holding uint32 words: ciphertexts (B,
 l, N) in the NTT domain, plaintexts (l, N), key-switch keys (l, l+1, N)
@@ -123,7 +128,11 @@ def _rc(sc: ServerConsts, i: int) -> tuple[int, int]:
             int(sc.table[i, common.OFF_QINV]))
 
 
-def _mm(a, b_mont, q, qi):
+def _mm(a, b_mont, q, qi, dp: str):
+    """The pointwise REDC engine of datapath `dp` (both give the same
+    words)."""
+    if dp == "f64":
+        return modmul.mulmod_montgomery_u64_t(a, b_mont, q, qi)
     return modmul.mulmod_montgomery_limb_t(a, b_mont, q, qi)
 
 
@@ -161,19 +170,19 @@ def _sum_rows(t, q):
     return s
 
 
-def _ks_accumulate(h, kb, ka, sc: ServerConsts):
+def _ks_accumulate(h, kb, ka, sc: ServerConsts, dp: str):
     """acc[i] = (B, 2, N): sum_j REDC(h[i][j] * ksk_b[j][i]), then the same
     against ksk_a."""
     out = []
     for i in range(sc.level + 1):
         q, qi = _rc(sc, i)
-        s0 = _sum_rows(_mm(h[i], kb[:, i], q, qi), q)
-        s1 = _sum_rows(_mm(h[i], ka[:, i], q, qi), q)
+        s0 = _sum_rows(_mm(h[i], kb[:, i], q, qi, dp), q)
+        s1 = _sum_rows(_mm(h[i], ka[:, i], q, qi, dp), q)
         out.append(torch.stack([s0, s1], dim=1))
     return out
 
 
-def _ks_moddown(acc, sc: ServerConsts):
+def _ks_moddown(acc, sc: ServerConsts, dp: str):
     """Divide the accumulated extended stack by P with rounding: lists of
     (B, N) rows (ks0, ks1)."""
     l = sc.level
@@ -183,17 +192,18 @@ def _ks_moddown(acc, sc: ServerConsts):
     for i in range(l):
         q, qi = _rc(sc, i)
         diff = modmul.submod(acc[i], _digit_to_row(wp, sc, i), q)
-        r = _mm(diff, int(sc.table[i, sc.off_pinv]), q, qi)
+        r = _mm(diff, int(sc.table[i, sc.off_pinv]), q, qi, dp)
         ks0.append(r[:, 0])
         ks1.append(r[:, 1])
     return ks0, ks1
 
 
-def _keyswitch(x, kb, ka, sc: ServerConsts):
-    return _ks_moddown(_ks_accumulate(_ks_digits(x, sc), kb, ka, sc), sc)
+def _keyswitch(x, kb, ka, sc: ServerConsts, dp: str):
+    return _ks_moddown(_ks_accumulate(_ks_digits(x, sc), kb, ka, sc, dp),
+                       sc, dp)
 
 
-def _rescale2(rows0, rows1, sc: ServerConsts):
+def _rescale2(rows0, rows1, sc: ServerConsts, dp: str):
     """Drop limb l-1 of both polys: x_i' = (x_i - [x_{l-1}]) q_drop^-1 mod
     q_i, the correction term the centered lift of the dropped limb."""
     l = sc.level
@@ -205,7 +215,7 @@ def _rescale2(rows0, rows1, sc: ServerConsts):
         q, qi = _rc(sc, i)
         x = torch.stack([rows0[i], rows1[i]], dim=1)
         diff = modmul.submod(x, _digit_to_row(w, sc, i), q)
-        r = _mm(diff, int(sc.table[i, sc.off_qdinv]), q, qi)
+        r = _mm(diff, int(sc.table[i, sc.off_qdinv]), q, qi, dp)
         out0.append(r[:, 0])
         out1.append(r[:, 1])
     return out0, out1
@@ -241,35 +251,44 @@ def add_pt_plain(c0, c1, pt, ctx: CKKSContext):
     return _w(modmul.addmod(_u(c0), _u(pt), q)), c1.clone()
 
 
-def mul_pt_plain(c0, c1, pt_mont, ctx: CKKSContext):
+def mul_pt_plain(c0, c1, pt_mont, ctx: CKKSContext, datapath: str = "df32"):
+    common.check_datapath(datapath)
     sc = server_consts(ctx, c0.shape[1])
     q, qi = _q_col(sc, sc.level, c0.device)
     pm = _u(pt_mont)
-    return _w(_mm(_u(c0), pm, q, qi)), _w(_mm(_u(c1), pm, q, qi))
+    return (_w(_mm(_u(c0), pm, q, qi, datapath)),
+            _w(_mm(_u(c1), pm, q, qi, datapath)))
 
 
-def rescale_plain(c0, c1, ctx: CKKSContext):
+def rescale_plain(c0, c1, ctx: CKKSContext, datapath: str = "df32"):
+    common.check_datapath(datapath)
     sc = server_consts(ctx, c0.shape[1])
     x0, x1 = _u(c0), _u(c1)
     out0, out1 = _rescale2([x0[:, j] for j in range(sc.level)],
-                           [x1[:, j] for j in range(sc.level)], sc)
+                           [x1[:, j] for j in range(sc.level)], sc,
+                           datapath)
     return _pack(out0), _pack(out1)
 
 
-def mul_pt_rescale_plain(c0, c1, pt_mont, ctx: CKKSContext):
+def mul_pt_rescale_plain(c0, c1, pt_mont, ctx: CKKSContext,
+                         datapath: str = "df32"):
+    common.check_datapath(datapath)
     sc = server_consts(ctx, c0.shape[1])
     x0, x1, pm = _u(c0), _u(c1), _u(pt_mont)
     rows0, rows1 = [], []
     for j in range(sc.level):
         q, qi = _rc(sc, j)
-        rows0.append(_mm(x0[:, j], pm[j], q, qi))
-        rows1.append(_mm(x1[:, j], pm[j], q, qi))
-    out0, out1 = _rescale2(rows0, rows1, sc)
+        rows0.append(_mm(x0[:, j], pm[j], q, qi, datapath))
+        rows1.append(_mm(x1[:, j], pm[j], q, qi, datapath))
+    out0, out1 = _rescale2(rows0, rows1, sc, datapath)
     return _pack(out0), _pack(out1)
 
 
-def mul_ct_relin_plain(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext):
+def mul_ct_relin_plain(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext,
+                       datapath: str = "df32"):
     """Tensor (d0, d1, d2) -> relinearize d2 with the s^2 key -> rescale."""
+    common.check_datapath(datapath)
+    dp = datapath
     sc = server_consts(ctx, a0.shape[1])
     l = sc.level
     a0, a1, b0, b1 = _u(a0), _u(a1), _u(b0), _u(b1)
@@ -277,24 +296,28 @@ def mul_ct_relin_plain(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext):
     for j in range(l):
         q, qi = _rc(sc, j)
         r2 = int(sc.table[j, sc.off_r2])
-        b0m = _mm(b0[:, j], r2, q, qi)           # enter Montgomery once
-        b1m = _mm(b1[:, j], r2, q, qi)
-        d0.append(_mm(a0[:, j], b0m, q, qi))
-        d1.append(modmul.addmod(_mm(a0[:, j], b1m, q, qi),
-                                _mm(a1[:, j], b0m, q, qi), q))
-        d2.append(_mm(a1[:, j], b1m, q, qi))
-    ks0, ks1 = _keyswitch(torch.stack(d2, dim=1), _u(ksk_b), _u(ksk_a), sc)
+        b0m = _mm(b0[:, j], r2, q, qi, dp)       # enter Montgomery once
+        b1m = _mm(b1[:, j], r2, q, qi, dp)
+        d0.append(_mm(a0[:, j], b0m, q, qi, dp))
+        d1.append(modmul.addmod(_mm(a0[:, j], b1m, q, qi, dp),
+                                _mm(a1[:, j], b0m, q, qi, dp), q))
+        d2.append(_mm(a1[:, j], b1m, q, qi, dp))
+    ks0, ks1 = _keyswitch(torch.stack(d2, dim=1), _u(ksk_b), _u(ksk_a), sc,
+                          dp)
     rows0 = [modmul.addmod(d0[i], ks0[i], _rc(sc, i)[0]) for i in range(l)]
     rows1 = [modmul.addmod(d1[i], ks1[i], _rc(sc, i)[0]) for i in range(l)]
-    out0, out1 = _rescale2(rows0, rows1, sc)
+    out0, out1 = _rescale2(rows0, rows1, sc, dp)
     return _pack(out0), _pack(out1)
 
 
-def rotate_plain(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext):
+def rotate_plain(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext,
+                 datapath: str = "df32"):
     """sigma_g(ct), then the key switch sigma_g(s) -> s."""
+    common.check_datapath(datapath)
     sc = server_consts(ctx, c0.shape[1])
     l = sc.level
-    ks0, ks1 = _keyswitch(_gather(_u(c1), perm), _u(ksk_b), _u(ksk_a), sc)
+    ks0, ks1 = _keyswitch(_gather(_u(c1), perm), _u(ksk_b), _u(ksk_a), sc,
+                          datapath)
     a0p = _gather(_u(c0), perm)
     rows0 = [modmul.addmod(a0p[:, i], ks0[i], _rc(sc, i)[0])
              for i in range(l)]
@@ -308,15 +331,17 @@ def ks_decompose_plain(c1, ctx: CKKSContext):
     return _w(torch.stack(_ks_digits(_u(c1), sc), dim=1))
 
 
-def ks_apply_rot_plain(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext):
+def ks_apply_rot_plain(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext,
+                       datapath: str = "df32"):
     """Hoisting, half 2: permute the digits, multiply-accumulate, mod-down.
     The same words as ``rotate_plain``."""
+    common.check_datapath(datapath)
     sc = server_consts(ctx, c0.shape[1])
     l = sc.level
     hp = _gather(_u(h), perm)
     acc = _ks_accumulate([hp[:, i] for i in range(l + 1)], _u(ksk_b),
-                         _u(ksk_a), sc)
-    ks0, ks1 = _ks_moddown(acc, sc)
+                         _u(ksk_a), sc, datapath)
+    ks0, ks1 = _ks_moddown(acc, sc, datapath)
     a0p = _gather(_u(c0), perm)
     rows0 = [modmul.addmod(a0p[:, i], ks0[i], _rc(sc, i)[0])
              for i in range(l)]

@@ -11,7 +11,9 @@ the stage loop under the shift-add REDC), K13 in ``client_pointwise.cu``
 and the four-step ``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and
 Barrett recombination)), with ``-ffp-contract=off`` (the host twin of
 ``--fmad=false``), and each ``_host`` entry's results must equal the plain
-PyTorch version word for word. The
+PyTorch version word for word, on both datapaths (K5 / K6's df32 and f64
+branches; the server bodies, whose one u64 REDC must give the words of the
+plain versions under either datapath's REDC engine). The
 CUDA build itself, its launch and its agreement on the card are checked by
 ``chip_smoke.py``. Skips where no C++ compiler is installed.
 """
@@ -45,10 +47,10 @@ _U = ctypes.c_uint32
 # host entry point -> (source, argtypes): the CUDA entry's without stream
 _HOST_ENTRIES = {
     "encode_encrypt_stream_host": (
-        "encode_encrypt.cu", [_P] * 15 + [_I] * 4 + [ctypes.c_float]
+        "encode_encrypt.cu", [_P] * 15 + [_I] * 5 + [ctypes.c_double]
         + [_U] * 5),
     "decrypt_decode_stream_host": (
-        "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 10 + [_I] * 3 + [_U] * 6
+        "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 10 + [_I] * 4 + [_U] * 8
         + [ctypes.c_ulonglong] * 2),
     "ntt_limbs_host": ("ntt_limbs.cu", [_P] * 3 + [_I] * 5),
     "encrypt_limbs_host": ("client_pointwise.cu",
@@ -137,7 +139,7 @@ def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
     err = enc(*(_ptr(a) for a in keep), _ptr(tw), _ptr(rev32), _ptr(table),
               _ptr(dm), _ptr(b_np), _ptr(a_np), _ptr(c0), _ptr(c1),
               _ptr(fft), _ptr(dig), _ptr(ntt), batch, L, p.logn,
-              kc.n_scalars, float(p.delta), *prng.seed_words(client.seed),
+              kc.n_scalars, 0, float(p.delta), *prng.seed_words(client.seed),
               nonce0)
     assert err == 0
     np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
@@ -157,8 +159,77 @@ def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
     k = rns.crt2_consts(ctx.q_list[0], ctx.q_list[1])
     err = dec(_ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(sc), _ptr(tw2),
               _ptr(rev32), _ptr(table2), *(_ptr(o) for o in outs), _ptr(m),
-              batch, p.logn, kc2.n_scalars, ctx.q_list[0], ctx.q_list[1],
+              batch, p.logn, kc2.n_scalars, 0, ctx.q_list[0], ctx.q_list[1],
               k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
+              *rns.crt2_inverses(ctx.q_list[0], ctx.q_list[1]),
+              (k["q_w"][0] << 32) | k["q_w"][1],
+              (k["half_w"][0] << 32) | k["half_w"][1])
+    assert err == 0
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("profile,batch,nonce0", [
+    ("tiny", 3, 0xFFFFFFFF), ("test", 2, 9)])
+def test_host_build_f64_matches_plain(host_libs, profile, batch, nonce0):
+    """K5 and K6's f64 branches (df64 Delta-scale round and fmod RNS; u64
+    CRT and float64 /scale at scales that are not powers of two) against
+    their plain versions; K5's words also equal its df32 branch's."""
+    enc = host_libs["encode_encrypt_stream_host"]
+    dec = host_libs["decrypt_decode_stream_host"]
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx, p = client.ctx, client.ctx.params
+    L, n, ns = p.n_limbs, p.n, p.n_slots
+    rng = np.random.default_rng(15)
+    msgs = (rng.standard_normal((batch, ns))
+            + 1j * rng.standard_normal((batch, ns))) * 0.5
+    planes = client.encrypt_operands(msgs)
+    pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
+    ref0, ref1 = client_stream.encode_encrypt_stream_plain(
+        planes, pkb, pka, ctx, client.seed, nonce0, datapath="f64")
+    d32 = client_stream.encode_encrypt_stream_plain(
+        planes, pkb, pka, ctx, client.seed, nonce0)
+    assert torch.equal(ref0, d32[0]) and torch.equal(ref1, d32[1])
+
+    kc, tw, _, rev = client_stream.stream_consts(ctx, L, inverse=True)
+    keep = [np.ascontiguousarray(t.numpy()) for t in planes]
+    tw = np.ascontiguousarray(tw)
+    rev32 = rev.astype(np.int32)
+    table = np.ascontiguousarray(kc.table)
+    dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:L]), np.uint32)
+    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
+    c0 = np.zeros((batch, L, n), np.uint32)
+    c1 = np.zeros_like(c0)
+    fft = np.zeros((batch, 4, ns), np.float32)
+    scaled = np.zeros((batch, 2, n), np.float64)
+    ntt = np.zeros((batch, L, 2, n), np.uint32)
+    err = enc(*(_ptr(a) for a in keep), _ptr(tw), _ptr(rev32), _ptr(table),
+              _ptr(dm), _ptr(b_np), _ptr(a_np), _ptr(c0), _ptr(c1),
+              _ptr(fft), _ptr(scaled), _ptr(ntt), batch, L, p.logn,
+              kc.n_scalars, 1, float(p.delta), *prng.seed_words(client.seed),
+              nonce0)
+    assert err == 0
+    np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
+    np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
+
+    # per-row scales that are not powers of two (a rescale's q_l), B rows
+    sc = np.array([p.delta, float(ctx.q_list[1]), p.delta * 0.75][:batch])
+    want = client_stream.decrypt_decode_stream_plain(
+        ref0[:, :2], ref1[:, :2], client.keys.sk.s_mont, ctx,
+        torch.tensor(sc), datapath="f64")
+    kc2, tw2, _, _ = client_stream.stream_consts(ctx, 2, inverse=False)
+    tw2 = np.ascontiguousarray(tw2)
+    table2 = np.ascontiguousarray(kc2.table)
+    s_np = client.keys.sk.s_mont.numpy().copy()
+    outs = [np.zeros((batch, ns), np.float32) for _ in range(4)]
+    m = np.zeros((batch, 2, n), np.uint32)
+    k = rns.crt2_consts(ctx.q_list[0], ctx.q_list[1])
+    err = dec(_ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(sc), _ptr(tw2),
+              _ptr(rev32), _ptr(table2), *(_ptr(o) for o in outs), _ptr(m),
+              batch, p.logn, kc2.n_scalars, 1, ctx.q_list[0], ctx.q_list[1],
+              k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
+              *rns.crt2_inverses(ctx.q_list[0], ctx.q_list[1]),
               (k["q_w"][0] << 32) | k["q_w"][1],
               (k["half_w"][0] << 32) | k["half_w"][1])
     assert err == 0
@@ -304,12 +375,12 @@ def _zeros(*shape) -> np.ndarray:
     return np.zeros(shape, np.uint32)
 
 
-@pytest.mark.parametrize("op", _SERVER_OPS)
-@pytest.mark.parametrize("profile,level", [("tiny", 3), ("tinyboot", 6)])
-def test_host_server_ops_match_plain(host_libs, profile, level, op):
-    """Each server body on random words of the right ranges (the kernels'
-    words do not depend on the keys being real keys): B=2 ciphertexts,
-    an (l, N) plaintext, (l, l+1, N) keys, the r=3 Galois permutation."""
+def _server_op_host(host_libs, profile, level, op, datapath):
+    """One server body of the host build and its plain version on
+    `datapath` (the plain REDC engine: uint32 or u64) on random words
+    of the right ranges (the kernels' words do not depend on the keys being
+    real keys): B=2 ciphertexts, an (l, N) plaintext, (l, l+1, N) keys, the
+    r=3 Galois permutation. Returns (host words, plain words)."""
     ctx = get_context(profile)
     n, batch = ctx.n, 2
     sc = server_eval.server_consts(ctx, level)
@@ -333,6 +404,7 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
     tkb, tka, tperm = _t(kb), _t(ka), torch.tensor(perm)
     fn = {k.replace("server_", "").replace("_host", ""): v
           for k, v in host_libs.items() if k.startswith("server_")}
+    dp = {"datapath": datapath}
 
     if op in ("add_ct", "add_pt", "mul_pt"):
         mode = _SERVER_OPS.index(op)
@@ -341,7 +413,8 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
                               _ptr(b1 if mode == 0 else pt), _ptr(table),
                               _ptr(o0), _ptr(o1), *geo)
         args = ((ta0, ta1, tb0, tb1) if mode == 0 else (ta0, ta1, tpt))
-        want = getattr(server_eval, op + "_plain")(*args, ctx)
+        want = getattr(server_eval, op + "_plain")(
+            *args, ctx, **(dp if op == "mul_pt" else {}))
         got = (o0, o1)
     elif op in ("rescale", "mul_pt_rescale"):
         pm = pt if op == "mul_pt_rescale" else None
@@ -349,24 +422,25 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
                             None if pm is None else _ptr(pm), _ptr(table),
                             _ptr(w), _ptr(r0), _ptr(r1), *geo, sc.off_qdinv)
         args = (ta0, ta1) if pm is None else (ta0, ta1, tpt)
-        want = getattr(server_eval, op + "_plain")(*args, ctx)
+        want = getattr(server_eval, op + "_plain")(*args, ctx, **dp)
         got = (r0, r1)
     elif op == "mul_ct":
         d = [_zeros(batch, level, n) for _ in range(5)]
-        err = fn["mul_ct"](_ptr(a0), _ptr(a1), _ptr(b0), _ptr(b1), _ptr(kb),
-                           _ptr(ka), _ptr(table), *(_ptr(x) for x in d[:3]),
-                           _ptr(digits), _ptr(h), _ptr(acc), _ptr(w),
-                           _ptr(d[3]), _ptr(d[4]), _ptr(r0), _ptr(r1), *geo,
-                           sc.off_r2, sc.off_pinv, sc.off_qdinv)
+        err = fn["mul_ct"](_ptr(a0), _ptr(a1), _ptr(b0), _ptr(b1),
+                           _ptr(kb), _ptr(ka), _ptr(table),
+                           *(_ptr(x) for x in d[:3]), _ptr(digits), _ptr(h),
+                           _ptr(acc), _ptr(w), _ptr(d[3]), _ptr(d[4]),
+                           _ptr(r0), _ptr(r1), *geo, sc.off_r2, sc.off_pinv,
+                           sc.off_qdinv)
         want = server_eval.mul_ct_relin_plain(ta0, ta1, tb0, tb1, tkb, tka,
-                                              ctx)
+                                              ctx, **dp)
         got = (r0, r1)
     elif op == "rotate":
         err = fn["rotate"](_ptr(a0), _ptr(a1), _ptr(perm), _ptr(kb),
                            _ptr(ka), _ptr(table), _ptr(digits), _ptr(h),
                            _ptr(acc), _ptr(w), _ptr(o0), _ptr(o1), *geo,
                            sc.off_pinv)
-        want = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx)
+        want = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
         got = (o0, o1)
     else:                                   # hoisted: K11a then K11b
         err = fn["ks_decompose"](_ptr(a1), _ptr(table), _ptr(digits),
@@ -374,16 +448,36 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
         assert err == 0
         want_h = server_eval.ks_decompose_plain(ta1, ctx)
         np.testing.assert_array_equal(h, want_h.numpy().view(np.uint32))
-        err = fn["ks_apply_rot"](_ptr(a0), _ptr(h), _ptr(perm), _ptr(kb),
-                                 _ptr(ka), _ptr(table), _ptr(acc), _ptr(w),
-                                 _ptr(o0), _ptr(o1), *geo, sc.off_pinv)
+        err = fn["ks_apply_rot"](_ptr(a0), _ptr(h), _ptr(perm),
+                                 _ptr(kb), _ptr(ka), _ptr(table), _ptr(acc),
+                                 _ptr(w), _ptr(o0), _ptr(o1), *geo,
+                                 sc.off_pinv)
         want = server_eval.ks_apply_rot_plain(ta0, want_h, tperm, tkb, tka,
-                                              ctx)
+                                              ctx, **dp)
         got = (o0, o1)
-        rot = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx)
+        rot = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
         for a, b in zip(want, rot):           # hoisted == fused
             assert torch.equal(a, b)
     assert err == 0
+    return got, want
+
+
+@pytest.mark.parametrize("op", _SERVER_OPS)
+@pytest.mark.parametrize("profile,level", [("tiny", 3), ("tinyboot", 6)])
+def test_host_server_ops_match_plain(host_libs, profile, level, op):
+    """Each server body against its plain version on the df32 datapath
+    (the uint32 REDC)."""
+    got, want = _server_op_host(host_libs, profile, level, op, "df32")
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("op", _SERVER_OPS)
+@pytest.mark.parametrize("profile,level", [("tiny", 3), ("tinyboot", 6)])
+def test_host_server_ops_match_plain_f64(host_libs, profile, level, op):
+    """Each server body against its plain version on the f64 datapath (the
+    u64 REDC): the one body gives the words of both."""
+    got, want = _server_op_host(host_libs, profile, level, op, "f64")
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))
 

@@ -6,8 +6,10 @@
   * the kernel build keeps the float code IEEE-exact (``--fmad=false``, no
     fast math);
   * the client runs on the card unless told otherwise (in both pipelines),
-    rejects scales the df32 datapath cannot take exactly, and refuses the
-    configurations not ported yet;
+    rejects scales the df32 datapath cannot take exactly, and takes the
+    reference's configurations (Fourier engine, pipeline, datapath) with
+    the reference's rules: each selects its cores, each breach raises
+    ``ValueError``; ``ops.fourier``'s host mode is the numpy oracle;
   * keys round-trip through ``keys_from_numpy``; the private-inference
     loop packs, encrypts, decrypts and unpacks activation rows;
   * the plain path (megakernel or staged, and the per-prime entry points
@@ -112,11 +114,42 @@ def test_default_device_is_cuda():
         FHEClient("tiny")
 
 
+_CORES = {
+    "host": ("host", "staged", "f64", "_encrypt_core_impl", None, 1),
+    "mega64": ("device", "megakernel", "f64", "_encrypt_core_mega_impl",
+               "_decrypt_core_mega_impl", 2),
+}
+
+
 @pytest.mark.parametrize("kwargs", [
     {"fourier": "host"}, {"pipeline": "megakernel", "datapath": "f64"},
     {"datapath": "f64"}])
 def test_unported_configurations_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The three configurations the port once refused now construct, with
+    the reference's defaults, and select their cores: the host oracle
+    (staged, f64) and the f64 megakernel (the device default pipeline)."""
+    client = FHEClient("tiny", device="cpu", **kwargs)
+    want = _CORES["host" if "fourier" in kwargs else "mega64"]
+    fourier, pipeline, datapath, enc, dec, n_ops = want
+    assert (client.fourier, client.pipeline, client.datapath) == (
+        fourier, pipeline, datapath)
+    assert client.encrypt_impl == getattr(client, enc)
+    assert client.n_encrypt_operands == n_ops
+    assert len(client.encrypt_operands(np.zeros((2, 32), complex))) == n_ops
+    if dec is not None:
+        assert client.decrypt_impl == getattr(client, dec)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"fourier": "host", "pipeline": "megakernel"}, "megakernel"),
+    ({"fourier": "host", "datapath": "df32"}, "df32"),
+    ({"fourier": "gpu"}, "fourier"),
+    ({"datapath": "f16"}, "datapath"),
+    ({"pipeline": "fused", "fourier": "host"}, "pipeline")])
+def test_reference_configuration_rules(kwargs, match):
+    """The reference's rules: the megakernel and the df32 datapath need the
+    device Fourier engine; unknown names raise."""
+    with pytest.raises(ValueError, match=match):
         FHEClient("tiny", device="cpu", **kwargs)
 
 
@@ -132,12 +165,25 @@ def test_staged_pipeline_accepted_and_defaults_to_card():
         FHEClient("tiny", pipeline="staged")
 
 
-def test_fourier_host_mode_raises(tiny_client):
+def test_fourier_host_mode_raises(tiny_client, monkeypatch):
+    """The host mode is the complex128 numpy oracle (core.fft, called
+    through the module attribute); an unknown mode still raises."""
+    from repro_torch.core import fft as fftmod
+    ctx = tiny_client.ctx
+    z = np.random.default_rng(2).standard_normal((3, 32)) + 1j
+    cfg = common.FourierConfig(mode="host")
+    np.testing.assert_array_equal(ops.fourier(z, ctx, cfg),
+                                  fftmod.special_fft(z, ctx.params.m))
+    np.testing.assert_array_equal(ops.fourier(z, ctx, cfg, inverse=True),
+                                  fftmod.special_ifft(z, ctx.params.m))
+    calls = []
+    monkeypatch.setattr(fftmod, "special_fft",
+                        lambda v, m: calls.append(m) or v)
+    ops.fourier(z, ctx, cfg)
+    assert calls == [ctx.params.m]
     x = torch.zeros((3, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.fourier(x, tiny_client.ctx, common.FourierConfig(mode="host"))
     with pytest.raises(ValueError, match="Fourier mode"):
-        ops.fourier(x, tiny_client.ctx, common.FourierConfig(mode="dft"))
+        ops.fourier(x, ctx, common.FourierConfig(mode="dft"))
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +222,9 @@ def test_plain_path_counts_no_launch(tiny_client):
     tiny_client.decrypt_decode_batch(
         tiny_client.encode_encrypt_batch(msgs).truncated(2))
     assert client_stream.LAUNCHES == {"encode_encrypt_stream": 0,
-                                      "decrypt_decode_stream": 0}
+                                      "decrypt_decode_stream": 0,
+                                      "encode_encrypt_stream_f64": 0,
+                                      "decrypt_decode_stream_f64": 0}
 
 
 def test_staged_plain_path_counts_no_launch():
@@ -194,7 +242,24 @@ def test_staged_plain_path_counts_no_launch():
                            "mul_pt_rescale", "mul_ct", "rotate",
                            "ks_decompose", "ks_apply_rot", "ntt_rows",
                            "intt_rows", "encrypt_limb", "decrypt_limb",
-                           "ntt_rows_mm", "intt_rows_mm"}
+                           "ntt_rows_mm", "intt_rows_mm",
+                           "encode_encrypt_stream_f64",
+                           "decrypt_decode_stream_f64"}
+    assert not any(counts.values()), counts
+
+
+@pytest.mark.parametrize("kwargs", [{"datapath": "f64"},
+                                    {"fourier": "host"}])
+def test_f64_plain_paths_count_no_launch(kwargs):
+    """The f64 megakernel and the host oracle client on the CPU run the
+    plain versions: every launch counter stays 0."""
+    client = FHEClient("tiny", device="cpu", **kwargs)
+    ops.reset_launches()
+    msgs = np.full((2, 32), -0.25 + 0.125j)
+    out = client.decrypt_decode_batch(
+        client.encode_encrypt_batch(msgs).truncated(2))
+    assert np.max(np.abs(out - msgs)) < 2.0 ** -19
+    counts = ops.launches()
     assert not any(counts.values()), counts
 
 
@@ -263,6 +328,29 @@ def test_cuda_wrappers_refuse_cpu_tensors(tiny_client):
         client_stream.encode_encrypt_stream_cuda(
             planes, tiny_client.keys.pk.b_mont, tiny_client.keys.pk.a_mont,
             tiny_client.ctx, tiny_client.seed, 0)
+
+
+@pytest.mark.parametrize("datapath", ["df32", "f64"])
+def test_megakernel_wrappers_refuse_cpu_tensors_on_each_datapath(
+        tiny_client, datapath):
+    """K5 and K6's CUDA wrappers refuse CPU tensors on either datapath,
+    and an unknown datapath."""
+    keys, ctx = tiny_client.keys, tiny_client.ctx
+    planes = tiny_client.encrypt_operands(np.zeros((1, 32), complex))
+    c = torch.zeros((1, 3, 64), dtype=torch.int32)
+    scale = torch.ones(1, dtype=torch.float32 if datapath == "df32"
+                       else torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        client_stream.encode_encrypt_stream_cuda(
+            planes, keys.pk.b_mont, keys.pk.a_mont, ctx, tiny_client.seed, 0,
+            datapath)
+    with pytest.raises(ValueError, match="CUDA"):
+        client_stream.decrypt_decode_stream_cuda(
+            c[:, :2], c[:, :2], keys.sk.s_mont, ctx, scale, datapath)
+    with pytest.raises(ValueError, match="datapath"):
+        client_stream.encode_encrypt_stream_plain(
+            planes, keys.pk.b_mont, keys.pk.a_mont, ctx, tiny_client.seed, 0,
+            "f16")
 
 
 def test_simulate_private_inference(tiny_client):

@@ -25,6 +25,7 @@ plain PyTorch version). Tolerance: 0 differing words for every key,
 ciphertext and op output; 0 differing bits for the decoded float64 slots.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -387,11 +388,17 @@ def test_galois_perm_matches_coefficient_oracle(tiny):
 
 
 def test_unported_options_raise(tiny):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServerEvaluator(tiny["client"].ctx, tiny["keys"], datapath="f64")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FHEClient("tiny", device="cpu", pipeline="megakernel",
-                  datapath="f64")
+    """datapath='f64' constructs for both classes (the server's u64 REDC,
+    the client's f64 megakernel); an unknown datapath raises."""
+    ev = ServerEvaluator(tiny["client"].ctx, tiny["keys"], datapath="f64")
+    assert ev.datapath == "f64"
+    client = FHEClient("tiny", device="cpu", pipeline="megakernel",
+                       datapath="f64")
+    assert client.encrypt_impl == client._encrypt_core_mega_impl
+    with pytest.raises(ValueError, match="datapath"):
+        ServerEvaluator(tiny["client"].ctx, tiny["keys"], datapath="u64")
+    with pytest.raises(ValueError, match="datapath"):
+        FHEClient("tiny", device="cpu", datapath="u64")
 
 
 def test_evaluator_bookkeeping_refuses_bad_inputs(tiny):
@@ -442,3 +449,37 @@ def test_server_cuda_wrappers_refuse_cpu_tensors(tiny, name):
                  + "_cuda")
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args, ctx)
+
+
+@pytest.mark.parametrize("name", ["mul_pt", "rescale", "mul_pt_rescale",
+                                  "mul_ct", "rotate", "ks_apply_rot"])
+def test_server_plain_versions_take_either_datapath(tiny, name):
+    """The plain version of each op that multiplies runs the REDC engine
+    its datapath names (the same words on both) and refuses an unknown
+    datapath; the kernels take none (one u64 REDC serves both)."""
+    ctx = tiny["client"].ctx
+    rng = np.random.default_rng(5)
+    q = torch.tensor([int(v) for v in ctx.q_list[:3]]).reshape(1, 3, 1)
+
+    def words(*shape):
+        w = torch.from_numpy(rng.integers(0, 2 ** 31, shape)) % q
+        return w.to(torch.int32)
+
+    x0, x1 = words(1, 3, ctx.n), words(1, 3, ctx.n)
+    pt = words(1, 3, ctx.n)[0]
+    key = torch.zeros((3, 4, ctx.n), dtype=torch.int32)
+    perm = torch.arange(ctx.n, dtype=torch.int32).reshape(1, ctx.n)
+    h = torch.zeros((1, 4, 3, ctx.n), dtype=torch.int32)
+    args = {"mul_pt": (x0, x1, pt), "rescale": (x0, x1),
+            "mul_pt_rescale": (x0, x1, pt),
+            "mul_ct": (x0, x1, x1, x0, key, key),
+            "rotate": (x0, x1, perm, key, key),
+            "ks_apply_rot": (x0, h, perm, key, key)}[name]
+    base = "mul_ct_relin" if name == "mul_ct" else name
+    plain = getattr(server_eval, base + "_plain")
+    for a, b in zip(plain(*args, ctx, datapath="f64"), plain(*args, ctx)):
+        assert torch.equal(a, b)
+    assert "datapath" not in inspect.signature(
+        getattr(server_eval, base + "_cuda")).parameters
+    with pytest.raises(ValueError, match="datapath"):
+        plain(*args, ctx, datapath="u64")
