@@ -13,7 +13,10 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      tensors, bit for bit: ``test`` at B=16, ``paper`` at B=4 and B=16.
      The megakernels K5/K6 take the client's operands; the staged kernels
      K1 (NTT, INTT), K2, K3 and K4 (SpecialFFT, SpecialIFFT) take the real
-     intermediates of a staged round trip;
+     intermediates of a staged round trip. K5 / K6 also on both datapaths
+     at ``paper`` B=1 and ``n15`` B=2 (odd logN: an uneven tile split of
+     their two-pass NTT / FFT), and on the f64 datapath at ``test`` B=16
+     and ``paper`` B=4, every row;
   4. drives both client paths at the ``paper`` profile (N=2^16, 24 limbs,
      Delta=2^55), B=16: ``encode_encrypt_batch`` -> ``truncated(2)`` ->
      ``decrypt_decode_batch``, first the default megakernel path, then
@@ -23,10 +26,11 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      bar), and the staged ciphertexts must equal the megakernel client's
      for the same seed and nonce base, word for word;
   5. profiles three round trips of each path (device time by CUDA kernel,
-     device busy / idle share), then times every kernel at ``paper``, B=1
-     and B=16 (CUDA events around 5 calls queued behind a spin, so the
-     card never waits on the host; after warm-up), and the plain versions
-     at B=16;
+     each of K5 / K6's device kernels under its own name, device busy /
+     idle share), then times every kernel at ``paper``, B=1 and B=16 (CUDA
+     events around 5 calls queued behind a spin, so the card never waits
+     on the host; after warm-up), and the plain versions at B=16; prints
+     the device kernels one K5 / K6 call launches, each with its time;
   6. the server op set (K7-K11): holds each of its nine kernel bodies
      against its plain version, bit for bit, on ciphertexts of the
      staged f64 client and keys of its ``make_evaluation_keys``:
@@ -70,7 +74,8 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
  10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
-     bound), then, as the last line, ``{"ok": true, "device": ...}``.
+     bound; for K5 / K6 also the device kernels per call), then, as the
+     last line, ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit code and no result line. Needs a CUDA device; without one it exits 2.
@@ -91,6 +96,12 @@ sys.path.insert(0, str(ROOT / "src"))
 BOOT_PREC_BITS = 19.29
 MAIN_PROFILE, MAIN_BATCH = "paper", 16
 CHECKS = (("test", 16), ("paper", 4), ("paper", 16))
+# K5 / K6 against their plain versions on every row beyond CHECKS:
+# (profile, batch, datapaths). paper B=1 and n15 (odd logN: an uneven tile
+# split) on both datapaths, the f64 branches at CHECKS' smaller shapes
+# (paper B=16 f64: phase 9)
+MEGA_CHECKS = (("test", 16, ("f64",)), ("paper", 1, ("df32", "f64")),
+               ("paper", 4, ("f64",)), ("n15", 2, ("df32", "f64")))
 SEED = 20261017
 DEVICE = "cuda"
 
@@ -602,8 +613,99 @@ def _profile(fn, iters: int, what: str) -> None:
     print(f"profile: {what} {per_trip:.3f} ms host clock, device busy "
           f"{busy:.3f} ms ({100 * busy / per_trip:.1f}%, idle "
           f"{100 * (1 - busy / per_trip):.1f}%)", flush=True)
-    for ms, cnt, name in sorted(rows, reverse=True)[:12]:
+    for ms, cnt, name in sorted(rows, reverse=True)[:24]:
         print(f"  device {ms:9.3f} ms  x{cnt:<3d} {name[:90]}", flush=True)
+
+
+def _device_kernels(fn, calls: int = 3) -> dict | None:
+    """{device kernel name: (launches, device ms)} per call of `fn`, from
+    `calls` calls under torch.profiler after one warm-up call: the kernels
+    one entry point launches, each under its own name. A window the
+    profiler returns empty is taken again, twice at most; None if it stays
+    empty (not measured)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            key = ev.key.lower()
+            if ev.device_type != DeviceType.CUDA or "memcpy" in key \
+                    or "memset" in key:
+                continue
+            m = re.search(r"(\w+_kernel)\b", ev.key)
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            name = m.group(1) if m else ev.key[:60]
+            n = ev.count / calls
+            out[name] = (int(n) if n == int(n) else n, dev_us / 1e3 / calls)
+        if out:
+            return out
+    return None
+
+
+def _print_device_kernels(name: str, what: str, kernels: dict | None,
+                          card: str) -> None:
+    if kernels is None:
+        print(f"device kernels: {name} {what}: not measured (the profiler "
+              f"returned no device activity)", flush=True)
+        return
+    parts = ", ".join(f"{k} x{n:g} {ms:.4f} ms"
+                      for k, (n, ms) in kernels.items())
+    print(f"device kernels: {name} {what}: "
+          f"{sum(n for n, _ in kernels.values()):g} per call [{parts}]  "
+          f"[{card}]", flush=True)
+
+
+def _check_megakernels(dev, errs: dict) -> None:
+    """K5 / K6 against their plain versions on every row at MEGA_CHECKS,
+    bit for bit (K6 f64 at scales that are not powers of two); errs by
+    counter name."""
+    import torch
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.kernels import client_stream
+    for profile, batch, datapaths in MEGA_CHECKS:
+        for dp in datapaths:
+            c = FHEClient(profile, seed=SEED, device=dev, datapath=dp)
+            ctx, p = c.ctx, c.ctx.params
+            ops = c.encrypt_operands(_messages(p.n_slots, batch, 40 + batch))
+            planes = ops if dp == "df32" else dfl.dfc_to_planes(
+                dfl.dfc_from_parts(*ops))
+            pkb, pka, s = c.keys.pk.b_mont, c.keys.pk.a_mont, c.keys.sk.s_mont
+            suffix = "_f64" if dp == "f64" else ""
+            at = f"its plain version at {profile} B={batch} ({dp})"
+            want = client_stream.encode_encrypt_stream_plain(
+                planes, pkb, pka, ctx, c.seed, 321, datapath=dp)
+            _hold(errs, "encode_encrypt_stream" + suffix,
+                  client_stream.encode_encrypt_stream_cuda(
+                      planes, pkb, pka, ctx, c.seed, 321, datapath=dp),
+                  want, at)
+            if dp == "df32":
+                scale = torch.full((batch,), p.delta, dtype=torch.float32,
+                                   device=dev)
+            else:
+                row_scales = [p.delta, float(ctx.q_list[1]), 0.75 * p.delta,
+                              3.0 * 2.0 ** 40]
+                scale = torch.tensor([row_scales[i % 4] for i in range(batch)],
+                                     dtype=torch.float64, device=dev)
+            x0, x1 = want[0][:, :2], want[1][:, :2]
+            _hold(errs, "decrypt_decode_stream" + suffix,
+                  client_stream.decrypt_decode_stream_cuda(
+                      x0, x1, s, ctx, scale, datapath=dp),
+                  client_stream.decrypt_decode_stream_plain(
+                      x0, x1, s, ctx, scale, datapath=dp), at)
+            print(f"kernel == plain (bit-identical), K5 K6 {dp}: {profile} "
+                  f"B={batch}", flush=True)
 
 
 # the server kernels by counter name: (id, TPU kernel body); all in
@@ -1308,11 +1410,14 @@ def _f64_client_phase(dev, mega32, card: str):
             plain_ms = (_cuda_ms(plain, iters=1, warmup=1)
                         if b == MAIN_BATCH else None)
             bound = _bound5_ms(*cost)
-            times[name, b] = (ms, plain_ms, bound)
+            by_name = _device_kernels(kernel)
+            times[name, b] = (ms, plain_ms, bound, by_name)
             pm = f", plain {plain_ms:.1f} ms" if plain_ms is not None else ""
             print(f"time: {name} {MAIN_PROFILE} B={b}: {ms:.3f} ms{pm}, "
                   f"bound {bound[0]:.4f} ms ({bound[1]})  [{card}]",
                   flush=True)
+            _print_device_kernels(name, f"{MAIN_PROFILE} B={b}", by_name,
+                                  card)
     return launches, errs, times
 
 
@@ -1516,6 +1621,8 @@ def main() -> int:
                   f"B={batch}")
         print(f"kernel == plain (bit-identical), K5 K6 K1 K2 K3 K4: "
               f"{profile} B={batch}", flush=True)
+    mega_errs = {}
+    _check_megakernels(dev, mega_errs)
 
     # --- 4. the main paths at paper, B=16 ---------------------------------
     import numpy as np
@@ -1586,6 +1693,9 @@ def main() -> int:
     # --- 9. the f64 datapath: K5 / K6 f64 branches, the f64 server ----------
     f64_launches, f64_errs, f64_times = _f64_client_phase(
         dev, client_for(MAIN_PROFILE), card)
+    for name, e in mega_errs.items():
+        into = f64_errs if name.endswith("_f64") else errs
+        into[name] = max(into[name], e)
     _f64_server_phase(server_out, dev)
 
     # --- 5. times -------------------------------------------------------------
@@ -1594,7 +1704,7 @@ def main() -> int:
     plans = ctx.plans[:p.n_limbs]
     pkb, pka = mc.keys.pk.b_mont, mc.keys.pk.a_mont
     s_mont = mc.keys.sk.s_mont
-    times, bounds = {}, {}
+    times, bounds, dkernels = {}, {}, {}
     for batch in (1, MAIN_BATCH):
         planes = mc.encrypt_operands(_messages(p.n_slots, batch, 2))
         k0, k1 = client_stream.encode_encrypt_stream_cuda(
@@ -1651,6 +1761,10 @@ def main() -> int:
             if batch == MAIN_BATCH:
                 times[name + "_plain", batch] = _cuda_ms(plain_fn, iters=1,
                                                          warmup=1)
+        for name in ("encode_encrypt_stream", "decrypt_decode_stream"):
+            dkernels[name, batch] = _device_kernels(calls[name][0])
+            _print_device_kernels(name, f"{MAIN_PROFILE} B={batch}",
+                                  dkernels[name, batch], card)
     for (what, batch), ms in sorted(times.items(), key=str):
         b = bounds.get((what, batch))
         bound = f", bound {b[0]:.4f} ms ({b[1]})" if b else ""
@@ -1668,12 +1782,27 @@ def main() -> int:
                 "plain_ms": times[name + "_plain", MAIN_BATCH],
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
+    def device_kernels(by_name: dict | None) -> dict:
+        """the device kernels of one entry call, for a K5 / K6 entry (None
+        where the profiler saw none: not measured)"""
+        if by_name is None:
+            return {"device_kernels": None, "device_kernels_by_name": None}
+        return {"device_kernels": sum(n for n, _ in by_name.values()),
+                "device_kernels_by_name": {
+                    k: {"launches": n, "ms": ms}
+                    for k, (n, ms) in by_name.items()}}
+
     kernels = [
         entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
               "client_stream.py:96", mega_launches["encode_encrypt_stream"]),
         entry("decrypt_decode_stream", "K6", "decrypt_decode.cu",
               "client_stream.py:200", mega_launches["decrypt_decode_stream"]),
     ]
+    for k in kernels:
+        k.update(device_kernels(dkernels[k["name"], MAIN_BATCH]))
+        k["at_batch_1"] = {"ms": times[k["name"], 1],
+                           "bound_ms": bounds[k["name"], 1][0],
+                           "bound_by": bounds[k["name"], 1][1]}
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),
                      ("special_fft", "special_ifft")):
@@ -1730,8 +1859,8 @@ def main() -> int:
             del k["inverse"]["launches"]
         kernels.append(k)
     for name, (id_, source, replaces) in F64_KERNELS.items():
-        ms, plain_ms, bound = f64_times[name, MAIN_BATCH]
-        ms1, _, bound1 = f64_times[name, 1]
+        ms, plain_ms, bound, by_name = f64_times[name, MAIN_BATCH]
+        ms1, _, bound1, _ = f64_times[name, 1]
         kernels.append({
             "name": name, "id": id_, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1742,6 +1871,7 @@ def main() -> int:
             "shape": f"{MAIN_PROFILE} B={MAIN_BATCH}",
             "at_batch_1": {"ms": ms1, "bound_ms": bound1[0],
                            "bound_by": bound1[1]},
+            **device_kernels(by_name),
         })
     print("library_ms: none; no single PyTorch call computes a negacyclic "
           "NTT, a Philox RLWE encrypt, the rotation-group-ordered df32 "

@@ -43,10 +43,10 @@ _I32 = ctypes.c_int
 ENTRY_POINTS = {
     "encode_encrypt_stream_launch": (
         "encode_encrypt.cu",
-        [_P] * 15 + [_I32] * 5 + [ctypes.c_double] + [_U32] * 5 + [_P]),
+        [_P] * 17 + [_I32] * 5 + [ctypes.c_double] + [_U32] * 5 + [_P]),
     "decrypt_decode_stream_launch": (
         "decrypt_decode.cu",
-        [_P, _P, ctypes.c_longlong] + [_P] * 10 + [_I32] * 4 + [_U32] * 8
+        [_P, _P, ctypes.c_longlong] + [_P] * 11 + [_I32] * 4 + [_U32] * 8
         + [ctypes.c_ulonglong] * 2 + [_P]),
     "ntt_limbs_launch": ("ntt_limbs.cu", [_P] * 3 + [_I32] * 5 + [_P]),
     "encrypt_limbs_launch": (
@@ -77,7 +77,7 @@ ENTRY_POINTS = {
 }
 
 # headers every source includes (a change rebuilds every library)
-HEADERS = ("client_common.cuh", "server_common.cuh")
+HEADERS = ("client_common.cuh", "server_common.cuh", "ntt_tiled.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -162,25 +162,22 @@ def encode_encrypt_stream_cuda(planes, pk_b_mont, pk_a_mont,
     tw_t, rev_t, table_t, dm_t = device_tables(ctx, L, True, dev)
     c0 = torch.empty((batch, L, n), dtype=torch.int32, device=dev)
     c1 = torch.empty_like(c0)
-    fft_scratch = torch.empty((batch, 4, ns), dtype=torch.float32,
-                              device=dev)
-    # the Delta-scaled coefficients between the two phases: three int32
-    # digit rows (df32) or the float64 (hi, lo) pair (f64) per batch row
-    if datapath == "df32":
-        scaled = torch.empty((batch, 3, n), dtype=torch.int32, device=dev)
-    else:
-        scaled = torch.empty((batch, 2, n), dtype=torch.float64, device=dev)
-    ntt_scratch = torch.empty((batch, L, 2, n), dtype=torch.int32,
-                              device=dev)
+    # scratch of the device kernels: the limbs' NTT twiddle heaps, the
+    # noise (v, e0, e1), the FFT's points between its two passes, the
+    # Delta-scaled digits, and NTT(v) between the NTT's two passes
+    scratch = (torch.empty((L, n), dtype=torch.int32, device=dev),
+               torch.empty((batch, 3, n), dtype=torch.int8, device=dev),
+               torch.empty((batch, 4, ns), dtype=torch.float32, device=dev),
+               torch.empty((batch, 3, n), dtype=torch.int32, device=dev),
+               torch.empty((batch, L, n), dtype=torch.int32, device=dev))
     sw = prng.seed_words(seed)
     common.launch("encode_encrypt_stream_launch", dev,
                   *(t.data_ptr() for t in planes), tw_t.data_ptr(),
                   rev_t.data_ptr(), table_t.data_ptr(), dm_t.data_ptr(),
                   pk_b_mont.data_ptr(), pk_a_mont.data_ptr(), c0.data_ptr(),
-                  c1.data_ptr(), fft_scratch.data_ptr(), scaled.data_ptr(),
-                  ntt_scratch.data_ptr(), batch, L, p.logn, kc.n_scalars,
-                  int(datapath == "f64"), float(p.delta), *sw,
-                  int(nonce0) & MASK32)
+                  c1.data_ptr(), *(t.data_ptr() for t in scratch), batch, L,
+                  p.logn, kc.n_scalars, int(datapath == "f64"),
+                  float(p.delta), *sw, int(nonce0) & MASK32)
     LAUNCHES[_counter("encode_encrypt_stream", datapath)] += 1
     return c0, c1
 
@@ -241,6 +238,7 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale,
     outs = [torch.empty((batch, ns), dtype=torch.float32, device=dev)
             for _ in range(4)]
     m_scratch = torch.empty((batch, 2, n), dtype=torch.int32, device=dev)
+    ntt_tw = torch.empty((2, n), dtype=torch.int32, device=dev)
     q0, q1 = ctx.q_list[0], ctx.q_list[1]
     k = rns.crt2_consts(q0, q1)
     qq = (k["q_w"][0] << 32) | k["q_w"][1]
@@ -249,9 +247,9 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale,
                   c1.data_ptr(), c0.stride(0), s_mont.data_ptr(),
                   scale.data_ptr(), tw_t.data_ptr(), rev_t.data_ptr(),
                   table_t.data_ptr(), *(o.data_ptr() for o in outs),
-                  m_scratch.data_ptr(), batch, p.logn, kc.n_scalars,
-                  int(datapath == "f64"), q0, q1, k["g0_mont"], k["g1_mont"],
-                  k["qinv0"], k["qinv1"], *rns.crt2_inverses(q0, q1), qq,
-                  half)
+                  m_scratch.data_ptr(), ntt_tw.data_ptr(), batch, p.logn,
+                  kc.n_scalars, int(datapath == "f64"), q0, q1,
+                  k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
+                  *rns.crt2_inverses(q0, q1), qq, half)
     LAUNCHES[_counter("decrypt_decode_stream", datapath)] += 1
     return tuple(outs)

@@ -1,0 +1,438 @@
+// The tiled two-pass NTT / INTT and df32 SpecialFFT / IFFT of the client
+// megakernels (encode_encrypt.cu, decrypt_decode.cu).
+//
+// A row of 2^logn points is viewed as a 2^a x 2^b matrix, a + b = logn,
+// point p at row p >> b, column p & (2^b - 1). The butterflies of a
+// network stage of stride >= 2^b pair two points of one column; those of
+// stride < 2^b pair two points of one aligned chunk of 2^b (a matrix row).
+// So every network falls into two passes:
+//   * a column pass: tiles of 2^lc whole columns (2^a points each), which
+//     runs the stages of stride >= 2^b;
+//   * a chunk pass: tiles of 2^lr whole chunks, which runs the stages of
+//     stride < 2^b.
+// The forward NTT (CT, DIT) and the SpecialIFFT (GS, lengths n .. 2) run
+// the column pass first; the INTT (GS) and the SpecialFFT (CT, lengths
+// 2 .. n) the chunk pass first. A tile is one block's work: loaded once
+// into shared memory, its stages run there, and stored once. Passes are
+// separate launches, so the launch boundary is the grid-wide barrier
+// between them. The NTT loops run two stages per barrier, each thread
+// holding four points of a line in registers; the FFT loops one.
+//
+// A tile that holds the whole row (lc = b, lr = a) is a single pass: the
+// column stages and then the chunk stages run on one shared-memory row in
+// natural order, since both tile maps are then the identity.
+//
+// Each butterfly is the one of rt::ntt_fwd / ntt_inv / fft_inv_stages /
+// fft_fwd_stages (client_common.cuh), on the same words with the same
+// twiddle words: the schedule changes where data lives and which block
+// does which butterfly, never a butterfly's arithmetic. So a tiled
+// transform gives the words of the stage loops bit for bit.
+//
+// The NTT twiddles come from a per-limb heap table made once per call
+// (heap_twiddle): stage s's table tw_s[0 .. 2^s) at tw[2^s + j] (forward)
+// and the inverse stage st's at tw[2^(logn-1-st) + j], each word the base
+// of the seed table REDC'd by the factors of j's set bits, ascending: the
+// very REDCs rt::gen_twiddles applies to reach index j.
+//
+// Compiles as plain C++ too (one thread per block, RT_SYNC a no-op), like
+// client_common.cuh, so the host build checks these loops on a CPU.
+#pragma once
+
+#include "client_common.cuh"
+
+#if defined(__CUDACC__)
+#define RT_HD __host__ __device__ __forceinline__
+RT_FN uint32_t rt_brev(uint32_t x, int bits) {
+  return bits == 0 ? 0u : __brev(x) >> (32 - bits);
+}
+RT_FN int rt_ilog2(uint32_t x) { return 31 - __clz(x); }
+RT_FN uint32_t rt_ldg(const uint32_t *p) { return __ldg(p); }
+#else
+#define RT_HD static inline
+RT_FN uint32_t rt_brev(uint32_t x, int bits) {
+  uint32_t r = 0;
+  for (int i = 0; i < bits; ++i) r = (r << 1) | ((x >> i) & 1u);
+  return r;
+}
+RT_FN int rt_ilog2(uint32_t x) { return 31 - __builtin_clz(x); }
+RT_FN uint32_t rt_ldg(const uint32_t *p) { return *p; }
+#endif
+
+namespace rt {
+namespace tiled {
+
+// What one block of a transform runs: the whole row (a single pass), a
+// column tile or a chunk tile.
+enum Pass { kRow = 0, kColumns = 1, kChunks = 2 };
+
+// Tile geometry of one transform of rows of 2^logn points.
+struct Geo {
+  int logn;  // row length 2^logn
+  int a;     // column height 2^a; chunk length 2^b, b = logn - a
+  int lc;    // a column tile holds 2^lc columns
+  int lr;    // a chunk tile holds 2^lr chunks
+  int brev;  // chunk tile t holds the chunks bitrev_a(t 2^lr + i), so that
+             // a gather or scatter through a bit reversal meets runs of
+             // 2^lr neighbouring words (0 on a single pass)
+};
+
+RT_HD int geo_b(const Geo &g) { return g.logn - g.a; }
+RT_HD bool single_pass(const Geo &g) {
+  return g.lc == geo_b(g) && g.lr == g.a;
+}
+RT_HD int col_tiles(const Geo &g) { return 1 << (geo_b(g) - g.lc); }
+RT_HD int chunk_tiles(const Geo &g) { return 1 << (g.a - g.lr); }
+RT_HD int col_points(const Geo &g) { return 1 << (g.a + g.lc); }
+RT_HD int chunk_points(const Geo &g) { return 1 << (g.lr + geo_b(g)); }
+
+// row position of slot i = (r << lc) + cc of column tile `tile`
+RT_FN int col_pos(const Geo &g, int tile, int i) {
+  const int r = i >> g.lc;
+  const int cc = i & ((1 << g.lc) - 1);
+  return (r << geo_b(g)) + (tile << g.lc) + cc;
+}
+
+// matrix row of chunk rr of chunk tile `tile`
+RT_FN int chunk_row(const Geo &g, int tile, int rr) {
+  const int r = (tile << g.lr) + rr;
+  return g.brev ? (int)rt_brev((uint32_t)r, g.a) : r;
+}
+
+// row position of slot i = (rr << b) + c of chunk tile `tile`
+RT_FN int chunk_pos(const Geo &g, int tile, int i) {
+  const int b = geo_b(g);
+  return (chunk_row(g, tile, i >> b) << b) + (i & ((1 << b) - 1));
+}
+
+// Slot of the k-th point a chunk tile's threads visit when they load or
+// store through a bit reversal: neighbouring k walk neighbouring chunks
+// (neighbouring rows of the reversed order), so a warp's global accesses
+// fall in runs of 2^lr words.
+RT_FN int chunk_slot_across(const Geo &g, int k) {
+  return ((k & ((1 << g.lr) - 1)) << geo_b(g)) + (k >> g.lr);
+}
+
+// ---------------------------------------------------------------------------
+// NTT twiddles: one limb's heap table (see the header)
+// ---------------------------------------------------------------------------
+template <class Red>
+RT_FN uint32_t heap_twiddle(const uint32_t *trow, int logn, bool inverse,
+                            int m, const Red &red) {
+  const int u = rt_ilog2((uint32_t)m);
+  const int j = m - (1 << u);
+  const uint32_t *col =
+      trow + (inverse ? inv_off(logn, logn - 1 - u) : fwd_off(u));
+  uint32_t w = col[0];
+  for (int k = 0; k < u; ++k)
+    if ((j >> k) & 1) w = redc(red, w, col[1 + k]);
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// NTT stage loops on a tile of npoly polynomials in shared memory (poly
+// stride `pts`, the tile's points); tw: this limb's heap table
+// ---------------------------------------------------------------------------
+
+// A tile's lines as the NTT stage loops see them: line l (of 2^nl) holds
+// 2^h points, point x at slot l * ls + x * xs; a step along a line is
+// 2^gshift row positions (2^b in a column, 1 in a chunk). The stage that
+// pairs points 2^ld apart in a line pairs them 2^(ld + gshift) apart in the
+// row, so its twiddles are tw[2^(logn - 1 - ld - gshift) + j], and its
+// group j of line l is (lrow << (h - 1 - ld)) + the line's own group, lrow
+// the chunk's matrix row (0 in a column, which spans every group).
+struct Lines {
+  int nl, h, ls, xs, gshift;
+  int tile;  // the chunk tile, -1 for a column tile
+};
+
+RT_FN Lines col_lines(const Geo &g) {
+  return Lines{g.lc, g.a, 1, 1 << g.lc, geo_b(g), -1};
+}
+
+RT_FN Lines chunk_lines(const Geo &g, int tile) {
+  return Lines{g.lr, geo_b(g), 1 << geo_b(g), 1, 0, tile};
+}
+
+// Work item idx over npoly x 2^nl lines x 2^lu units -> its first slot and
+// its line's matrix row. Lines vary fastest on a column tile (neighbouring
+// lines are neighbouring words), units on a chunk tile.
+RT_FN uint32_t *line_item(uint32_t *x, int pts, const Lines &t,
+                          const Geo &g, int lu, int idx, int &u, int &lrow) {
+  const int per = t.nl + lu;
+  const int k = idx & ((1 << per) - 1);
+  int l;
+  if (t.tile < 0) {
+    l = k & ((1 << t.nl) - 1);
+    u = k >> t.nl;
+    lrow = 0;
+  } else {
+    u = k & ((1 << lu) - 1);
+    l = k >> lu;
+    lrow = chunk_row(g, t.tile, l);
+  }
+  return x + (idx >> per) * pts + l * t.ls;
+}
+
+// forward CT stages of every line, line distances 2^(h-1) .. 1: two per
+// barrier in registers (four points, the two stages' four butterflies),
+// the last one alone when h is odd
+template <class Red>
+RT_FN void ntt_fwd_lines(uint32_t *x, int npoly, int pts, const Lines &t,
+                         const Geo &g, const uint32_t *tw, const Red &red) {
+  const uint32_t q = red.q;
+  int ld = t.h - 1;
+  for (; ld >= 1; ld -= 2) {  // stages of distance 2^ld and 2^(ld-1)
+    const uint32_t *w_hi = tw + (1 << (g.logn - 1 - ld - t.gshift));
+    const uint32_t *w_lo = tw + (1 << (g.logn - ld - t.gshift));
+    const int lu = t.h - 2;
+    for (int idx = RT_TID; idx < npoly << (t.nl + lu); idx += RT_NT) {
+      int u, lrow;
+      uint32_t *y = line_item(x, pts, t, g, lu, idx, u, lrow);
+      const int J = u >> (ld - 1);
+      const int x0 = (J << (ld + 1)) + (u & ((1 << (ld - 1)) - 1));
+      const int d = t.xs << (ld - 1);
+      uint32_t *p = y + x0 * t.xs;
+      uint32_t u0 = p[0], u1 = p[d], u2 = p[2 * d], u3 = p[3 * d];
+      const int j = (lrow << (t.h - 1 - ld)) + J;
+      const uint32_t w = rt_ldg(w_hi + j);
+      uint32_t v = redc(red, u2, w);
+      u2 = submod(u0, v, q);
+      u0 = addmod(u0, v, q);
+      v = redc(red, u3, w);
+      u3 = submod(u1, v, q);
+      u1 = addmod(u1, v, q);
+      v = redc(red, u1, rt_ldg(w_lo + 2 * j));
+      u1 = submod(u0, v, q);
+      u0 = addmod(u0, v, q);
+      v = redc(red, u3, rt_ldg(w_lo + 2 * j + 1));
+      u3 = submod(u2, v, q);
+      u2 = addmod(u2, v, q);
+      p[0] = u0;
+      p[d] = u1;
+      p[2 * d] = u2;
+      p[3 * d] = u3;
+    }
+    RT_SYNC();
+  }
+  if (ld == 0) {  // the last stage, distance 1
+    const uint32_t *ws = tw + (1 << (g.logn - 1 - t.gshift));
+    const int lu = t.h - 1;
+    for (int idx = RT_TID; idx < npoly << (t.nl + lu); idx += RT_NT) {
+      int u, lrow;
+      uint32_t *y = line_item(x, pts, t, g, lu, idx, u, lrow);
+      uint32_t *p = y + 2 * u * t.xs;
+      const uint32_t a = p[0];
+      const uint32_t v = redc(red, p[t.xs], rt_ldg(ws + (lrow << lu) + u));
+      p[0] = addmod(a, v, q);
+      p[t.xs] = submod(a, v, q);
+    }
+    RT_SYNC();
+  }
+}
+
+// inverse GS stages of every line, line distances 1 .. 2^(h-1): two per
+// barrier in registers, the last one alone when h is odd; N^-1 is left to
+// the caller's store
+template <class Red>
+RT_FN void ntt_inv_lines(uint32_t *x, int npoly, int pts, const Lines &t,
+                         const Geo &g, const uint32_t *tw, const Red &red) {
+  const uint32_t q = red.q;
+  int ld = 0;
+  for (; ld + 1 < t.h; ld += 2) {  // stages of distance 2^ld and 2^(ld+1)
+    const uint32_t *w_lo = tw + (1 << (g.logn - 1 - ld - t.gshift));
+    const uint32_t *w_hi = tw + (1 << (g.logn - 2 - ld - t.gshift));
+    const int lu = t.h - 2;
+    for (int idx = RT_TID; idx < npoly << (t.nl + lu); idx += RT_NT) {
+      int u, lrow;
+      uint32_t *y = line_item(x, pts, t, g, lu, idx, u, lrow);
+      const int J = u >> ld;
+      const int x0 = (J << (ld + 2)) + (u & ((1 << ld) - 1));
+      const int d = t.xs << ld;
+      uint32_t *p = y + x0 * t.xs;
+      uint32_t u0 = p[0], u1 = p[d], u2 = p[2 * d], u3 = p[3 * d];
+      const int j = (lrow << (t.h - 2 - ld)) + J;
+      uint32_t s = addmod(u0, u1, q);
+      u1 = redc(red, submod(u0, u1, q), rt_ldg(w_lo + 2 * j));
+      u0 = s;
+      s = addmod(u2, u3, q);
+      u3 = redc(red, submod(u2, u3, q), rt_ldg(w_lo + 2 * j + 1));
+      u2 = s;
+      const uint32_t w = rt_ldg(w_hi + j);
+      s = addmod(u0, u2, q);
+      u2 = redc(red, submod(u0, u2, q), w);
+      u0 = s;
+      s = addmod(u1, u3, q);
+      u3 = redc(red, submod(u1, u3, q), w);
+      u1 = s;
+      p[0] = u0;
+      p[d] = u1;
+      p[2 * d] = u2;
+      p[3 * d] = u3;
+    }
+    RT_SYNC();
+  }
+  if (ld < t.h) {  // the last stage, distance 2^(h-1)
+    const uint32_t *ws = tw + (1 << (g.logn - 1 - ld - t.gshift));
+    const int lu = t.h - 1;
+    for (int idx = RT_TID; idx < npoly << (t.nl + lu); idx += RT_NT) {
+      int u, lrow;
+      uint32_t *y = line_item(x, pts, t, g, lu, idx, u, lrow);
+      const int J = u >> ld;
+      uint32_t *p = y + ((J << (ld + 1)) + (u & ((1 << ld) - 1))) * t.xs;
+      const int d = t.xs << ld;
+      const uint32_t a = p[0], b = p[d];
+      const uint32_t w = rt_ldg(ws + (lrow << (t.h - 1 - ld)) + J);
+      p[0] = addmod(a, b, q);
+      p[d] = redc(red, submod(a, b, q), w);
+    }
+    RT_SYNC();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// df32 SpecialFFT stage loops on a tile of one row's n = 2^logn complex
+// points (four float planes in shared memory); tw: the packed (4, n)
+// twiddle table of the direction
+// ---------------------------------------------------------------------------
+
+// encode direction, GS stages 0 .. a-1 (half length 2^(logn-1-s) >= 2^b)
+// on column tile `tile`
+RT_FN void fft_inv_cols(Planes x, const Geo &g, int tile, const float *tw) {
+  const int n = 1 << g.logn, b = geo_b(g), lc = g.lc;
+  for (int s = 0; s < g.a; ++s) {
+    const int ld = g.a - 1 - s;
+    const int off = n - (n >> s);
+    for (int idx = RT_TID; idx < 1 << (g.a - 1 + lc); idx += RT_NT) {
+      const int kr = idx >> lc, cc = idx & ((1 << lc) - 1);
+      const int rlo = kr & ((1 << ld) - 1);
+      const int i0 = ((((kr >> ld) << (ld + 1)) + rlo) << lc) + cc;
+      const int i1 = i0 + (1 << (ld + lc));
+      const int wi = (rlo << b) + (tile << lc) + cc;  // p0 mod half length
+      const dfc u = load_dfc(x, i0), v = load_dfc(x, i1);
+      store_dfc(x, i0, dfc_add(u, v));
+      store_dfc(x, i1, dfc_mul(dfc_sub(u, v), load_tw(tw, n, off + wi)));
+    }
+    RT_SYNC();
+  }
+}
+
+// encode direction, GS stages a .. logn-1 (half length < 2^b) on a chunk
+// tile (the twiddle depends on the position within the chunk only)
+RT_FN void fft_inv_chunks(Planes x, const Geo &g, const float *tw) {
+  const int n = 1 << g.logn, b = geo_b(g);
+  for (int s = g.a; s < g.logn; ++s) {
+    const int loglh = g.logn - 1 - s;
+    const int off = n - (n >> s);
+    for (int idx = RT_TID; idx < 1 << (g.lr + b - 1); idx += RT_NT) {
+      const int rr = idx >> (b - 1);
+      const int kk = idx & ((1 << (b - 1)) - 1);
+      const int i = kk & ((1 << loglh) - 1);
+      const int i0 = (rr << b) + ((kk >> loglh) << (loglh + 1)) + i;
+      const int i1 = i0 + (1 << loglh);
+      const dfc u = load_dfc(x, i0), v = load_dfc(x, i1);
+      store_dfc(x, i0, dfc_add(u, v));
+      store_dfc(x, i1, dfc_mul(dfc_sub(u, v), load_tw(tw, n, off + i)));
+    }
+    RT_SYNC();
+  }
+}
+
+// decode direction, CT stages 0 .. b-1 (half length 2^s < 2^b) on a chunk
+// tile
+RT_FN void fft_fwd_chunks(Planes x, const Geo &g, const float *tw) {
+  const int n = 1 << g.logn, b = geo_b(g);
+  for (int s = 0; s < b; ++s) {
+    const int off = (1 << s) - 1;
+    for (int idx = RT_TID; idx < 1 << (g.lr + b - 1); idx += RT_NT) {
+      const int rr = idx >> (b - 1);
+      const int kk = idx & ((1 << (b - 1)) - 1);
+      const int i = kk & ((1 << s) - 1);
+      const int i0 = (rr << b) + ((kk >> s) << (s + 1)) + i;
+      const int i1 = i0 + (1 << s);
+      const dfc u = load_dfc(x, i0);
+      const dfc v = dfc_mul(load_dfc(x, i1), load_tw(tw, n, off + i));
+      store_dfc(x, i0, dfc_add(u, v));
+      store_dfc(x, i1, dfc_sub(u, v));
+    }
+    RT_SYNC();
+  }
+}
+
+// decode direction, CT stages b .. logn-1 (half length >= 2^b) on column
+// tile `tile`
+RT_FN void fft_fwd_cols(Planes x, const Geo &g, int tile, const float *tw) {
+  const int n = 1 << g.logn, b = geo_b(g), lc = g.lc;
+  for (int s = b; s < g.logn; ++s) {
+    const int ld = s - b;
+    const int off = (1 << s) - 1;
+    for (int idx = RT_TID; idx < 1 << (g.a - 1 + lc); idx += RT_NT) {
+      const int kr = idx >> lc, cc = idx & ((1 << lc) - 1);
+      const int rlo = kr & ((1 << ld) - 1);
+      const int i0 = ((((kr >> ld) << (ld + 1)) + rlo) << lc) + cc;
+      const int i1 = i0 + (1 << (ld + lc));
+      const int wi = (rlo << b) + (tile << lc) + cc;  // p0 mod 2^s
+      const dfc u = load_dfc(x, i0);
+      const dfc v = dfc_mul(load_dfc(x, i1), load_tw(tw, n, off + wi));
+      store_dfc(x, i0, dfc_add(u, v));
+      store_dfc(x, i1, dfc_sub(u, v));
+    }
+    RT_SYNC();
+  }
+}
+
+// four planes of `pts` floats each, one after the other from `smem`
+RT_FN Planes smem_planes(float *smem, int pts) {
+  return Planes{smem, smem + pts, smem + 2 * pts, smem + 3 * pts};
+}
+
+// ---------------------------------------------------------------------------
+// Tile planning, shared by the CUDA entries and their host builds
+// ---------------------------------------------------------------------------
+
+// Rows up to this size take a single pass: one tile holds the whole row.
+constexpr int kSinglePassLogn = 11;      // NTT: 3 x 2^11 words = 24 KB
+constexpr int kSinglePassLognFft = 10;   // FFT: 2^10 points x 16 B = 16 KB
+// A pass's grid should have at least this many blocks (two per SM of an
+// H100); tiles shrink towards their lower bound until it does.
+constexpr long long kTargetBlocks = 2 * 132;
+
+// the largest log tile size in [lo, hi] (both capped at `free`, the log
+// of the lines a row has) whose grid of other * 2^(free - l) blocks
+// reaches kTargetBlocks; lo where none does
+inline int pick_log_tile(int free, int lo, int hi, long long other) {
+  hi = hi < free ? hi : free;
+  lo = lo < hi ? lo : hi;
+  int l = hi;
+  while (l > lo && (other << (free - l)) < kTargetBlocks) --l;
+  return l;
+}
+
+// The geometry of a transform of `rows_col` / `rows_chunk` independent
+// rows per column / chunk pass (the blocks beside the tile index). a, lc,
+// lr < 0 take the defaults: a = ceil(logn / 2); a single pass when logn <=
+// single_logn, else the tiles above within [lc_lo, lc_hi] / [lr_lo,
+// lr_hi]. Forcing lc = b and lr = a forces a single pass; `brev` is kept
+// only on two passes.
+inline Geo plan_geo(int logn, int a, int lc, int lr, int single_logn,
+                    long long rows_col, long long rows_chunk, int lc_lo,
+                    int lc_hi, int lr_lo, int lr_hi, int brev) {
+  Geo g;
+  g.logn = logn;
+  g.a = a >= 0 ? a : (logn + 1) / 2;
+  const int b = logn - g.a;
+  const bool one = a < 0 && lc < 0 && lr < 0 && logn <= single_logn;
+  g.lc = lc >= 0 ? lc : (one ? b : pick_log_tile(b, lc_lo, lc_hi, rows_col));
+  g.lr = lr >= 0 ? lr
+                 : (one ? g.a : pick_log_tile(g.a, lr_lo, lr_hi, rows_chunk));
+  g.brev = single_pass(g) ? 0 : brev;
+  return g;
+}
+
+inline bool geo_valid(const Geo &g) {
+  const int b = g.logn - g.a;
+  return g.logn >= 2 && g.a >= 1 && b >= 1 && g.lc >= 0 && g.lc <= b &&
+         g.lr >= 0 && g.lr <= g.a;
+}
+
+}  // namespace tiled
+}  // namespace rt

@@ -19,6 +19,7 @@ CUDA build itself, its launch and its agreement on the card are checked by
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -47,11 +48,12 @@ _U = ctypes.c_uint32
 # host entry point -> (source, argtypes): the CUDA entry's without stream
 _HOST_ENTRIES = {
     "encode_encrypt_stream_host": (
-        "encode_encrypt.cu", [_P] * 15 + [_I] * 5 + [ctypes.c_double]
-        + [_U] * 5),
+        "encode_encrypt.cu", [_P] * 17 + [_I] * 5 + [ctypes.c_double]
+        + [_U] * 5 + [_I] * 6),
     "decrypt_decode_stream_host": (
-        "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 10 + [_I] * 4 + [_U] * 8
-        + [ctypes.c_ulonglong] * 2),
+        "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 11 + [_I] * 4 + [_U] * 8
+        + [ctypes.c_ulonglong] * 2 + [_I] * 6),
+    "ntt_tiled_host": ("encode_encrypt.cu", [_P] * 3 + [_I] * 9),
     "ntt_limbs_host": ("ntt_limbs.cu", [_P] * 3 + [_I] * 5),
     "encrypt_limbs_host": ("client_pointwise.cu",
                            [_P] * 7 + [_I] * 4 + [_U] * 5),
@@ -108,40 +110,88 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
+# the tile geometry of a host call: (a, lc, lr) of the NTT, then of the FFT;
+# -1 takes the CUDA entry's default (ntt_tiled.cuh: plan_geo)
+_DEFAULT_GEO = (-1,) * 6
+
+
+def _k5_host(host_libs, client, planes, nonce0, datapath,
+             geo=_DEFAULT_GEO):
+    """(c0, c1) of the host build of K5 (encode_encrypt.cu) on `planes`."""
+    ctx, p = client.ctx, client.ctx.params
+    batch = planes[0].shape[0]
+    L, n, ns = p.n_limbs, p.n, p.n_slots
+    kc, tw, _, rev = client_stream.stream_consts(ctx, L, inverse=True)
+    keep = [np.ascontiguousarray(t.numpy()) for t in planes]
+    dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:L]), np.uint32)
+    consts = [np.ascontiguousarray(x) for x in (
+        tw, rev.astype(np.int32), kc.table, dm,
+        client.keys.pk.b_mont.numpy(), client.keys.pk.a_mont.numpy())]
+    c0 = np.zeros((batch, L, n), np.uint32)
+    c1 = np.zeros_like(c0)
+    scratch = (np.zeros((L, n), np.uint32), np.zeros((batch, 3, n), np.int8),
+               np.zeros((batch, 4, ns), np.float32),
+               np.zeros((batch, 3, n), np.int32),
+               np.zeros((batch, L, n), np.uint32))
+    err = host_libs["encode_encrypt_stream_host"](
+        *(_ptr(a) for a in keep), *(_ptr(a) for a in consts), _ptr(c0),
+        _ptr(c1), *(_ptr(a) for a in scratch), batch, L, p.logn,
+        kc.n_scalars, int(datapath == "f64"), float(p.delta),
+        *prng.seed_words(client.seed), nonce0, *geo)
+    assert err == 0
+    return c0, c1
+
+
+def _k6_host(host_libs, client, c0, c1, scale, datapath, geo=_DEFAULT_GEO):
+    """The four planes of the host build of K6 (decrypt_decode.cu) on the
+    2-limb row-strided view of the (B, L, N) words c0 / c1; `scale` a
+    (B,) float32 (df32) or float64 (f64) array."""
+    ctx, p = client.ctx, client.ctx.params
+    batch, L, n = c0.shape
+    kc, tw, _, rev = client_stream.stream_consts(ctx, 2, inverse=False)
+    consts = [np.ascontiguousarray(x) for x in (
+        client.keys.sk.s_mont.numpy(), scale, tw, rev.astype(np.int32),
+        kc.table)]
+    outs = [np.zeros((batch, p.n_slots), np.float32) for _ in range(4)]
+    m = np.zeros((batch, 2, n), np.uint32)
+    ntt_tw = np.zeros((2, n), np.uint32)
+    q0, q1 = ctx.q_list[0], ctx.q_list[1]
+    k = rns.crt2_consts(q0, q1)
+    err = host_libs["decrypt_decode_stream_host"](
+        _ptr(c0), _ptr(c1), L * n, *(_ptr(a) for a in consts),
+        *(_ptr(o) for o in outs), _ptr(m), _ptr(ntt_tw), batch, p.logn,
+        kc.n_scalars, int(datapath == "f64"), q0, q1, k["g0_mont"],
+        k["g1_mont"], k["qinv0"], k["qinv1"], *rns.crt2_inverses(q0, q1),
+        (k["q_w"][0] << 32) | k["q_w"][1],
+        (k["half_w"][0] << 32) | k["half_w"][1], *geo)
+    assert err == 0
+    return outs
+
+
+def _assert_same_planes(outs, want):
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.numpy().view(np.uint32))
+
+
+def _operands(client, batch, seed):
+    ns = client.ctx.params.n_slots
+    rng = np.random.default_rng(seed)
+    msgs = (rng.standard_normal((batch, ns))
+            + 1j * rng.standard_normal((batch, ns))) * 0.5
+    return client.encrypt_operands(msgs)
+
+
 @pytest.mark.parametrize("profile,batch,nonce0", [
     ("tiny", 3, 0xFFFFFFFF), ("test", 2, 9)])
 def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
-    enc = host_libs["encode_encrypt_stream_host"]
-    dec = host_libs["decrypt_decode_stream_host"]
     client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
     ctx, p = client.ctx, client.ctx.params
-    L, n, ns = p.n_limbs, p.n, p.n_slots
-    rng = np.random.default_rng(5)
-    msgs = (rng.standard_normal((batch, ns))
-            + 1j * rng.standard_normal((batch, ns))) * 0.5
-    planes = client.encrypt_operands(msgs)
+    planes = _operands(client, batch, 5)
     pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
     ref0, ref1 = client_stream.encode_encrypt_stream_plain(
         planes, pkb, pka, ctx, client.seed, nonce0)
-
-    kc, tw, _, rev = client_stream.stream_consts(ctx, L, inverse=True)
-    keep = [np.ascontiguousarray(t.numpy()) for t in planes]
-    tw = np.ascontiguousarray(tw)
-    rev32 = rev.astype(np.int32)
-    table = np.ascontiguousarray(kc.table)
-    dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:L]), np.uint32)
-    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
-    c0 = np.zeros((batch, L, n), np.uint32)
-    c1 = np.zeros_like(c0)
-    fft = np.zeros((batch, 4, ns), np.float32)
-    dig = np.zeros((batch, 3, n), np.int32)
-    ntt = np.zeros((batch, L, 2, n), np.uint32)
-    err = enc(*(_ptr(a) for a in keep), _ptr(tw), _ptr(rev32), _ptr(table),
-              _ptr(dm), _ptr(b_np), _ptr(a_np), _ptr(c0), _ptr(c1),
-              _ptr(fft), _ptr(dig), _ptr(ntt), batch, L, p.logn,
-              kc.n_scalars, 0, float(p.delta), *prng.seed_words(client.seed),
-              nonce0)
-    assert err == 0
+    c0, c1 = _k5_host(host_libs, client, planes, nonce0, "df32")
     np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
     np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
 
@@ -149,67 +199,27 @@ def test_host_build_matches_plain(host_libs, profile, batch, nonce0):
     scale = torch.full((batch,), p.delta, dtype=torch.float32)
     want = client_stream.decrypt_decode_stream_plain(
         ref0[:, :2], ref1[:, :2], client.keys.sk.s_mont, ctx, scale)
-    kc2, tw2, _, _ = client_stream.stream_consts(ctx, 2, inverse=False)
-    tw2 = np.ascontiguousarray(tw2)
-    table2 = np.ascontiguousarray(kc2.table)
-    s_np = client.keys.sk.s_mont.numpy().copy()
-    sc = scale.numpy().copy()
-    outs = [np.zeros((batch, ns), np.float32) for _ in range(4)]
-    m = np.zeros((batch, 2, n), np.uint32)
-    k = rns.crt2_consts(ctx.q_list[0], ctx.q_list[1])
-    err = dec(_ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(sc), _ptr(tw2),
-              _ptr(rev32), _ptr(table2), *(_ptr(o) for o in outs), _ptr(m),
-              batch, p.logn, kc2.n_scalars, 0, ctx.q_list[0], ctx.q_list[1],
-              k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
-              *rns.crt2_inverses(ctx.q_list[0], ctx.q_list[1]),
-              (k["q_w"][0] << 32) | k["q_w"][1],
-              (k["half_w"][0] << 32) | k["half_w"][1])
-    assert err == 0
-    for got, ref in zip(outs, want):
-        np.testing.assert_array_equal(got.view(np.uint32),
-                                      ref.numpy().view(np.uint32))
+    _assert_same_planes(_k6_host(host_libs, client, c0, c1, scale.numpy(),
+                                 "df32"), want)
 
 
 @pytest.mark.parametrize("profile,batch,nonce0", [
     ("tiny", 3, 0xFFFFFFFF), ("test", 2, 9)])
 def test_host_build_f64_matches_plain(host_libs, profile, batch, nonce0):
-    """K5 and K6's f64 branches (df64 Delta-scale round and fmod RNS; u64
-    CRT and float64 /scale at scales that are not powers of two) against
-    their plain versions; K5's words also equal its df32 branch's."""
-    enc = host_libs["encode_encrypt_stream_host"]
-    dec = host_libs["decrypt_decode_stream_host"]
+    """K5 and K6's f64 branches (df64 Delta-scale round and its exact
+    digits; u64 CRT and float64 /scale at scales that are not powers of
+    two) against their plain versions; K5's words also equal its df32
+    branch's."""
     client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
     ctx, p = client.ctx, client.ctx.params
-    L, n, ns = p.n_limbs, p.n, p.n_slots
-    rng = np.random.default_rng(15)
-    msgs = (rng.standard_normal((batch, ns))
-            + 1j * rng.standard_normal((batch, ns))) * 0.5
-    planes = client.encrypt_operands(msgs)
+    planes = _operands(client, batch, 15)
     pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
     ref0, ref1 = client_stream.encode_encrypt_stream_plain(
         planes, pkb, pka, ctx, client.seed, nonce0, datapath="f64")
     d32 = client_stream.encode_encrypt_stream_plain(
         planes, pkb, pka, ctx, client.seed, nonce0)
     assert torch.equal(ref0, d32[0]) and torch.equal(ref1, d32[1])
-
-    kc, tw, _, rev = client_stream.stream_consts(ctx, L, inverse=True)
-    keep = [np.ascontiguousarray(t.numpy()) for t in planes]
-    tw = np.ascontiguousarray(tw)
-    rev32 = rev.astype(np.int32)
-    table = np.ascontiguousarray(kc.table)
-    dm = np.asarray(common.stacked_digit_consts(ctx.q_list[:L]), np.uint32)
-    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
-    c0 = np.zeros((batch, L, n), np.uint32)
-    c1 = np.zeros_like(c0)
-    fft = np.zeros((batch, 4, ns), np.float32)
-    scaled = np.zeros((batch, 2, n), np.float64)
-    ntt = np.zeros((batch, L, 2, n), np.uint32)
-    err = enc(*(_ptr(a) for a in keep), _ptr(tw), _ptr(rev32), _ptr(table),
-              _ptr(dm), _ptr(b_np), _ptr(a_np), _ptr(c0), _ptr(c1),
-              _ptr(fft), _ptr(scaled), _ptr(ntt), batch, L, p.logn,
-              kc.n_scalars, 1, float(p.delta), *prng.seed_words(client.seed),
-              nonce0)
-    assert err == 0
+    c0, c1 = _k5_host(host_libs, client, planes, nonce0, "f64")
     np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
     np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
 
@@ -218,24 +228,91 @@ def test_host_build_f64_matches_plain(host_libs, profile, batch, nonce0):
     want = client_stream.decrypt_decode_stream_plain(
         ref0[:, :2], ref1[:, :2], client.keys.sk.s_mont, ctx,
         torch.tensor(sc), datapath="f64")
-    kc2, tw2, _, _ = client_stream.stream_consts(ctx, 2, inverse=False)
-    tw2 = np.ascontiguousarray(tw2)
-    table2 = np.ascontiguousarray(kc2.table)
-    s_np = client.keys.sk.s_mont.numpy().copy()
-    outs = [np.zeros((batch, ns), np.float32) for _ in range(4)]
-    m = np.zeros((batch, 2, n), np.uint32)
-    k = rns.crt2_consts(ctx.q_list[0], ctx.q_list[1])
-    err = dec(_ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(sc), _ptr(tw2),
-              _ptr(rev32), _ptr(table2), *(_ptr(o) for o in outs), _ptr(m),
-              batch, p.logn, kc2.n_scalars, 1, ctx.q_list[0], ctx.q_list[1],
-              k["g0_mont"], k["g1_mont"], k["qinv0"], k["qinv1"],
-              *rns.crt2_inverses(ctx.q_list[0], ctx.q_list[1]),
-              (k["q_w"][0] << 32) | k["q_w"][1],
-              (k["half_w"][0] << 32) | k["half_w"][1])
+    _assert_same_planes(_k6_host(host_libs, client, c0, c1, sc, "f64"),
+                        want)
+
+
+# forced tile geometries (a, lc, lr of the NTT, then of the FFT): uneven
+# splits both ways, several tiles per pass, and one pass at an uneven split
+_SPLITS = {
+    "test": {"ntt3+7,fft3+6": (3, 2, 1, 3, 1, 1),
+             "ntt7+3,fft6+3": (7, 1, 2, 6, 2, 2),
+             "ntt5+5,fft5+4": (5, -1, -1, 5, -1, -1),
+             "single-ntt3+7,fft6+3": (3, 7, 3, 6, 3, 6)},
+    "tiny": {"ntt2+4,fft4+1": (2, 1, 0, 4, 0, 1),
+             "ntt4+2,fft1+4": (4, 0, 2, 1, 2, 0)},
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_reference(profile, datapath):
+    """A client, its K5 operands, and the plain K5 / K6 words on them (B=2;
+    K6 at per-row scales of the datapath)."""
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx, p = client.ctx, client.ctx.params
+    planes = _operands(client, 2, 25)
+    c0, c1 = client_stream.encode_encrypt_stream_plain(
+        planes, client.keys.pk.b_mont, client.keys.pk.a_mont, ctx,
+        client.seed, 77, datapath=datapath)
+    scale = (torch.full((2,), p.delta, dtype=torch.float32)
+             if datapath == "df32" else
+             torch.tensor([float(ctx.q_list[1]), p.delta * 0.75],
+                          dtype=torch.float64))
+    planes_out = client_stream.decrypt_decode_stream_plain(
+        c0[:, :2], c1[:, :2], client.keys.sk.s_mont, ctx, scale,
+        datapath=datapath)
+    return client, planes, (c0, c1), scale, planes_out
+
+
+@pytest.mark.parametrize("datapath", ["df32", "f64"])
+@pytest.mark.parametrize("profile,split", [
+    (prof, name) for prof, cases in _SPLITS.items() for name in cases])
+def test_host_build_forced_splits_match_plain(host_libs, profile, split,
+                                              datapath):
+    """K5 and K6 with forced tile geometries (several tiles per pass,
+    uneven splits, one pass at an uneven split), both datapaths, against
+    their plain versions."""
+    geo = _SPLITS[profile][split]
+    client, planes, (ref0, ref1), scale, want = _split_reference(profile,
+                                                                 datapath)
+    c0, c1 = _k5_host(host_libs, client, planes, 77, datapath, geo)
+    np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
+    np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
+    _assert_same_planes(_k6_host(host_libs, client, c0, c1, scale.numpy(),
+                                 datapath, geo), want)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile,geo", [
+    ("tiny", (3, 1, 1, 0)), ("tiny", (2, 0, 2, 1)), ("tiny", (4, 2, 0, 1)),
+    ("tiny", (1, 3, 1, 0)), ("tiny", (5, 1, 3, 1)),
+    ("test", (3, 2, 1, 0)), ("test", (7, 1, 2, 1)), ("test", (5, 5, 5, 0)),
+    ("test", (5, 3, 2, 1))])
+def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
+    """The tiled NTT / INTT block alone (a, lc, lr, brev) on random
+    residues of every limb, lines of odd and even stage counts (one-stage
+    lines at a = 1 and b = 1): the words of rt::ntt_fwd / ntt_inv (K1's
+    host build) and of the plain stage loops."""
+    ctx = get_context(profile)
+    L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
+    rng = np.random.default_rng(11)
+    x = np.ascontiguousarray(
+        _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2))
+    kc = common.stacked_kernel_consts(ctx.plans)
+    table = np.ascontiguousarray(kc.table)
+    loop = np.zeros_like(x)
+    assert host_libs["ntt_limbs_host"](_ptr(x), _ptr(loop), _ptr(table), L,
+                                       rows, kc.logn, kc.n_scalars,
+                                       int(inverse)) == 0
+    got, tw_heap = x.copy(), np.zeros((L, n), np.uint32)
+    err = host_libs["ntt_tiled_host"](
+        _ptr(got), _ptr(table), _ptr(tw_heap), L, rows,
+        kc.logn, kc.n_scalars, int(inverse), *geo)
     assert err == 0
-    for got, ref in zip(outs, want):
-        np.testing.assert_array_equal(got.view(np.uint32),
-                                      ref.numpy().view(np.uint32))
+    np.testing.assert_array_equal(got, loop)
+    want = ntt_butterfly.limb_rows_plain(torch.tensor(x.view(np.int32)),
+                                         ctx.plans, inverse)
+    np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
 
 
 def _rand_residues(ctx, shape, rng) -> np.ndarray:
