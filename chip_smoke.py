@@ -16,7 +16,12 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      intermediates of a staged round trip. K5 / K6 also on both datapaths
      at ``paper`` B=1 and ``n15`` B=2 (odd logN: an uneven tile split of
      their two-pass NTT / FFT), and on the f64 datapath at ``test`` B=16
-     and ``paper`` B=4, every row;
+     and ``paper`` B=4, every row. K1 (both directions) and K2 also on
+     random residues at the shapes the tiled NTT's planning reaches
+     (``STAGED_SHAPES``: ``paper`` B=1, the encrypted flow's ``boot``
+     (6, 1, 2^16) stack, ``n15`` B=2, ``server`` (one pass), K2 rows
+     across the 2^32 nonce wrap), K2 on the transposed plaintext view the
+     staged client passes and on its contiguous copy;
   4. drives both client paths at the ``paper`` profile (N=2^16, 24 limbs,
      Delta=2^55), B=16: ``encode_encrypt_batch`` -> ``truncated(2)`` ->
      ``decrypt_decode_batch``, first the default megakernel path, then
@@ -30,7 +35,9 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      idle share), then times every kernel at ``paper``, B=1 and B=16 (CUDA
      events around 5 calls queued behind a spin, so the card never waits
      on the host; after warm-up), and the plain versions at B=16; prints
-     the device kernels one K5 / K6 call launches, each with its time;
+     the device kernels one K5 / K6 / K1 / K2 call launches, each with its
+     time, and times K1 both ways at the flow's (6, 1, 2^16) stack beside
+     its bound and its plain version;
   6. the server op set (K7-K11): holds each of its nine kernel bodies
      against its plain version, bit for bit, on ciphertexts of the
      staged f64 client and keys of its ``make_evaluation_keys``:
@@ -187,11 +194,13 @@ def _seed_cols(p) -> int:
     return 3 + p.logn * (p.logn + 1)        # seed-table columns
 
 
-def _cost_ntt_limbs(p, rows: int, inverse: bool):
-    """(bytes, int32 ops, f32 ops) of K1 on (L, rows, N): logN * N/2
-    butterflies per (limb, row), N^-1 per coefficient (inverse), the
-    twiddles (N - 1 doublings) once per limb."""
-    n, logn, L = p.n, p.logn, p.n_limbs
+def _cost_ntt_limbs(p, rows: int, inverse: bool, n_limbs: int | None = None):
+    """(bytes, int32 ops, f32 ops) of K1 on (L, rows, N) (L = n_limbs, the
+    profile's limbs by default): logN * N/2 butterflies per (limb, row),
+    N^-1 per coefficient (inverse), the twiddles (N - 1 doublings) once per
+    limb."""
+    n, logn = p.n, p.logn
+    L = p.n_limbs if n_limbs is None else n_limbs
     per_row = logn * (n // 2) * I32_NTT_BUTTERFLY + (n * I32_REDC
                                                      if inverse else 0)
     i32 = L * rows * per_row + L * (n - 1) * I32_REDC
@@ -566,6 +575,77 @@ def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
     return x
 
 
+# K1 / K2 against their plain versions beyond CHECKS, at the shapes the
+# tiled NTT's planning reaches: (profile, K1 stack (L, rows) or None, K2
+# batch or None, K2 nonce base)
+STAGED_SHAPES = (
+    ("paper", (24, 1), 1, 123),       # B=1: the fewest blocks at N = 2^16
+    ("boot", (6, 1), None, 0),        # the flow's plaintext encoder
+    ("n15", (24, 2), 2, 123),         # odd logN: an uneven 8 + 7 split
+    ("server", (8, 2), 2, 123),       # N = 2^10: one pass
+    ("paper", None, 4, 0xFFFFFFFE),   # K2 rows across the nonce wrap
+)
+FLOW_K1_PROFILE, FLOW_K1_STACK = "boot", (6, 1)   # (L, rows) a flow call
+
+
+def _rand_words(ctx, shape, seed: int, dev):
+    """Random uint32 residues as int32 words on `dev`, limb axis 0."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q = np.asarray(ctx.q_list[:shape[0]], np.uint64).reshape(
+        (-1,) + (1,) * (len(shape) - 1))
+    w = (rng.integers(0, 1 << 32, shape, dtype=np.uint64) % q
+         ).astype(np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def _check_staged_shapes(dev, errs: dict) -> None:
+    """K1 (both directions) and K2 against their plain versions, bit for
+    bit, on random residues at STAGED_SHAPES; K2 on the (L, B, N) ->
+    (B, L, N) transposed view (as the staged client passes it) and on its
+    contiguous copy. The kernels' words do not depend on the key rows being
+    a real key, so K2 takes random ones."""
+    from repro_torch.core.context import get_context
+    from repro_torch.kernels import client_pointwise, ntt_butterfly
+    for i, (profile, stack, batch, nonce0) in enumerate(STAGED_SHAPES):
+        ctx = get_context(profile)
+        p = ctx.params
+        done = []
+        if stack is not None:
+            L, rows = stack
+            x = _rand_words(ctx, (L, rows, p.n), 60 + i, dev)
+            plans = ctx.plans[:L]
+            y = ntt_butterfly.limb_rows_cuda(x, plans, False)
+            at = f"its plain version at {profile} ({L}, {rows}, {p.n})"
+            _hold(errs, "ntt_limbs", y,
+                  ntt_butterfly.limb_rows_plain(x, plans, False), at)
+            back = ntt_butterfly.limb_rows_cuda(y, plans, True)
+            _hold(errs, "intt_limbs", back,
+                  ntt_butterfly.limb_rows_plain(y, plans, True), at)
+            _hold(errs, "intt_limbs", back, x,
+                  f"x: INTT(NTT(x)) at {profile} ({L}, {rows}, {p.n})")
+            done.append(f"K1 ({L}, {rows}, {p.n})")
+        if batch is not None:
+            L = p.n_limbs
+            by_limb = _rand_words(ctx, (L, batch, p.n), 70 + i, dev)
+            pt = by_limb.transpose(0, 1)              # (B, L, N) view
+            pkb, pka = (_rand_words(ctx, (L, p.n), 80 + i + k, dev)
+                        for k in (0, 1))
+            want = client_pointwise.encrypt_limbs_plain(
+                pt.contiguous(), pkb, pka, ctx, SEED, nonce0)
+            at = (f"its plain version at {profile} B={batch} nonce0 "
+                  f"{nonce0:#x}")
+            _hold(errs, "encrypt_limbs", client_pointwise.encrypt_limbs_cuda(
+                pt, pkb, pka, ctx, SEED, nonce0), want, at + " (view)")
+            _hold(errs, "encrypt_limbs", client_pointwise.encrypt_limbs_cuda(
+                pt.contiguous(), pkb, pka, ctx, SEED, nonce0), want, at)
+            done.append(f"K2 B={batch} nonce0 {nonce0:#x} (view and "
+                        f"contiguous)")
+        print(f"kernel == plain (bit-identical), {profile}: "
+              f"{'; '.join(done)}", flush=True)
+
+
 def _profile_main_path(client, msgs, iters: int = 3) -> None:
     """Device time by CUDA kernel or copy and the device's busy share over
     a window of `iters` main-path round trips (torch.profiler / CUPTI)."""
@@ -621,8 +701,10 @@ def _device_kernels(fn, calls: int = 3) -> dict | None:
     """{device kernel name: (launches, device ms)} per call of `fn`, from
     `calls` calls under torch.profiler after one warm-up call: the kernels
     one entry point launches, each under its own name. A window the
-    profiler returns empty is taken again, twice at most; None if it stays
-    empty (not measured)."""
+    profiler returns empty, or with a kernel seen a number of times that
+    is not a multiple of `calls` (records dropped), is taken again, twice
+    at most; None if it stays empty (not measured), the last window if it
+    stays partial."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -648,9 +730,9 @@ def _device_kernels(fn, calls: int = 3) -> dict | None:
             name = m.group(1) if m else ev.key[:60]
             n = ev.count / calls
             out[name] = (int(n) if n == int(n) else n, dev_us / 1e3 / calls)
-        if out:
+        if out and all(isinstance(n, int) for n, _ in out.values()):
             return out
-    return None
+    return out or None
 
 
 def _print_device_kernels(name: str, what: str, kernels: dict | None,
@@ -1623,6 +1705,7 @@ def main() -> int:
               f"{profile} B={batch}", flush=True)
     mega_errs = {}
     _check_megakernels(dev, mega_errs)
+    _check_staged_shapes(dev, errs)
 
     # --- 4. the main paths at paper, B=16 ---------------------------------
     import numpy as np
@@ -1699,6 +1782,16 @@ def main() -> int:
     _f64_server_phase(server_out, dev)
 
     # --- 5. times -------------------------------------------------------------
+    def device_kernels(by_name: dict | None) -> dict:
+        """the device kernels of one entry call, for a K5 / K6 / K1 / K2
+        entry (None where the profiler saw none: not measured)"""
+        if by_name is None:
+            return {"device_kernels": None, "device_kernels_by_name": None}
+        return {"device_kernels": sum(n for n, _ in by_name.values()),
+                "device_kernels_by_name": {
+                    k: {"launches": n, "ms": ms}
+                    for k, (n, ms) in by_name.items()}}
+
     p = mc.ctx.params
     ctx = mc.ctx
     plans = ctx.plans[:p.n_limbs]
@@ -1761,10 +1854,38 @@ def main() -> int:
             if batch == MAIN_BATCH:
                 times[name + "_plain", batch] = _cuda_ms(plain_fn, iters=1,
                                                          warmup=1)
-        for name in ("encode_encrypt_stream", "decrypt_decode_stream"):
+        for name in ("encode_encrypt_stream", "decrypt_decode_stream",
+                     "ntt_limbs", "intt_limbs", "encrypt_limbs"):
             dkernels[name, batch] = _device_kernels(calls[name][0])
             _print_device_kernels(name, f"{MAIN_PROFILE} B={batch}",
                                   dkernels[name, batch], card)
+    # K1 at the shape of the encrypted flow's plaintext encoder, where most
+    # of its launches run: (6, 1, 2^16) at boot, both directions
+    from repro_torch.core.context import get_context
+    fctx = get_context(FLOW_K1_PROFILE)
+    fp = fctx.params
+    L, rows = FLOW_K1_STACK
+    xf = _rand_words(fctx, (L, rows, fp.n), 90, dev)
+    flow_k1 = {}
+    for name, inverse in (("ntt_limbs", False), ("intt_limbs", True)):
+        fn = lambda i=inverse: ntt_butterfly.limb_rows_cuda(  # noqa: E731
+            xf, fctx.plans[:L], i)
+        ms = _device_ms(fn, iters=5)
+        plain_ms = _cuda_ms(lambda i=inverse: ntt_butterfly.limb_rows_plain(
+            xf, fctx.plans[:L], i), iters=1, warmup=1)
+        bound = _bound_ms(*_cost_ntt_limbs(fp, rows, inverse, L))
+        by_name = _device_kernels(fn)
+        flow_k1[name] = {"shape": f"{FLOW_K1_PROFILE} ({L}, {rows}, {fp.n})",
+                         "launches_in_flow":
+                             flow_launches[FLOW_K1_PROFILE][name],
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         **device_kernels(by_name)}
+        print(f"time: {name} {FLOW_K1_PROFILE} ({L}, {rows}, {fp.n}) (the "
+              f"flow's encoder): {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})  [{card}]", flush=True)
+        _print_device_kernels(name, f"{FLOW_K1_PROFILE} ({L}, {rows}, "
+                              f"{fp.n})", by_name, card)
     for (what, batch), ms in sorted(times.items(), key=str):
         b = bounds.get((what, batch))
         bound = f", bound {b[0]:.4f} ms ({b[1]})" if b else ""
@@ -1782,15 +1903,10 @@ def main() -> int:
                 "plain_ms": times[name + "_plain", MAIN_BATCH],
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    def device_kernels(by_name: dict | None) -> dict:
-        """the device kernels of one entry call, for a K5 / K6 entry (None
-        where the profiler saw none: not measured)"""
-        if by_name is None:
-            return {"device_kernels": None, "device_kernels_by_name": None}
-        return {"device_kernels": sum(n for n, _ in by_name.values()),
-                "device_kernels_by_name": {
-                    k: {"launches": n, "ms": ms}
-                    for k, (n, ms) in by_name.items()}}
+    def at_batch_1(e: dict) -> None:
+        e["at_batch_1"] = {"ms": times[e["name"], 1],
+                           "bound_ms": bounds[e["name"], 1][0],
+                           "bound_by": bounds[e["name"], 1][1]}
 
     kernels = [
         entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
@@ -1800,9 +1916,7 @@ def main() -> int:
     ]
     for k in kernels:
         k.update(device_kernels(dkernels[k["name"], MAIN_BATCH]))
-        k["at_batch_1"] = {"ms": times[k["name"], 1],
-                           "bound_ms": bounds[k["name"], 1][0],
-                           "bound_by": bounds[k["name"], 1][1]}
+        at_batch_1(k)
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),
                      ("special_fft", "special_ifft")):
@@ -1815,6 +1929,14 @@ def main() -> int:
                                           inv: staged_launches[inv]}
             k["inverse"] = entry(inv, *STAGED[inv], staged_launches[inv])
             del k["inverse"]["launches"]
+        for e in (k, k.get("inverse")):
+            if e is None:
+                continue
+            at_batch_1(e)
+            if (e["name"], MAIN_BATCH) in dkernels:
+                e.update(device_kernels(dkernels[e["name"], MAIN_BATCH]))
+            if e["name"] in flow_k1:
+                e["at_flow_shape"] = flow_k1[e["name"]]
         kernels.append(k)
     for name, (id_, replaces) in SERVER.items():
         ms, plain_ms, bound = server_times[name, 6]

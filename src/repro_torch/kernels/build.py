@@ -48,9 +48,11 @@ ENTRY_POINTS = {
         "decrypt_decode.cu",
         [_P, _P, ctypes.c_longlong] + [_P] * 11 + [_I32] * 4 + [_U32] * 8
         + [ctypes.c_ulonglong] * 2 + [_P]),
-    "ntt_limbs_launch": ("ntt_limbs.cu", [_P] * 3 + [_I32] * 5 + [_P]),
+    "ntt_limbs_launch": ("ntt_limbs.cu", [_P] * 4 + [_I32] * 5 + [_P]),
     "encrypt_limbs_launch": (
-        "client_pointwise.cu", [_P] * 7 + [_I32] * 4 + [_U32] * 5 + [_P]),
+        "client_pointwise.cu",
+        [_P, ctypes.c_longlong, ctypes.c_longlong] + [_P] * 8 + [_I32] * 4
+        + [_U32] * 5 + [_P]),
     "decrypt_limbs_launch": (
         "client_pointwise.cu",
         [_P, _P, ctypes.c_longlong] + [_P] * 3 + [_I32] * 4 + [_P]),
@@ -77,7 +79,8 @@ ENTRY_POINTS = {
 }
 
 # headers every source includes (a change rebuilds every library)
-HEADERS = ("client_common.cuh", "server_common.cuh", "ntt_tiled.cuh")
+HEADERS = ("client_common.cuh", "server_common.cuh", "ntt_tiled.cuh",
+           "encrypt_tiled.cuh")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -8,7 +8,8 @@ Port of ``repro.kernels.client_pointwise``:
     the per-limb encrypt and decrypt stages (int64 tensors holding uint32
     values);
   * ``encrypt_limbs_cuda`` launches ``csrc/client_pointwise.cu``'s K2
-    (replaces the TPU kernel ``_encrypt_kernel_folded``),
+    (replaces the TPU kernel ``_encrypt_kernel_folded``; K5's encrypt body
+    on the tiled NTT block, reading pt through its strides),
     ``decrypt_limbs_cuda`` its K3 (replaces ``_decrypt_kernel_folded``);
     ``encrypt_limbs_plain`` / ``decrypt_limbs_plain`` are the same
     functions composed from the stages, limb by limb. Both take and return
@@ -135,24 +136,34 @@ def encrypt_limbs_plain(pt, b_mont, a_mont, ctx, seed: int, nonce0: int):
 
 def encrypt_limbs_cuda(pt, b_mont, a_mont, ctx, seed: int, nonce0: int):
     """CUDA launch of K2; same inputs and outputs as
-    ``encrypt_limbs_plain``."""
+    ``encrypt_limbs_plain``. pt may be any (B, L, N) view whose (row, limb)
+    rows are contiguous (the (L, B, N) -> (B, L, N) transpose): the kernel
+    reads it through its row and limb strides. c0 / c1 are contiguous."""
     dev = pt.device
     if dev.type != "cuda":
         raise ValueError("encrypt_limbs_cuda needs CUDA tensors")
+    if pt.dim() != 3:
+        raise ValueError(f"pt must be (B, L, N), got {tuple(pt.shape)}")
     batch, n_limbs, n = pt.shape
-    common.check_tensor(pt, "pt", torch.int32, (batch, n_limbs, n), dev)
+    if pt.dtype != torch.int32:
+        raise TypeError(f"pt has dtype {pt.dtype}, expected torch.int32")
+    if pt.stride(2) != 1:
+        raise ValueError("pt: each (row, limb)'s N words must be contiguous")
     common.check_grid_rows(batch)
     common.check_key_rows(b_mont, "b_mont", n_limbs, n, dev)
     common.check_key_rows(a_mont, "a_mont", n_limbs, n, dev)
     kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
-    c0 = torch.empty_like(pt)
-    c1 = torch.empty_like(pt)
-    v_scratch = torch.empty_like(pt)
-    common.launch("encrypt_limbs_launch", dev, pt.data_ptr(),
-                  b_mont.data_ptr(), a_mont.data_ptr(),
+    c0, c1, v_scratch = (
+        torch.empty((batch, n_limbs, n), dtype=torch.int32, device=dev)
+        for _ in range(3))
+    tw_heap = torch.empty((n_limbs, n), dtype=torch.int32, device=dev)
+    noise = torch.empty((batch, 3, n), dtype=torch.int8, device=dev)
+    common.launch("encrypt_limbs_launch", dev, pt.data_ptr(), pt.stride(0),
+                  pt.stride(1), b_mont.data_ptr(), a_mont.data_ptr(),
                   common.device_seed_table(kc, dev).data_ptr(),
-                  c0.data_ptr(), c1.data_ptr(), v_scratch.data_ptr(), batch,
-                  n_limbs, kc.logn, kc.n_scalars, *prng.seed_words(seed),
+                  c0.data_ptr(), c1.data_ptr(), v_scratch.data_ptr(),
+                  tw_heap.data_ptr(), noise.data_ptr(), batch, n_limbs,
+                  kc.logn, kc.n_scalars, *prng.seed_words(seed),
                   int(nonce0) & MASK32)
     LAUNCHES["encrypt_limbs"] += 1
     return c0, c1

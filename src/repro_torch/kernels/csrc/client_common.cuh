@@ -673,22 +673,20 @@ RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
 // (limb, row) block bodies shared by the staged kernels and the megakernels
 // ---------------------------------------------------------------------------
 
-// One encrypt block (K2 and K13a client_pointwise.cu, K5 phase 2; K13a
-// under the shift-add REDC): the row's (v, e0,
+// One encrypt block (K13a, client_pointwise.cu, under the shift-add REDC;
+// K2 and K5 run the tiled encrypt of encrypt_tiled.cuh): the row's (v, e0,
 // e1) from Philox under `nonce` (the streams do not depend on the limb),
-// mapped to residues, one NTT stage loop over them (and over pt when
-// pt_coeff: K5 hands in its plaintext in the coefficient domain, K2 in the
-// NTT domain), then c0 = (v*b + e0) + pt and c1 = v*a + e1
+// mapped to residues, one NTT stage loop over them, then
+// c0 = (v*b + e0) + pt and c1 = v*a + e1, pt in the NTT domain
 // (client_pointwise.encrypt_limb_stage). e0 and e1 are transformed in the
 // c0 / c1 output rows, v in a scratch row.
 struct EncLimb {
   uint32_t *c0, *c1;         // (N) output rows
   uint32_t *v;               // (N) scratch row
-  uint32_t *pt;              // (N) plaintext row (read only unless pt_coeff)
+  const uint32_t *pt;        // (N) plaintext row, NTT domain
   const uint32_t *pkb, *pka; // (N) public-key rows, Montgomery form
   const uint32_t *trow;      // this limb's (K,) seed-table row
   int logn;
-  bool pt_coeff;
   uint32_t nonce;
   Seed seed;
 };
@@ -712,8 +710,8 @@ RT_FN void encrypt_limb_block(const EncLimb &e, const Red &red,
                          q);
   }
   RT_SYNC();
-  Rows rows = {{e.v, e.c0, e.c1, e.pt}};
-  ntt_fwd(rows, e.pt_coeff ? 4 : 3, e.logn, e.trow, red, tw);
+  Rows rows = {{e.v, e.c0, e.c1, nullptr}};
+  ntt_fwd(rows, 3, e.logn, e.trow, red, tw);
   for (int i = RT_TID; i < n; i += RT_NT) {
     const uint32_t vh = e.v[i];
     const uint32_t c0 =
@@ -722,10 +720,6 @@ RT_FN void encrypt_limb_block(const EncLimb &e, const Red &red,
     e.c0[i] = c0;
     e.c1[i] = c1;
   }
-}
-
-RT_FN void encrypt_limb_block(const EncLimb &e, uint32_t *tw) {
-  encrypt_limb_block(e, mont_redc(e.trow), tw);
 }
 
 // One decrypt block (K3 and K13b client_pointwise.cu, K6 phase 1): m =

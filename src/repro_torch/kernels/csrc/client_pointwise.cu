@@ -4,62 +4,76 @@
 // K2 replaces the TPU kernel src/repro/kernels/client_pointwise.py
 // :_encrypt_kernel_folded (encrypt_limbs): for every (limb, row) of a
 // (B, L, N) NTT-domain plaintext, Philox (v, e0, e1) keyed by
-// (seed, nonce0 + row) (the sum wraps mod 2^32), residues, one NTT stage
-// loop over the three rows, c0 = (v*b + e0) + pt and c1 = v*a + e1.
+// (seed, nonce0 + row) (the sum wraps mod 2^32), residues, the NTT of the
+// three, c0 = (v*b + e0) + pt and c1 = v*a + e1.
 // K3 replaces :_decrypt_kernel_folded (decrypt_limbs): m = INTT(c0 + c1*s)
 // for every (limb, row) of a (B, L_dec, N) ciphertext view.
 // Output words are bit-identical to the plain versions
 // (client_pointwise.encrypt_limbs_plain / decrypt_limbs_plain) and to the
 // JAX reference.
 //
-// Grids: K2 (L, B), K3 (L_dec, B); one block per (limb, row) runs the
-// block body it shares with the megakernels (rt::encrypt_limb_block with
-// K5, rt::decrypt_limb_block with K6). K2 transforms e0 and e1 in place in
-// the c0 / c1 output rows and v in a (B, L, N) scratch. K3 reads rows of
-// any stride (the 2-limb view of a (B, L, N) batch) and writes (B, L_dec,
-// N). The reference's batch block (_batch_block) only bounds a TPU grid
-// step's working set and changes no output; the grid here is always one
-// block per (limb, row).
+// K2 runs the encrypt body of K5 on the tiled NTT block
+// (encrypt_tiled.cuh), with the plaintext entering c0 in the chunk store
+// (PtNtt) instead of e0 in the column load: one entry call launches the
+// prologue (forward twiddle heaps (L, N), the noise (B, 3, N) as int8,
+// drawn once per row, not once per limb), then on rows above one tile the
+// column pass, grid (L, 3 x tiles, B), one polynomial per block (NTT(v)
+// into a (B, L, N) scratch, NTT(e0) / NTT(e1) into the c0 / c1 rows), and
+// the chunk pass, grid (B, tiles, L), which finishes all three and writes
+// c0 and c1; rows that fit one tile (logn <= 11) take one pass, a block
+// per (limb, row). pt is read through its row and limb strides (the
+// (L, B, N) -> (B, L, N) transpose of the staged client needs no copy).
+// K3: grid (L_dec, B), one block per (limb, row) runs the one-row block
+// body rt::decrypt_limb_block (client_common.cuh); it reads rows of any
+// stride (the 2-limb view of a (B, L, N) batch) and writes (B, L_dec, N).
+// The reference's batch block (_batch_block) only bounds a TPU grid step's
+// working set and changes no output.
 //
 // K13a replaces :_encrypt_kernel (encrypt_limb) and K13b :_decrypt_kernel
-// (decrypt_limb): the same block bodies for ONE limb of a (B, N) batch,
-// grid (B,), one launch per limb as in the reference, with the shift-add
-// REDC of paper eq. 9-11 (rt::SaRedc; the reference bakes the prime's
-// k-terms into each compiled kernel, here they come from a row of
-// common.sa_table). Row b encrypts under nonce0 + b (mod 2^32). Their words
-// equal K2's / K3's on that limb and the plain versions
-// (client_pointwise.encrypt_limb_plain / decrypt_limb_plain).
+// (decrypt_limb): the one-row block bodies rt::encrypt_limb_block /
+// rt::decrypt_limb_block for ONE limb of a (B, N) batch, grid (B,), one
+// launch per limb as in the reference, with the shift-add REDC of paper
+// eq. 9-11 (rt::SaRedc; the reference bakes the prime's k-terms into each
+// compiled kernel, here they come from a row of common.sa_table). Row b
+// encrypts under nonce0 + b (mod 2^32). Their words equal K2's / K3's on
+// that limb and the plain versions (client_pointwise.encrypt_limb_plain /
+// decrypt_limb_plain).
 //
 // What bounds them on an H100: K2 writes 8 bytes per (row, limb,
 // coefficient) but needs three 16-stage NTTs and five Philox-10 words per
-// coefficient; K3 one INTT per (row, limb): operations, not bytes. As in
-// the megakernels, the NTT rows (256 KB at N = 2^16) stream through global
-// memory with a barrier per stage; only a stage's twiddles sit in shared
-// memory.
-#include "client_common.cuh"
+// coefficient; K3 one INTT per (row, limb): operations, not bytes. K2's
+// tiled passes keep its butterflies in shared memory (two stages per
+// barrier, four points a thread in registers; a row crosses device memory
+// twice). K3 and K13 still stream their NTT rows (256 KB at N = 2^16)
+// through global memory with a barrier per stage; only a stage's twiddles
+// sit in shared memory. Times against the bounds: PERF.md §6.
+#include "encrypt_tiled.cuh"
 
 namespace {
 
-struct EncArgs {
-  const uint32_t *pt;          // (B, L, N) NTT domain
-  const uint32_t *pk_b, *pk_a; // (>=L, N) Montgomery form
-  const uint32_t *table;       // (L, K) seed table
-  uint32_t *c0, *c1;           // (B, L, N)
-  uint32_t *v;                 // (B, L, N) scratch
-  int n_limbs, logn, n_scalars;
-  rt::Seed seed;
-  uint32_t nonce0;
+// The plaintext of K2: NTT-domain words (B, L, N) of any row and limb
+// stride, joined to c0 in the chunk store (encrypt_tiled.cuh).
+struct PtNtt {
+  static constexpr bool kLoad = false, kStore = true;
+  const uint32_t *pt;
+  long long row_stride, limb_stride;
+  struct Row {
+    const uint32_t *w;
+    RT_METHOD uint32_t store(int p) const { return w[p]; }
+  };
+  RT_METHOD Row row(int l, int b, int) const {
+    return Row{pt + b * row_stride + l * limb_stride};
+  }
 };
 
-RT_BODY void encrypt_limb(const EncArgs &a, int l, int b, uint32_t *tw) {
-  const int n = 1 << a.logn;
-  const size_t off = ((size_t)b * a.n_limbs + l) * n;
-  rt::EncLimb e = {a.c0 + off, a.c1 + off, a.v + off,
-                   const_cast<uint32_t *>(a.pt + off),  // read only
-                   a.pk_b + (size_t)l * n, a.pk_a + (size_t)l * n,
-                   a.table + (size_t)l * a.n_scalars, a.logn, false,
-                   a.nonce0 + (uint32_t)b, a.seed};
-  rt::encrypt_limb_block(e, tw);
+rt::tiled::EncNtt enc_ntt(const uint32_t *pk_b, const uint32_t *pk_a,
+                          const uint32_t *table, uint32_t *c0, uint32_t *c1,
+                          uint32_t *vhat, uint32_t *ntt_tw, int8_t *noise,
+                          int batch, int n_limbs, int logn, int n_scalars,
+                          uint32_t seed0, uint32_t seed1, uint32_t seed2,
+                          uint32_t seed3, uint32_t nonce0) {
+  return {table, pk_b, pk_a, c0, c1, ntt_tw, noise, vhat, batch, n_limbs,
+          logn, n_scalars, {seed0, seed1, seed2, seed3}, nonce0, {}};
 }
 
 struct DecArgs {
@@ -94,10 +108,9 @@ struct EncOneArgs {
 
 RT_BODY void encrypt_one_limb(const EncOneArgs &a, int b, uint32_t *tw) {
   const size_t off = (size_t)b << a.logn;
-  rt::EncLimb e = {a.c0 + off, a.c1 + off, a.v + off,
-                   const_cast<uint32_t *>(a.pt + off),  // read only
-                   a.pk_b, a.pk_a, a.trow, a.logn, false,
-                   a.nonce0 + (uint32_t)b, a.seed};
+  rt::EncLimb e = {a.c0 + off, a.c1 + off, a.v + off, a.pt + off,
+                   a.pk_b, a.pk_a, a.trow, a.logn, a.nonce0 + (uint32_t)b,
+                   a.seed};
   rt::encrypt_limb_block(e, rt::sa_redc(a.sa), tw);
 }
 
@@ -118,14 +131,22 @@ RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
 
 }  // namespace
 
+// K2's entry arguments (the host entry adds the tile geometry)
+#define ENC_PARAMS                                                          \
+  const uint32_t *pt, long long pt_row_stride, long long pt_limb_stride,    \
+      const uint32_t *pk_b, const uint32_t *pk_a, const uint32_t *table,    \
+      uint32_t *c0, uint32_t *c1, uint32_t *v_scratch, uint32_t *ntt_tw,    \
+      int8_t *noise, int batch, int n_limbs, int logn, int n_scalars,       \
+      uint32_t seed0, uint32_t seed1, uint32_t seed2, uint32_t seed3,       \
+      uint32_t nonce0
+#define ENC_NTT                                                             \
+  enc_ntt(pk_b, pk_a, table, c0, c1, v_scratch, ntt_tw, noise, batch,       \
+          n_limbs, logn, n_scalars, seed0, seed1, seed2, seed3, nonce0)
+#define ENC_PT PtNtt{pt, pt_row_stride, pt_limb_stride}
+
 #if defined(__CUDACC__)
 
 namespace {
-
-__global__ void __launch_bounds__(1024) encrypt_folded_kernel(EncArgs a) {
-  extern __shared__ uint32_t tw_smem[];
-  encrypt_limb(a, blockIdx.x, blockIdx.y, tw_smem);
-}
 
 __global__ void __launch_bounds__(1024) decrypt_folded_kernel(DecArgs a) {
   extern __shared__ uint32_t tw_smem[];
@@ -144,22 +165,15 @@ __global__ void __launch_bounds__(1024) decrypt_limb_kernel(DecOneArgs a) {
 
 }  // namespace
 
-extern "C" int encrypt_limbs_launch(
-    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
-    const uint32_t *table, uint32_t *c0, uint32_t *c1, uint32_t *v_scratch,
-    int batch, int n_limbs, int logn, int n_scalars, uint32_t seed0,
-    uint32_t seed1, uint32_t seed2, uint32_t seed3, uint32_t nonce0,
-    void *stream) {
-  EncArgs a = {pt, pk_b, pk_a, table, c0, c1, v_scratch, n_limbs, logn,
-               n_scalars, {seed0, seed1, seed2, seed3}, nonce0};
-  const size_t smem = sizeof(uint32_t) << (logn - 1);  // one stage's twiddles
-  static rt::SmemAllowance allowance;
-  cudaError_t err =
-      rt::allow_dynamic_smem(encrypt_folded_kernel, smem, allowance);
+extern "C" int encrypt_limbs_launch(ENC_PARAMS, void *stream) {
+  using namespace rt::tiled;
+  EncNtt a = ENC_NTT;
+  a.g = enc_ntt_geo(logn, -1, -1, -1, batch, n_limbs);
+  if (!geo_valid(a.g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = enc_prologue_launch(a, s);
   if (err != cudaSuccess) return (int)err;
-  encrypt_folded_kernel<<<dim3(n_limbs, batch), 1024, smem,
-                          (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)enc_ntt_launch(a, ENC_PT, s);
 }
 
 extern "C" int decrypt_limbs_launch(const uint32_t *c0, const uint32_t *c1,
@@ -215,16 +229,15 @@ extern "C" int decrypt_limb_launch(const uint32_t *c0, const uint32_t *c1,
 
 #include <vector>
 
-extern "C" int encrypt_limbs_host(
-    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
-    const uint32_t *table, uint32_t *c0, uint32_t *c1, uint32_t *v_scratch,
-    int batch, int n_limbs, int logn, int n_scalars, uint32_t seed0,
-    uint32_t seed1, uint32_t seed2, uint32_t seed3, uint32_t nonce0) {
-  EncArgs a = {pt, pk_b, pk_a, table, c0, c1, v_scratch, n_limbs, logn,
-               n_scalars, {seed0, seed1, seed2, seed3}, nonce0};
-  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
-  for (int b = 0; b < batch; ++b)
-    for (int l = 0; l < n_limbs; ++l) encrypt_limb(a, l, b, tw_smem.data());
+// The host entry takes the tile geometry too, so that tests can force
+// splits and tile sizes (-1: the CUDA entry's plan).
+extern "C" int encrypt_limbs_host(ENC_PARAMS, int ga, int lc, int lr) {
+  using namespace rt::tiled;
+  EncNtt a = ENC_NTT;
+  a.g = enc_ntt_geo(logn, ga, lc, lr, batch, n_limbs);
+  if (!geo_valid(a.g)) return 1;
+  enc_prologue_host(a);
+  enc_ntt_host(a, ENC_PT);
   return 0;
 }
 

@@ -254,20 +254,6 @@ __global__ void __launch_bounds__(kThreads) dec_fft_cols_kernel(DecArgs a) {
                                     fft_cols_smem);
 }
 
-// launch one pass, its dynamic shared memory allowed first where above
-// the default 48 KB (one allowance per kernel)
-template <typename Kernel>
-cudaError_t launch_pass(Kernel kernel, dim3 grid, size_t smem,
-                        cudaStream_t s, const DecArgs &a) {
-  static rt::SmemAllowance allow;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = rt::allow_dynamic_smem(kernel, smem, allow);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int decrypt_decode_stream_launch(DEC_PARAMS, void *stream) {
@@ -281,28 +267,32 @@ extern "C" int decrypt_decode_stream_launch(DEC_PARAMS, void *stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  static rt::SmemAllowance allow[6];  // one per kernel
   const size_t w4 = sizeof(uint32_t);
   if (single_pass(a.ng)) {
-    err = launch_pass(dec_ntt_row_kernel, dim3(2, 1, batch), w4 << logn, s,
-                      a);
+    err = launch_pass(dec_ntt_row_kernel, allow[0], dim3(2, 1, batch),
+                      kThreads, w4 << logn, s, a);
   } else {
-    err = launch_pass(dec_ntt_chunks_kernel,
-                      dim3(2, chunk_tiles(a.ng), batch),
+    err = launch_pass(dec_ntt_chunks_kernel, allow[1],
+                      dim3(2, chunk_tiles(a.ng), batch), kThreads,
                       w4 * chunk_points(a.ng), s, a);
     if (err == cudaSuccess)
-      err = launch_pass(dec_ntt_cols_kernel, dim3(2, col_tiles(a.ng), batch),
+      err = launch_pass(dec_ntt_cols_kernel, allow[2],
+                        dim3(2, col_tiles(a.ng), batch), kThreads,
                         w4 * col_points(a.ng), s, a);
   }
   if (err != cudaSuccess) return (int)err;
 
   const size_t f4 = 4 * sizeof(float);
   if (single_pass(a.fg))
-    return (int)launch_pass(dec_fft_row_kernel, dim3(1, batch),
-                            f4 << a.fg.logn, s, a);
-  err = launch_pass(dec_fft_chunks_kernel, dim3(chunk_tiles(a.fg), batch),
+    return (int)launch_pass(dec_fft_row_kernel, allow[3], dim3(1, batch),
+                            kThreads, f4 << a.fg.logn, s, a);
+  err = launch_pass(dec_fft_chunks_kernel, allow[4],
+                    dim3(chunk_tiles(a.fg), batch), kThreads,
                     f4 * chunk_points(a.fg), s, a);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_pass(dec_fft_cols_kernel, dim3(col_tiles(a.fg), batch),
+  return (int)launch_pass(dec_fft_cols_kernel, allow[5],
+                          dim3(col_tiles(a.fg), batch), kThreads,
                           f4 * col_points(a.fg), s, a);
 }
 

@@ -14,19 +14,19 @@
 // The reference bakes q and the k-terms into each compiled kernel. Here
 // they are launch data: one row of common.sa_table (q, p_bw, n+1, up to
 // three signed k-term exponents), so one build serves every prime, and the
-// stage loop is K1's (rt::ntt_fwd / rt::ntt_inv of client_common.cuh)
-// under the SaRedc policy instead of MontRedc. Grid (rows,): one block per
-// row copies it into the output and transforms it in place; each stage's
-// twiddles are doubled from the prime's seed-table row into dynamic shared
-// memory (at most N/2 words: 128 KB at N = 2^16).
+// stage loop is the one-row loop of client_common.cuh (rt::ntt_fwd /
+// rt::ntt_inv, as K3's) under the SaRedc policy instead of MontRedc.
+// Grid (rows,): one block per row copies it into the output and transforms
+// it in place; each stage's twiddles are doubled from the prime's
+// seed-table row into dynamic shared memory (at most N/2 words: 128 KB at
+// N = 2^16).
 //
 // What bounds it on an H100: logN * N/2 butterflies per row, each one
 // shift-add REDC (one 32x32 product, the rest shifts and adds: more
 // integer instructions than MontRedc's three products) plus addmod and
 // submod, against 8 bytes of row traffic per coefficient: operations, not
-// bytes. As in K1, a 256 KB row does not fit shared memory, so every stage
-// reads and writes the row in global memory with a block barrier between
-// stages.
+// bytes. The loop keeps the 256 KB row in global memory, so every stage
+// reads and writes it there with a block barrier between stages.
 #include "client_common.cuh"
 
 namespace {

@@ -1,5 +1,7 @@
 // The tiled two-pass NTT / INTT and df32 SpecialFFT / IFFT of the client
-// megakernels (encode_encrypt.cu, decrypt_decode.cu).
+// megakernels (encode_encrypt.cu, decrypt_decode.cu), of the limb-folded
+// NTT / INTT K1 (ntt_limbs.cu) and, through encrypt_tiled.cuh, of the
+// folded encrypt K2 (client_pointwise.cu).
 //
 // A row of 2^logn points is viewed as a 2^a x 2^b matrix, a + b = logn,
 // point p at row p >> b, column p & (2^b - 1). The butterflies of a
@@ -433,6 +435,23 @@ inline bool geo_valid(const Geo &g) {
   return g.logn >= 2 && g.a >= 1 && b >= 1 && g.lc >= 0 && g.lc <= b &&
          g.lr >= 0 && g.lr <= g.a;
 }
+
+#if defined(__CUDACC__)
+// Launch one pass of `threads` threads a block with `smem` bytes of dynamic
+// shared memory, allowed first where above the default 48 KB. `allow`
+// records what was allowed for this kernel: one SmemAllowance per kernel.
+template <typename Kernel, typename... Args>
+inline cudaError_t launch_pass(Kernel kernel, SmemAllowance &allow,
+                               dim3 grid, int threads, size_t smem,
+                               cudaStream_t s, const Args &...args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_dynamic_smem(kernel, smem, allow);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+#endif
 
 }  // namespace tiled
 }  // namespace rt

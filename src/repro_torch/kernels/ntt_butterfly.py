@@ -8,8 +8,10 @@ limb l transformed with prime l's constants from the (L, K) seed table.
 Forward: natural order in, bit-reversed out; inverse: bit-reversed in,
 natural order out, N^-1 folded in.
 
-  * ``limb_rows_cuda`` launches ``csrc/ntt_limbs.cu`` (grid (L, rows), one
-    block per row) and counts its launches in ``LAUNCHES``;
+  * ``limb_rows_cuda`` launches ``csrc/ntt_limbs.cu`` (a twiddle-heap
+    prologue, then the tiled NTT block: one pass, a block per (limb, row),
+    for N <= 2^11, else a column and a chunk pass) and counts its launches
+    in ``LAUNCHES``;
   * ``limb_rows_plain`` runs ``common.ntt_stages_t`` / ``intt_stages_t``
     limb by limb, the schedule the kernel follows.
 
@@ -57,13 +59,16 @@ def limb_rows_cuda(x: torch.Tensor, plans, inverse: bool) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError("limb_rows_cuda needs a CUDA tensor")
     kc = common.stacked_kernel_consts(plans)
+    if x.dim() != 3 or x.shape[1] == 0:
+        raise ValueError(f"x must be (L, rows >= 1, N), got {tuple(x.shape)}")
     L, rows, n = x.shape
     common.check_tensor(x, "x", torch.int32, (kc.n_limbs, rows, kc.n), dev)
-    common.check_grid_rows(rows)
     out = torch.empty_like(x)
+    tw_heap = torch.empty((L, n), dtype=torch.int32, device=dev)
     common.launch("ntt_limbs_launch", dev, x.data_ptr(), out.data_ptr(),
-                  common.device_seed_table(kc, dev).data_ptr(), L, rows,
-                  kc.logn, kc.n_scalars, int(inverse))
+                  common.device_seed_table(kc, dev).data_ptr(),
+                  tw_heap.data_ptr(), L, rows, kc.logn, kc.n_scalars,
+                  int(inverse))
     LAUNCHES["intt_limbs" if inverse else "ntt_limbs"] += 1
     return out
 

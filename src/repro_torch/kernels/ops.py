@@ -134,10 +134,13 @@ def encrypt_fused(pt_data, pk_b_mont, pk_a_mont, ctx: CKKSContext,
     seed = ctx.params.seed if seed is None else seed
     squeeze = pt_data.dim() == 2
     pt = pt_data[None] if squeeze else pt_data
-    f = (client_pointwise.encrypt_limbs_cuda
-         if common.route(pt.device) == "cuda"
-         else client_pointwise.encrypt_limbs_plain)
-    c0, c1 = f(pt.contiguous(), pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+    if common.route(pt.device) == "cuda":
+        # K2 reads a strided view (the staged client's transpose) in place
+        c0, c1 = client_pointwise.encrypt_limbs_cuda(
+            pt, pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+    else:
+        c0, c1 = client_pointwise.encrypt_limbs_plain(
+            pt.contiguous(), pk_b_mont, pk_a_mont, ctx, seed, nonce0)
     if squeeze:
         return c0[0], c1[0]
     return c0, c1

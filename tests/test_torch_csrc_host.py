@@ -5,7 +5,8 @@ in code that also compiles as plain C++ (one thread per block, barriers as
 no-ops; every phase is race-free, so that build computes what the kernel
 computes). Here g++ builds every source that way (the megakernels
 ``encode_encrypt.cu`` / ``decrypt_decode.cu`` and the staged kernels
-``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu``, the server
+``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu`` (K1 and K2 also
+under forced tile geometries of the tiled NTT block), the server
 op set ``server_eval.cu``, and the per-prime kernels ``ntt_rows.cu`` (K12,
 the stage loop under the shift-add REDC), K13 in ``client_pointwise.cu``
 and the four-step ``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and
@@ -53,10 +54,11 @@ _HOST_ENTRIES = {
     "decrypt_decode_stream_host": (
         "decrypt_decode.cu", [_P, _P, _LL] + [_P] * 11 + [_I] * 4 + [_U] * 8
         + [ctypes.c_ulonglong] * 2 + [_I] * 6),
-    "ntt_tiled_host": ("encode_encrypt.cu", [_P] * 3 + [_I] * 9),
-    "ntt_limbs_host": ("ntt_limbs.cu", [_P] * 3 + [_I] * 5),
+    "ntt_limbs_host": ("ntt_limbs.cu", [_P] * 4 + [_I] * 9),
+    "ntt_limbs_loop_host": ("ntt_limbs.cu", [_P] * 3 + [_I] * 5),
     "encrypt_limbs_host": ("client_pointwise.cu",
-                           [_P] * 7 + [_I] * 4 + [_U] * 5),
+                           [_P, _LL, _LL] + [_P] * 8 + [_I] * 4 + [_U] * 5
+                           + [_I] * 3),
     "decrypt_limbs_host": ("client_pointwise.cu",
                            [_P, _P, _LL] + [_P] * 3 + [_I] * 4),
     "fft_rows_host": ("fft_df.cu", [_P] * 9 + [_I] * 3),
@@ -282,17 +284,37 @@ def test_host_build_forced_splits_match_plain(host_libs, profile, split,
                                  datapath, geo), want)
 
 
-@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("profile,geo", [
+# forced geometries (a, lc, lr, brev) of the tiled NTT block: several tiles
+# per pass, uneven splits, one-stage lines (a = 1, b = 1), a forced single
+# pass, and the chunk tiles in bit-reversed order (brev = 1; 0 on the card)
+_NTT_GEOS = [
     ("tiny", (3, 1, 1, 0)), ("tiny", (2, 0, 2, 1)), ("tiny", (4, 2, 0, 1)),
     ("tiny", (1, 3, 1, 0)), ("tiny", (5, 1, 3, 1)),
     ("test", (3, 2, 1, 0)), ("test", (7, 1, 2, 1)), ("test", (5, 5, 5, 0)),
-    ("test", (5, 3, 2, 1))])
+    ("test", (5, 3, 2, 1))]
+
+
+def _k1_host(host_libs, ctx, x, inverse, geo=(-1, -1, -1, 0)):
+    """The host build of K1 (ntt_limbs.cu's tiled schedule) on an (L, rows,
+    N) uint32 stack under geometry (a, lc, lr, brev)."""
+    kc = common.stacked_kernel_consts(ctx.plans[:x.shape[0]])
+    L, rows, n = x.shape
+    out, tw_heap = np.zeros_like(x), np.zeros((L, n), np.uint32)
+    err = host_libs["ntt_limbs_host"](
+        _ptr(x), _ptr(out), _ptr(np.ascontiguousarray(kc.table)),
+        _ptr(tw_heap), L, rows, kc.logn, kc.n_scalars, int(inverse), *geo)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile,geo", _NTT_GEOS)
 def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
-    """The tiled NTT / INTT block alone (a, lc, lr, brev) on random
-    residues of every limb, lines of odd and even stage counts (one-stage
-    lines at a = 1 and b = 1): the words of rt::ntt_fwd / ntt_inv (K1's
-    host build) and of the plain stage loops."""
+    """K1's tiled schedule under a forced geometry (a, lc, lr, brev) on
+    random residues of every limb, lines of odd and even stage counts
+    (one-stage lines at a = 1 and b = 1): the words of the one-row stage
+    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K3's and the
+    server kernels' loop) and of the plain stage loops."""
     ctx = get_context(profile)
     L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
     rng = np.random.default_rng(11)
@@ -301,18 +323,35 @@ def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
     kc = common.stacked_kernel_consts(ctx.plans)
     table = np.ascontiguousarray(kc.table)
     loop = np.zeros_like(x)
-    assert host_libs["ntt_limbs_host"](_ptr(x), _ptr(loop), _ptr(table), L,
-                                       rows, kc.logn, kc.n_scalars,
-                                       int(inverse)) == 0
-    got, tw_heap = x.copy(), np.zeros((L, n), np.uint32)
-    err = host_libs["ntt_tiled_host"](
-        _ptr(got), _ptr(table), _ptr(tw_heap), L, rows,
-        kc.logn, kc.n_scalars, int(inverse), *geo)
-    assert err == 0
+    assert host_libs["ntt_limbs_loop_host"](
+        _ptr(x), _ptr(loop), _ptr(table), L, rows, kc.logn, kc.n_scalars,
+        int(inverse)) == 0
+    got = _k1_host(host_libs, ctx, x, inverse, geo)
     np.testing.assert_array_equal(got, loop)
     want = ntt_butterfly.limb_rows_plain(torch.tensor(x.view(np.int32)),
                                          ctx.plans, inverse)
     np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("profile,geo", _NTT_GEOS + [
+    ("tiny", (-1, -1, -1, 0)), ("test", (-1, -1, -1, 0)),
+    ("test", (3, 7, 3, 0)), ("test", (8, 1, 3, 0))])
+def test_host_ntt_limbs_forced_geometry_matches_plain(host_libs, profile,
+                                                      geo):
+    """K1's host entry both ways under forced geometries (and its default
+    plan, and a single pass at an uneven split) on a stack of 5 rows
+    against the plain versions; the inverse returns x."""
+    ctx = get_context(profile)
+    L, n = ctx.params.n_limbs, ctx.params.n
+    x = _rand_residues(ctx, (5, L, n), np.random.default_rng(12))
+    x = np.ascontiguousarray(x.transpose(1, 0, 2))
+    fwd = _k1_host(host_libs, ctx, x, False, geo)
+    want = ntt_butterfly.limb_rows_plain(_t(x), ctx.plans, False)
+    np.testing.assert_array_equal(fwd, want.numpy().view(np.uint32))
+    back = _k1_host(host_libs, ctx, fwd, True, geo)
+    want = ntt_butterfly.limb_rows_plain(_t(fwd), ctx.plans, True)
+    np.testing.assert_array_equal(back, want.numpy().view(np.uint32))
+    np.testing.assert_array_equal(back, x)
 
 
 def _rand_residues(ctx, shape, rng) -> np.ndarray:
@@ -332,14 +371,30 @@ def test_host_ntt_limbs_matches_plain(host_libs, profile, inverse):
         _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2))
     want = ntt_butterfly.limb_rows_plain(torch.tensor(x.view(np.int32)),
                                          ctx.plans, inverse)
-    kc = common.stacked_kernel_consts(ctx.plans)
-    table = np.ascontiguousarray(kc.table)
-    out = np.zeros_like(x)
-    err = host_libs["ntt_limbs_host"](_ptr(x), _ptr(out), _ptr(table), L,
-                                      rows, kc.logn, kc.n_scalars,
-                                      int(inverse))
-    assert err == 0
+    out = _k1_host(host_libs, ctx, x, inverse)
     np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
+
+
+def _k2_host(host_libs, client, pt, nonce0, geo=(-1, -1, -1)):
+    """(c0, c1) of the host build of K2 (client_pointwise.cu) on a (B, L, N)
+    uint32 plaintext, any view whose (row, limb) rows are contiguous (read
+    through its strides), under NTT geometry (a, lc, lr)."""
+    ctx = client.ctx
+    batch, L, n = pt.shape
+    kc = common.stacked_kernel_consts(ctx.plans[:L])
+    keys = [np.ascontiguousarray(k.numpy().view(np.uint32))
+            for k in (client.keys.pk.b_mont, client.keys.pk.a_mont)]
+    c0, c1, v = (np.zeros((batch, L, n), np.uint32) for _ in range(3))
+    scratch = (np.zeros((L, n), np.uint32), np.zeros((batch, 3, n), np.int8))
+    row_stride, limb_stride, one = (st // pt.itemsize for st in pt.strides)
+    assert one == 1
+    err = host_libs["encrypt_limbs_host"](
+        _ptr(pt), row_stride, limb_stride, *(_ptr(k) for k in keys),
+        _ptr(np.ascontiguousarray(kc.table)), _ptr(c0), _ptr(c1), _ptr(v),
+        *(_ptr(a) for a in scratch), batch, L, kc.logn, kc.n_scalars,
+        *prng.seed_words(client.seed), nonce0, *geo)
+    assert err == 0
+    return c0, c1
 
 
 @pytest.mark.parametrize("profile,batch,nonce0", [
@@ -354,17 +409,7 @@ def test_host_encrypt_decrypt_limbs_match_plain(host_libs, profile, batch,
     pkb, pka = client.keys.pk.b_mont, client.keys.pk.a_mont
     ref0, ref1 = client_pointwise.encrypt_limbs_plain(
         torch.tensor(pt.view(np.int32)), pkb, pka, ctx, client.seed, nonce0)
-    kc = common.stacked_kernel_consts(ctx.plans)
-    table = np.ascontiguousarray(kc.table)
-    b_np, a_np = pkb.numpy().copy(), pka.numpy().copy()
-    c0 = np.zeros((batch, L, n), np.uint32)
-    c1 = np.zeros_like(c0)
-    v = np.zeros_like(c0)
-    err = host_libs["encrypt_limbs_host"](
-        _ptr(pt), _ptr(b_np), _ptr(a_np), _ptr(table), _ptr(c0), _ptr(c1),
-        _ptr(v), batch, L, kc.logn, kc.n_scalars,
-        *prng.seed_words(client.seed), nonce0)
-    assert err == 0
+    c0, c1 = _k2_host(host_libs, client, pt, nonce0)
     np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
     np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
 
@@ -380,6 +425,41 @@ def test_host_encrypt_decrypt_limbs_match_plain(host_libs, profile, batch,
         2, kc2.logn, kc2.n_scalars)
     assert err == 0
     np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+
+
+# forced NTT geometries (a, lc, lr) of K2, as K5's in _SPLITS; "T" runs
+# on the (L, B, N) -> (B, L, N) transpose the staged client passes
+_K2_GEOS = {
+    "tiny": {"2+4": (2, 1, 0), "4+2": (4, 0, 2), "default-T": (-1, -1, -1)},
+    "test": {"3+7": (3, 2, 1), "7+3-T": (7, 1, 2), "5+5": (5, -1, -1),
+             "single-3+7": (3, 7, 3), "1+9": (1, 4, 1)},
+}
+
+
+@pytest.mark.parametrize("profile,split", [
+    (prof, name) for prof, cases in _K2_GEOS.items() for name in cases])
+def test_host_encrypt_limbs_forced_geometry_matches_plain(host_libs,
+                                                          profile, split):
+    """K2's host entry under forced NTT geometries (several tiles per pass,
+    uneven splits, a single pass at an uneven split, one-stage columns)
+    against its plain version, tiny B=3 / test B=2, nonce0 = 2^32 - 2 so
+    that the nonce wraps inside the batch; on a transposed view too."""
+    client = FHEClient(profile, seed=0xC0FFEE, device="cpu")
+    ctx = client.ctx
+    L, n = ctx.params.n_limbs, ctx.params.n
+    batch, nonce0 = {"tiny": 3, "test": 2}[profile], 0xFFFFFFFE
+    x = _rand_residues(ctx, (batch, L, n), np.random.default_rng(13))
+    by_limb = np.ascontiguousarray(x.transpose(1, 0, 2))     # (L, B, N)
+    pt = by_limb.transpose(1, 0, 2)                   # (B, L, N) view
+    if not split.endswith("-T"):
+        pt = np.ascontiguousarray(pt)
+    ref0, ref1 = client_pointwise.encrypt_limbs_plain(
+        _t(pt), client.keys.pk.b_mont, client.keys.pk.a_mont, ctx,
+        client.seed, nonce0)
+    c0, c1 = _k2_host(host_libs, client, pt, nonce0,
+                      _K2_GEOS[profile][split])
+    np.testing.assert_array_equal(c0, ref0.numpy().view(np.uint32))
+    np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
