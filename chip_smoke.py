@@ -43,9 +43,11 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      staged f64 client and keys of its ``make_evaluation_keys``:
      ``server`` level 8 B=2 (the plain versions under both datapaths'
      REDC engines: the kernels' one u64 REDC gives the words of both),
-     ``boot`` level 6 B=2 and level 24 B=1 (the df32 engine); checks
-     that hoisted rotations give the fused rotation's words at ``boot``
-     level 6;
+     ``boot`` level 6 B=2 and level 24 B=1 (the df32 engine), and on
+     random residues and random key words at ``n15`` level 6 B=2 (odd
+     logN: an uneven 2^8 x 2^7 split of every transform stage; both
+     engines); checks that hoisted rotations give the fused rotation's
+     words at ``boot`` level 6;
   7. drives the encrypted-inference flow
      (``repro_torch.fhe_server.encrypted_inference.run``: encrypt, keys,
      both shipped as wire payloads, linear layer + poly3 on the server, the
@@ -55,7 +57,10 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      error printed beside the budget), counters set to 0 just before each
      and read just after; profiles the server part of each flow, then
      times every server kernel at ``boot`` level 6 and 24, B=1, queued
-     ahead as in 5 (and, printed beside it, as the host paces the calls);
+     ahead as in 5 (and, printed beside it, as the host paces the calls),
+     and prints the device kernels one call of each server kernel that
+     transforms launches (the heaps, then its stages' passes), each with
+     its time;
   8. the Fourier engine's per-prime entry points (K12-K14) at ``paper``
      on residues x of shape (24, 16, 2^16): ``ops.ntt_limbs`` /
      ``intt_limbs(path='matmul')`` (K14, one launch for the stack),
@@ -81,8 +86,9 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
  10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
-     bound; for K5 / K6 also the device kernels per call), then, as the
-     last line, ``{"ok": true, "device": ...}``.
+     bound; for K5 / K6, K1, K2 and the server kernels K8-K11 also the
+     device kernels per call), then, as the last line, ``{"ok": true,
+     "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit code and no result line. Needs a CUDA device; without one it exits 2.
@@ -283,14 +289,19 @@ def _ks_parts(p, level: int, batch: int) -> dict:
     }
 
 
-def _rescale_ops(p, level: int, batch: int, fused_pt: bool) -> float:
+def _rescale_ops(p, level: int, batch: int, fused_pt: bool,
+                 twiddles: bool = True) -> float:
+    """int32 ops of a rescale of B ciphertexts: the top row's INTT and
+    centring, l-1 NTTs with their residue, submod and REDC per word, and
+    the twiddles of the l primes it transforms with (one INTT prime, l-1
+    NTT primes), unless a key switch before it made them (K9)."""
     n, l = p.n, level
     ops = batch * 2 * (_intt_ops(p) + n * I32_CENTER
                        + (l - 1) * (_ntt_ops(p) + n * (
                            I32_TO_RESIDUE + I32_ADDMOD + I32_REDC)))
     if fused_pt:
         ops += batch * 2 * l * n * I32_REDC
-    return ops + _tw_ops(p, 2 * l)
+    return ops + (_tw_ops(p, l) if twiddles else 0.0)
 
 
 def _cost_server(name: str, p, level: int, batch: int):
@@ -318,7 +329,7 @@ def _cost_server(name: str, p, level: int, batch: int):
     if name == "mul_ct":
         tensor = batch * l * n * (6 * I32_REDC + I32_ADDMOD)
         ops = (tensor + sum(ks.values()) + 2 * batch * l * n * I32_ADDMOD
-               + _rescale_ops(p, l, batch, False))
+               + _rescale_ops(p, l, batch, False, twiddles=False))
         return float(4 * ct + key + out_rs), float(ops), 0.0
     if name == "rotate":
         ops = sum(ks.values()) + batch * l * n * I32_ADDMOD
@@ -810,6 +821,13 @@ SERVER_REDC = ("mul_pt", "rescale", "mul_pt_rescale", "mul_ct", "rotate",
 # (profile, level, batch, plain datapaths) of the kernel-vs-plain checks
 SERVER_CHECKS = (("server", 8, 2, ("df32", "f64")), ("boot", 6, 2, ("df32",)),
                  ("boot", 24, 1, ("df32",)))
+# the same on random residues and random key words (no keygen): n15, odd
+# logN, views each transform's rows as uneven 2^8 x 2^7 matrices
+SERVER_RANDOM_CHECKS = (("n15", 6, 2, ("df32", "f64")),)
+# the server kernels that transform (each on the tiled NTT block): their
+# device kernels per call are printed where they are timed
+SERVER_TILED = ("rescale", "mul_pt_rescale", "mul_ct", "rotate",
+                "ks_decompose", "ks_apply_rot")
 SERVER_ROTATIONS = (1, 2, 5)
 FLOW_DIM, FLOW_LEVEL, FLOW_SEED = 8, 6, 7
 FLOW_PROFILES = ("server", "boot")
@@ -923,33 +941,85 @@ def _server_setup(profile: str, dev):
     return client, keys, ServerEvaluator(client.ctx, keys)
 
 
-def _check_server_kernels(setups, errs: dict) -> None:
-    """Each server kernel against its plain version at SERVER_CHECKS, and
-    hoisted == fused rotations at boot level 6."""
+def _random_server_operands(profile: str, level: int, batch: int,
+                            seed: int, dev):
+    """The server kernels' operands at `level` as random words of the right
+    ranges (the kernels' words do not depend on the ciphertexts and keys
+    being real ones, as in the host-build tests): two (B, l, N) ciphertexts,
+    an (l, N) plaintext in both forms, the relin and rotation key slices
+    (l, l+1, N), the r=5 permutation and the hoisted digit stack of x.
+    Returns (context, operands)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.context import get_context
+    from repro_torch.fhe_server import keys as skeys
+    from repro_torch.kernels import common, server_eval
+    ctx = get_context(profile)
+    n = ctx.n
+    sc = server_eval.server_consts(ctx, level)
+    qs = sc.table[:, common.OFF_Q].astype(np.uint64)
+    rng = np.random.default_rng(seed)
+
+    def words(shape):
+        """(..., rows, N) residues, row r below table row r's prime"""
+        q = qs[:shape[-2]].reshape(-1, 1)
+        w = (rng.integers(0, 1 << 32, shape, dtype=np.uint64) % q
+             ).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32)).to(dev)
+
+    o = {k: words((batch, level, n)) for k in ("a0", "a1", "b0", "b1")}
+    o["pt"], o["pm"] = words((level, n)), words((level, n))
+    for k in ("kb", "ka", "rb", "ra"):
+        o[k] = words((level, level + 1, n))
+    perm = skeys.galois_perm_ntt(skeys.galois_element(5, n), n)
+    o["perm"] = torch.from_numpy(perm.reshape(1, n)).to(dev)
+    o["h"] = server_eval.ks_decompose_cuda(o["a1"], ctx)
+    torch.cuda.synchronize()
+    return ctx, o
+
+
+def _hold_server_kernels(ctx, o, datapaths, what: str, errs: dict) -> None:
+    """Each server kernel against its plain version on the operands `o`,
+    under each plain REDC engine of `datapaths` (the ops without a REDC
+    once)."""
+    import torch
+    for dp in datapaths:
+        for name, (kernel, plain) in _server_calls(o, ctx, dp).items():
+            if dp != datapaths[0] and name not in SERVER_REDC:
+                continue                # no REDC: held once above
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"{name} differs from its plain version ({dp} REDC) "
+                      f"at {what} (max abs err {e})")
+    print(f"kernel == plain (bit-identical), K7 x3 K8 K8b K9 K10 K11a K11b: "
+          f"{what}, plain REDC engines {datapaths}", flush=True)
+
+
+def _check_server_kernels(setups, errs: dict, dev) -> None:
+    """Each server kernel against its plain version at SERVER_CHECKS and
+    SERVER_RANDOM_CHECKS, and hoisted == fused rotations at boot level
+    6."""
     import numpy as np
     import torch
     from repro_torch.fhe_server.ct import ServerCiphertext
     for profile, level, batch, datapaths in SERVER_CHECKS:
         client, keys, ev = setups[profile]
         o = _server_operands(client, keys, ev, level, batch, seed=level)
-        for dp in datapaths:
-            for name, (kernel, plain) in _server_calls(o, client.ctx,
-                                                       dp).items():
-                if dp != "df32" and name not in SERVER_REDC:
-                    continue                # no REDC: held once above
-                got, want = kernel(), plain()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                torch.cuda.synchronize()
-                e = max(_max_abs_err(a, b) for a, b in zip(got, want))
-                errs[name] = max(errs.get(name, 0.0), e)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    _fail(f"{name} differs from its plain version ({dp} "
-                          f"REDC) at {profile} level {level} B={batch} (max "
-                          f"abs err {e})")
-        print(f"kernel == plain (bit-identical), K7 x3 K8 K8b K9 K10 K11a "
-              f"K11b: {profile} level {level} B={batch}, plain REDC engines "
-              f"{datapaths}", flush=True)
+        _hold_server_kernels(client.ctx, o, datapaths,
+                             f"{profile} level {level} B={batch}", errs)
+        del o
+    for profile, level, batch, datapaths in SERVER_RANDOM_CHECKS:
+        ctx, o = _random_server_operands(profile, level, batch, 40 + level,
+                                         dev)
+        _hold_server_kernels(ctx, o, datapaths,
+                             f"{profile} level {level} B={batch} (random "
+                             f"words)", errs)
+        del o
     client, keys, ev = setups["boot"]
     ns = client.ctx.params.n_slots
     z = np.random.default_rng(3).standard_normal((2, ns)) * 0.5
@@ -1039,12 +1109,18 @@ def _time_server_kernels(setups, card: str):
             paced_ms = _cuda_ms(kernel, iters=5)
             plain_ms = _cuda_ms(plain, iters=1, warmup=1)
             bound = _bound_ms(*_cost_server(name, p, level, 1))
-            times[name, level] = (ms, plain_ms, bound)
             print(f"time: {name} {TIME_PROFILE} level {level} B=1: "
                   f"{ms:.4f} ms queued ahead, {paced_ms:.4f} ms paced by "
                   f"the host, "
                   f"plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
                   f"({bound[1]})  [{card}]", flush=True)
+            by_name = None
+            if name in SERVER_TILED:
+                by_name = _device_kernels(kernel)
+                _print_device_kernels(name, f"{TIME_PROFILE} level {level} "
+                                      f"B=1", by_name, card)
+            times[name, level] = (ms, plain_ms, bound, by_name)
+        del o
     return times
 
 
@@ -1758,7 +1834,7 @@ def main() -> int:
     # --- 6. the server op set: kernel vs plain, on the card ---------------
     setups = {profile: _server_setup(profile, dev)
               for profile in ("server", "boot")}
-    _check_server_kernels(setups, errs)
+    _check_server_kernels(setups, errs, dev)
 
     # --- 7. the encrypted-inference flows (main path of the server slice) -
     flow_launches = {}
@@ -1784,7 +1860,8 @@ def main() -> int:
     # --- 5. times -------------------------------------------------------------
     def device_kernels(by_name: dict | None) -> dict:
         """the device kernels of one entry call, for a K5 / K6 / K1 / K2
-        entry (None where the profiler saw none: not measured)"""
+        or server entry (None where the profiler saw none: not
+        measured)"""
         if by_name is None:
             return {"device_kernels": None, "device_kernels_by_name": None}
         return {"device_kernels": sum(n for n, _ in by_name.values()),
@@ -1939,8 +2016,11 @@ def main() -> int:
                 e["at_flow_shape"] = flow_k1[e["name"]]
         kernels.append(k)
     for name, (id_, replaces) in SERVER.items():
-        ms, plain_ms, bound = server_times[name, 6]
-        ms24, plain24, bound24 = server_times[name, 24]
+        ms, plain_ms, bound, by_name = server_times[name, 6]
+        ms24, plain24, bound24, by_name24 = server_times[name, 24]
+        extra = {}
+        if name in SERVER_TILED:
+            extra = device_kernels(by_name)
         kernels.append({
             "name": name, "id": id_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/server_eval.cu",
@@ -1951,7 +2031,9 @@ def main() -> int:
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "shape": "boot level 6 B=1",
             "at_level_24": {"ms": ms24, "plain_ms": plain24,
-                            "bound_ms": bound24[0], "bound_by": bound24[1]},
+                            "bound_ms": bound24[0], "bound_by": bound24[1],
+                            **(device_kernels(by_name24) if extra else {})},
+            **extra,
         })
     for fwd, inv in (("ntt_rows", "intt_rows"), ("encrypt_limb", None),
                      ("decrypt_limb", None), ("ntt_rows_mm", "intt_rows_mm")):

@@ -60,15 +60,15 @@ ENTRY_POINTS = {
     "server_pointwise_launch": (
         "server_eval.cu", [_I32] + [_P] * 7 + [_I32] * 4 + [_P]),
     "server_rescale_launch": (
-        "server_eval.cu", [_P] * 7 + [_I32] * 5 + [_P]),
+        "server_eval.cu", [_P] * 8 + [_I32] * 5 + [_P]),
     "server_ks_decompose_launch": (
-        "server_eval.cu", [_P] * 4 + [_I32] * 4 + [_P]),
+        "server_eval.cu", [_P] * 5 + [_I32] * 4 + [_P]),
     "server_ks_apply_rot_launch": (
-        "server_eval.cu", [_P] * 10 + [_I32] * 5 + [_P]),
+        "server_eval.cu", [_P] * 11 + [_I32] * 5 + [_P]),
     "server_rotate_launch": (
-        "server_eval.cu", [_P] * 12 + [_I32] * 5 + [_P]),
+        "server_eval.cu", [_P] * 13 + [_I32] * 5 + [_P]),
     "server_mul_ct_launch": (
-        "server_eval.cu", [_P] * 18 + [_I32] * 7 + [_P]),
+        "server_eval.cu", [_P] * 19 + [_I32] * 7 + [_P]),
     "ntt_rows_launch": ("ntt_rows.cu", [_P] * 4 + [_I32] * 3 + [_P]),
     "encrypt_limb_launch": (
         "client_pointwise.cu", [_P] * 8 + [_I32] * 2 + [_U32] * 5 + [_P]),

@@ -69,11 +69,7 @@ struct DecArgs {
 
 // item t < 2N: limb t / N's heap twiddle t % N (slot 0 unused)
 RT_FN void dec_prologue_item(const DecArgs &a, int t) {
-  const int m = t & ((1 << a.logn) - 1);
-  if (m == 0) return;
-  const uint32_t *trow = a.table + (size_t)(t >> a.logn) * a.n_scalars;
-  a.ntt_tw[t] = rt::tiled::heap_twiddle(trow, a.logn, true, m,
-                                        rt::mont_redc(trow));
+  rt::tiled::heap_word(a.table, a.n_scalars, a.logn, true, a.ntt_tw, t);
 }
 
 // One INTT tile of (limb l, row b): kRow, the whole row; kChunks, c0 +

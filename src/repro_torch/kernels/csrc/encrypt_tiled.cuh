@@ -19,7 +19,7 @@
 //
 // Launches, on the caller's stream:
 //   1. enc_prologue_kernel, grid-stride: each limb's forward twiddle heap
-//      (L, N) (heap_twiddle), made once per call, and the noise (v, e0,
+//      (L, N) (heap_word), made once per call, and the noise (v, e0,
 //      e1) of every (row, coefficient) as int8 (B, 3, N), drawn once: the
 //      Philox streams do not depend on the limb;
 //   2. on rows above one tile (logn > kSinglePassLogn) two passes:
@@ -83,10 +83,7 @@ RT_FN void enc_prologue_item(const EncNtt &a, long long t) {
   const int n = 1 << a.logn;
   const long long ntw = (long long)a.n_limbs << a.logn;
   if (t < ntw) {
-    const int m = (int)(t & (n - 1));
-    if (m == 0) return;
-    const uint32_t *trow = a.table + (size_t)(t >> a.logn) * a.n_scalars;
-    a.ntt_tw[t] = heap_twiddle(trow, a.logn, false, m, mont_redc(trow));
+    heap_word(a.table, a.n_scalars, a.logn, false, a.ntt_tw, t);
     return;
   }
   t -= ntw;

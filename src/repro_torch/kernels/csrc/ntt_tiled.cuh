@@ -1,7 +1,9 @@
 // The tiled two-pass NTT / INTT and df32 SpecialFFT / IFFT of the client
-// megakernels (encode_encrypt.cu, decrypt_decode.cu), of the limb-folded
-// NTT / INTT K1 (ntt_limbs.cu) and, through encrypt_tiled.cuh, of the
-// folded encrypt K2 (client_pointwise.cu).
+// megakernels (encode_encrypt.cu, decrypt_decode.cu), of the folded
+// encrypt K2 (client_pointwise.cu, through encrypt_tiled.cuh), and the
+// transform stage (stage_tile and its pass launchers) that the limb-folded
+// NTT / INTT K1 (ntt_limbs.cu) and the server's lift, base extension and
+// scale-down (server_eval.cu) run.
 //
 // A row of 2^logn points is viewed as a 2^a x 2^b matrix, a + b = logn,
 // point p at row p >> b, column p & (2^b - 1). The butterflies of a
@@ -36,6 +38,13 @@
 // of the seed table REDC'd by the factors of j's set bits, ascending: the
 // very REDCs rt::gen_twiddles applies to reach index j.
 //
+// A transform stage is an NTT or INTT of independent rows whose first load
+// and last store carry elementwise work: a stage type S gives, per row, its
+// table row and what the first pass loads and the last pass stores, and
+// stage_tile runs one tile of any pass of it. K1's stage loads and stores
+// the words as they are; the server's stages gather, REDC, centre and
+// combine there.
+//
 // Compiles as plain C++ too (one thread per block, RT_SYNC a no-op), like
 // client_common.cuh, so the host build checks these loops on a CPU.
 #pragma once
@@ -44,13 +53,16 @@
 
 #if defined(__CUDACC__)
 #define RT_HD __host__ __device__ __forceinline__
+#define RT_MEMBER __device__ __forceinline__
 RT_FN uint32_t rt_brev(uint32_t x, int bits) {
   return bits == 0 ? 0u : __brev(x) >> (32 - bits);
 }
 RT_FN int rt_ilog2(uint32_t x) { return 31 - __clz(x); }
 RT_FN uint32_t rt_ldg(const uint32_t *p) { return __ldg(p); }
 #else
+#include <vector>
 #define RT_HD static inline
+#define RT_MEMBER inline
 RT_FN uint32_t rt_brev(uint32_t x, int bits) {
   uint32_t r = 0;
   for (int i = 0; i < bits; ++i) r = (r << 1) | ((x >> i) & 1u);
@@ -128,6 +140,17 @@ RT_FN uint32_t heap_twiddle(const uint32_t *trow, int logn, bool inverse,
   for (int k = 0; k < u; ++k)
     if ((j >> k) & 1) w = redc(red, w, col[1 + k]);
   return w;
+}
+
+// Word t of the heaps of one direction for consecutive table rows, laid out
+// (rows, N) from tw: row t / N's heap twiddle t % N (slot 0 unused); table
+// row r at table + r * stride.
+RT_FN void heap_word(const uint32_t *table, int stride, int logn,
+                     bool inverse, uint32_t *tw, long long t) {
+  const int m = (int)(t & ((1 << logn) - 1));
+  if (m == 0) return;
+  const uint32_t *trow = table + (size_t)(t >> logn) * stride;
+  tw[t] = heap_twiddle(trow, logn, inverse, m, mont_redc(trow));
 }
 
 // ---------------------------------------------------------------------------
@@ -451,6 +474,182 @@ inline cudaError_t launch_pass(Kernel kernel, SmemAllowance &allow,
   kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
 }
+#endif
+
+// ---------------------------------------------------------------------------
+// Transform stages: a tiled NTT / INTT of independent rows, a stage's
+// elementwise work in its first load and last store
+// ---------------------------------------------------------------------------
+
+// What every pass of a stage shares: its tile geometry, the constant table
+// (row r at table + r * ncols: q, the REDC constant, N^-1 and the seed
+// columns) and the heaps of the stage's direction, table row r's at tw + r N.
+struct Tiling {
+  Geo g;
+  const uint32_t *table;
+  int ncols;
+  const uint32_t *tw;
+};
+
+// log2 of a pass's tiles per row
+RT_HD int log_tiles(const Geo &g, int pass) {
+  return pass == kRow ? 0 : (pass == kColumns ? geo_b(g) - g.lc : g.a - g.lr);
+}
+
+// blocks of a pass over `rows` rows
+RT_HD long long pass_blocks(const Geo &g, int pass, long long rows) {
+  return rows << log_tiles(g, pass);
+}
+
+// whether the geometry is valid and every pass's grid fits a grid's x
+// extent
+inline bool stage_fits(const Geo &g, long long rows) {
+  return geo_valid(g) && pass_blocks(g, kColumns, rows) <= 0x7FFFFFFFLL &&
+         pass_blocks(g, kChunks, rows) <= 0x7FFFFFFFLL;
+}
+
+// One tile of block `blk` (row blk >> log_tiles, tile the rest) of a pass
+// of the stage S: a forward NTT (S::kInverse false: the column pass, then
+// the chunk pass) or an INTT (the chunk pass, then the column pass, whose
+// store applies N^-1), or on one pass (kRow) the whole row. S::bind(row)
+// gives the row's Row: its table row `prime`, the row buffer `mid` that
+// holds the transform between the passes, load(p) (the word the first
+// pass reads at position p: the stage's elementwise work in front of the
+// transform) and store(p, v) (what the last pass does with the transform's
+// word v at p).
+template <int pass, class S>
+RT_BODY void stage_tile(const S &s, const Tiling &t, long long blk,
+                        uint32_t *x) {
+  constexpr bool inverse = S::kInverse;
+  const Geo &g = t.g;
+  const int lt = log_tiles(g, pass);
+  const int tile = (int)(blk & ((1 << lt) - 1));
+  const typename S::Row r = s.bind(blk >> lt);
+  const uint32_t *trow = t.table + (size_t)r.prime * t.ncols;
+  const MontRedc red = mont_redc(trow);
+  const uint32_t *tw = t.tw + ((size_t)r.prime << g.logn);
+  constexpr bool first =
+      pass == kRow || pass == (inverse ? kChunks : kColumns);
+  const int pts = pass == kChunks ? chunk_points(g) : col_points(g);
+  for (int i = RT_TID; i < pts; i += RT_NT) {
+    const int p =
+        pass == kChunks ? chunk_pos(g, tile, i) : col_pos(g, tile, i);
+    x[i] = first ? r.load(p) : r.mid[p];
+  }
+  RT_SYNC();
+  if (!inverse) {
+    if (pass != kChunks) ntt_fwd_lines(x, 1, pts, col_lines(g), g, tw, red);
+    if (pass != kColumns)
+      ntt_fwd_lines(x, 1, pts, chunk_lines(g, tile), g, tw, red);
+  } else {
+    if (pass != kColumns)
+      ntt_inv_lines(x, 1, pts, chunk_lines(g, tile), g, tw, red);
+    if (pass != kChunks) ntt_inv_lines(x, 1, pts, col_lines(g), g, tw, red);
+  }
+  if (pass != kRow && first) {  // between the passes: the raw transform
+    for (int i = RT_TID; i < pts; i += RT_NT)
+      r.mid[pass == kChunks ? chunk_pos(g, tile, i) : col_pos(g, tile, i)] =
+          x[i];
+    return;
+  }
+  const uint32_t ninv = trow[OFF_NINV];
+  for (int i = RT_TID; i < pts; i += RT_NT) {
+    const int p =
+        pass == kChunks ? chunk_pos(g, tile, i) : col_pos(g, tile, i);
+    r.store(p, inverse ? redc(red, x[i], ninv) : x[i]);
+  }
+}
+
+#if defined(__CUDACC__)
+
+// the most threads of a pass's block
+constexpr int kPassThreads = 256;
+
+// threads of a pass's blocks: a quarter of the tile's points (the stage
+// loops give each thread four points), within [32, kPassThreads]
+inline int pass_threads(int pts) {
+  const int t = pts / 4;
+  return t < 32 ? 32 : (t > kPassThreads ? kPassThreads : t);
+}
+
+template <class S>
+struct PassKernels {
+  void (*row)(S, Tiling);
+  void (*cols)(S, Tiling);
+  void (*chunks)(S, Tiling);
+};
+
+// A stage's three pass kernels, prefix_{row,cols,chunks}_kernel (one per
+// pass, so that a profile shows each under its own name), and
+// stage_kernels(S), which returns them.
+#define RT_PASS_KERNEL(name, S, pass)                                       \
+  __global__ void __launch_bounds__(rt::tiled::kPassThreads)                \
+      name(S s, rt::tiled::Tiling t) {                                      \
+    extern __shared__ uint32_t name##_smem[];                               \
+    rt::tiled::stage_tile<rt::tiled::pass>(s, t, blockIdx.x, name##_smem);  \
+  }
+#define RT_STAGE_KERNELS(prefix, S)                                         \
+  RT_PASS_KERNEL(prefix##_row_kernel, S, kRow)                              \
+  RT_PASS_KERNEL(prefix##_cols_kernel, S, kColumns)                         \
+  RT_PASS_KERNEL(prefix##_chunks_kernel, S, kChunks)                        \
+  inline rt::tiled::PassKernels<S> stage_kernels(const S &) {               \
+    return {prefix##_row_kernel, prefix##_cols_kernel,                      \
+            prefix##_chunks_kernel};                                        \
+  }
+
+// The stage s over `rows` rows on stream `st`: one pass, or two (the
+// column pass first for an NTT, the chunk pass first for an INTT).
+template <class S>
+inline cudaError_t launch_stage(const PassKernels<S> &k, const S &s,
+                                const Tiling &t, long long rows,
+                                cudaStream_t st) {
+  if (!geo_valid(t.g)) return cudaErrorInvalidValue;
+  if (!stage_fits(t.g, rows)) return cudaErrorInvalidConfiguration;
+  static SmemAllowance allow[3];  // one per kernel of S
+  const size_t w4 = sizeof(uint32_t);
+  if (single_pass(t.g)) {
+    const int pts = 1 << t.g.logn;
+    return launch_pass(k.row, allow[0], dim3((unsigned)rows),
+                       pass_threads(pts), w4 * pts, st, s, t);
+  }
+  for (int step = 0; step < 2; ++step) {
+    const bool col_pass = (step == 0) != S::kInverse;
+    const int pass = col_pass ? kColumns : kChunks;
+    const int pts = col_pass ? col_points(t.g) : chunk_points(t.g);
+    const cudaError_t err = launch_pass(
+        col_pass ? k.cols : k.chunks, allow[col_pass ? 1 : 2],
+        dim3((unsigned)pass_blocks(t.g, pass, rows)), pass_threads(pts),
+        w4 * pts, st, s, t);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+#else  // host build: every block of each pass in order, one thread a block
+
+template <int pass, class S>
+void host_pass(const S &s, const Tiling &t, long long rows, uint32_t *smem) {
+  for (long long blk = 0; blk < pass_blocks(t.g, pass, rows); ++blk)
+    stage_tile<pass>(s, t, blk, smem);
+}
+
+// The stage s over `rows` rows; false if the geometry is out of range.
+template <class S>
+bool run_stage_host(const S &s, const Tiling &t, long long rows) {
+  if (!geo_valid(t.g)) return false;
+  std::vector<uint32_t> smem((size_t)1 << t.g.logn);
+  if (single_pass(t.g)) {
+    host_pass<kRow>(s, t, rows, smem.data());
+  } else if (!S::kInverse) {
+    host_pass<kColumns>(s, t, rows, smem.data());
+    host_pass<kChunks>(s, t, rows, smem.data());
+  } else {
+    host_pass<kChunks>(s, t, rows, smem.data());
+    host_pass<kColumns>(s, t, rows, smem.data());
+  }
+  return true;
+}
+
 #endif
 
 }  // namespace tiled

@@ -1,22 +1,23 @@
-// Row bodies of the server-side CKKS kernels (server_eval.cu): the centered
-// lift of an NTT row to key-switch digits, the base extension of a digit
-// row onto another prime, the scale-down that finishes a rescale or a
-// mod-down by the special prime, the digit multiply-accumulate against a
-// key-switch key, and the elementwise ops.
+// Block bodies of the server-side CKKS kernels (server_eval.cu): the twiddle
+// heaps an op makes once per call, the digit multiply-accumulate against a
+// key-switch key, and the centred digit of a residue. The transform stages
+// themselves run on ntt_tiled.cuh's stage_tile.
 //
 // Every body returns exactly the words of its plain PyTorch counterpart in
 // kernels/server_eval.py (and of the JAX reference's stage helpers
 // _to_digit, _digit_to_row, _ks_accumulate, _ks_moddown and _rescale2):
-// integer arithmetic only, on the uint32 helpers and the NTT / INTT stage
-// loops of client_common.cuh. The pointwise REDC (the reference's _mm) is
-// redc_u64, the reference's u64 REDC, on both datapaths: it gives the words
-// of the df32 datapath's uint32 REDC too, so one body serves both; the NTT /
-// INTT stage loops keep the uint32 REDC, as the reference's do. Like that
-// header, this one compiles as plain C++ (one thread per block, barriers as
-// no-ops) for the host-build tests.
+// integer arithmetic only. The transforms are the tiled NTT / INTT of
+// ntt_tiled.cuh (ntt_fwd_lines / ntt_inv_lines on column and chunk tiles,
+// the words of the one-row stage loops of client_common.cuh under any
+// tiling, with the uint32 REDC of the reference's stage loops); the
+// pointwise REDC (the reference's _mm) is redc_u64, the reference's u64
+// REDC, on both datapaths: it gives the words of the df32 datapath's
+// uint32 REDC too, so one body serves both. Like those headers, this one
+// compiles as plain C++ (one thread per block, barriers as no-ops) for the
+// host-build tests.
 #pragma once
 
-#include "client_common.cuh"
+#include "ntt_tiled.cuh"
 
 namespace rt {
 
@@ -24,64 +25,6 @@ namespace rt {
 // q >> 1 map down by q
 RT_FN int32_t ks_center(uint32_t v, uint32_t q) {
   return v > (q >> 1) ? (int32_t)v - (int32_t)q : (int32_t)v;
-}
-
-// One row lifted to centered coefficient digits (_to_digit, and the first
-// half of _rescale2 / _ks_moddown): dst <- src, gathered by perm when given
-// (sigma_g of an NTT row) and REDC'd by the plaintext row pm when given
-// (the fused ct x pt in front of a rescale); INTT with trow's prime; then
-// each residue centered in place. src must not alias dst.
-RT_FN void lift_row(const uint32_t *src, const int32_t *perm,
-                    const uint32_t *pm, int32_t *dst, int logn,
-                    const uint32_t *trow, uint32_t *tw) {
-  const int n = 1 << logn;
-  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
-  uint32_t *u = reinterpret_cast<uint32_t *>(dst);
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    uint32_t v = src[perm ? perm[i] : i];
-    if (pm) v = redc_u64(v, pm[i], q, qinv);
-    u[i] = v;
-  }
-  RT_SYNC();
-  Rows rows = {{u, u, u, u}};
-  ntt_inv(rows, 1, logn, trow, tw);
-  for (int i = RT_TID; i < n; i += RT_NT) dst[i] = ks_center(u[i], q);
-  RT_SYNC();
-}
-
-// One digit row base-extended onto trow's prime and transformed
-// (_digit_to_row): dst <- NTT(residue(w)). |w| < 2^30 <= q, so the residue
-// is one conditional add.
-RT_FN void extend_row(const int32_t *w, uint32_t *dst, int logn,
-                      const uint32_t *trow, uint32_t *tw) {
-  const int n = 1 << logn;
-  const uint32_t q = trow[OFF_Q];
-  for (int i = RT_TID; i < n; i += RT_NT) dst[i] = to_residue(w[i], q);
-  RT_SYNC();
-  Rows rows = {{dst, dst, dst, dst}};
-  ntt_fwd(rows, 1, logn, trow, tw);
-}
-
-// The second half of a rescale (_rescale2: c = q_drop^-1 R) or a mod-down
-// (_ks_moddown: c = P^-1 R) on one target row: y = extend_row(w) in dst,
-// then dst = REDC(x' - y, c) with x' = REDC(x, pm) when pm is given, and
-// then addmod(add[perm'], dst) when add is given (the key-switched ct's
-// other half: sigma_g(c0) for a rotation, d0 / d1 for a relinearization).
-RT_FN void scale_down_row(const uint32_t *x, const uint32_t *pm,
-                          const int32_t *w, const uint32_t *add,
-                          const int32_t *add_perm, uint32_t *dst, uint32_t c,
-                          int logn, const uint32_t *trow, uint32_t *tw) {
-  const int n = 1 << logn;
-  const uint32_t q = trow[OFF_Q], qinv = trow[OFF_QINV];
-  extend_row(w, dst, logn, trow, tw);
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    uint32_t xv = x[i];
-    if (pm) xv = redc_u64(xv, pm[i], q, qinv);
-    uint32_t r = redc_u64(submod(xv, dst[i], q), c, q, qinv);
-    if (add) r = addmod(add[add_perm ? add_perm[i] : i], r, q);
-    dst[i] = r;
-  }
-  RT_SYNC();
 }
 
 // Multiply-accumulate of one target row's digit stack against the key
@@ -111,4 +54,32 @@ RT_FN void mac_cols(const uint32_t *h, const int32_t *perm,
   }
 }
 
+namespace server {
+
+// The twiddle heaps of one op, made once per entry call: (2, rows, N)
+// words, table row r's forward heap at tw + r N and its inverse heap at
+// tw + (rows + r) N (tiled::heap_word's layout, slot 0 unused); made for the
+// forward rows [f0, f1) and the inverse rows [i0, i1) only.
+struct Heaps {
+  const uint32_t *table;  // (rows, ncols) server constant table
+  int ncols, logn, rows;
+  uint32_t *tw;
+  int f0, f1, i0, i1;
+};
+
+RT_HD long long heap_words(const Heaps &h) {
+  return ((long long)(h.f1 - h.f0) + (h.i1 - h.i0)) << h.logn;
+}
+
+// word t of the heaps made, the forward rows' first
+RT_FN void heap_word(const Heaps &h, long long t) {
+  const long long nf = (long long)(h.f1 - h.f0) << h.logn;
+  const bool inverse = t >= nf;
+  const int r0 = inverse ? h.i0 : h.f0;
+  tiled::heap_word(h.table + (size_t)r0 * h.ncols, h.ncols, h.logn, inverse,
+                   h.tw + (((size_t)(inverse ? h.rows : 0) + r0) << h.logn),
+                   inverse ? t - nf : t);
+}
+
+}  // namespace server
 }  // namespace rt

@@ -16,10 +16,11 @@ Port of ``repro.kernels.server_eval``:
     INTT stage loops (``common.ntt_stages_t`` / ``intt_stages_t``, the
     same on both datapaths, as in the reference);
   * the CUDA wrappers (``*_cuda``): ``csrc/server_eval.cu``, one C entry
-    point per op (a short sequence of launches on the current stream),
-    each counting its calls in ``LAUNCHES``. Their pointwise REDC is the
-    u64 one on both datapaths (it gives the words of either engine), so
-    they take no ``datapath``.
+    point per op (a fixed sequence of launches on the current stream: the
+    op's twiddle heaps, then its stages, each transform on the tiled NTT
+    block of ``csrc/ntt_tiled.cuh``), each counting its calls in
+    ``LAUNCHES``. Their pointwise REDC is the u64 one on both datapaths (it
+    gives the words of either engine), so they take no ``datapath``.
 
 Inputs and outputs are int32 tensors holding uint32 words: ciphertexts (B,
 l, N) in the NTT domain, plaintexts (l, N), key-switch keys (l, l+1, N)
@@ -422,14 +423,15 @@ def _rescale_cuda(name: str, c0, c1, pt_mont, ctx):
     if pt_mont is not None:
         common.check_tensor(pt_mont, "pt_mont", torch.int32, (level, sc.n),
                             dev)
+    tw = _heaps(sc, dev)
     w = torch.empty((batch, 2, sc.n), dtype=torch.int32, device=dev)
     o0 = torch.empty((batch, level - 1, sc.n), dtype=torch.int32, device=dev)
     o1 = torch.empty_like(o0)
     common.launch("server_rescale_launch", dev, c0.data_ptr(), c1.data_ptr(),
                   None if pt_mont is None else pt_mont.data_ptr(),
-                  table.data_ptr(), w.data_ptr(), o0.data_ptr(),
-                  o1.data_ptr(), batch, level, sc.kc.logn, sc.ncols,
-                  sc.off_qdinv)
+                  table.data_ptr(), tw.data_ptr(), w.data_ptr(),
+                  o0.data_ptr(), o1.data_ptr(), batch, level, sc.kc.logn,
+                  sc.ncols, sc.off_qdinv)
     LAUNCHES[name] += 1
     return o0, o1
 
@@ -442,12 +444,21 @@ def mul_pt_rescale_cuda(c0, c1, pt_mont, ctx: CKKSContext):
     return _rescale_cuda("mul_pt_rescale", c0, c1, pt_mont, ctx)
 
 
+def _heaps(sc: ServerConsts, dev) -> torch.Tensor:
+    """The twiddle-heap scratch of one call, (2, l+1, N): the forward and
+    inverse heaps of each table row, made by the call for the rows and
+    directions its op transforms with."""
+    return torch.empty((2, sc.level + 1, sc.n), dtype=torch.int32,
+                       device=dev)
+
+
 def _ks_scratch(sc: ServerConsts, batch: int, dev) -> dict:
-    """The key switch's device intermediates: centered digits (B, l, N),
-    the digit-NTT stack h (B, l+1, l, N), the accumulators (B, 2, l+1, N)
-    and the centered special row (B, 2, N)."""
+    """The key switch's device intermediates: the twiddle heaps, centered
+    digits (B, l, N), the digit-NTT stack h (B, l+1, l, N), the
+    accumulators (B, 2, l+1, N) and the centered special row (B, 2, N)."""
     l, n = sc.level, sc.n
     return {
+        "tw": _heaps(sc, dev),
         "digits": torch.empty((batch, l, n), dtype=torch.int32, device=dev),
         "h": torch.empty((batch, l + 1, l, n), dtype=torch.int32,
                          device=dev),
@@ -470,9 +481,10 @@ def mul_ct_relin_cuda(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext):
     o1 = torch.empty_like(o0)
     common.launch("server_mul_ct_launch", dev, a0.data_ptr(), a1.data_ptr(),
                   b0.data_ptr(), b1.data_ptr(), ksk_b.data_ptr(),
-                  ksk_a.data_ptr(), table.data_ptr(), d0.data_ptr(),
-                  d1.data_ptr(), d2.data_ptr(), s["digits"].data_ptr(),
-                  s["h"].data_ptr(), s["acc"].data_ptr(), s["w"].data_ptr(),
+                  ksk_a.data_ptr(), table.data_ptr(), s["tw"].data_ptr(),
+                  d0.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+                  s["digits"].data_ptr(), s["h"].data_ptr(),
+                  s["acc"].data_ptr(), s["w"].data_ptr(),
                   t0.data_ptr(), t1.data_ptr(), o0.data_ptr(), o1.data_ptr(),
                   batch, level, sc.kc.logn, sc.ncols, sc.off_r2,
                   sc.off_pinv, sc.off_qdinv)
@@ -490,8 +502,8 @@ def rotate_cuda(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext):
     o0, o1 = torch.empty_like(c0), torch.empty_like(c1)
     common.launch("server_rotate_launch", dev, c0.data_ptr(), c1.data_ptr(),
                   perm.data_ptr(), ksk_b.data_ptr(), ksk_a.data_ptr(),
-                  table.data_ptr(), s["digits"].data_ptr(),
-                  s["h"].data_ptr(), s["acc"].data_ptr(), s["w"].data_ptr(),
+                  table.data_ptr(), s["tw"].data_ptr(),
+                  s["digits"].data_ptr(), s["h"].data_ptr(), s["acc"].data_ptr(), s["w"].data_ptr(),
                   o0.data_ptr(), o1.data_ptr(), batch, level,
                   sc.kc.logn, sc.ncols, sc.off_pinv)
     LAUNCHES["rotate"] += 1
@@ -502,12 +514,13 @@ def ks_decompose_cuda(c1, ctx: CKKSContext):
     sc, table, batch, level = _geo(c1, ctx, "ks_decompose")
     dev = c1.device
     _check_ct(sc, batch, dev, c1=c1)
-    digits = torch.empty_like(c1)
+    tw, digits = _heaps(sc, dev), torch.empty_like(c1)
     h = torch.empty((batch, level + 1, level, sc.n), dtype=torch.int32,
                     device=dev)
     common.launch("server_ks_decompose_launch", dev, c1.data_ptr(),
-                  table.data_ptr(), digits.data_ptr(), h.data_ptr(), batch,
-                  level, sc.kc.logn, sc.ncols)
+                  table.data_ptr(), tw.data_ptr(),
+                  digits.data_ptr(), h.data_ptr(), batch, level, sc.kc.logn,
+                  sc.ncols)
     LAUNCHES["ks_decompose"] += 1
     return h
 
@@ -520,14 +533,15 @@ def ks_apply_rot_cuda(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext):
                         dev)
     _check_perm(sc, dev, perm)
     _check_key(sc, dev, ksk_b, ksk_a)
+    tw = _heaps(sc, dev)
     acc = torch.empty((batch, 2, level + 1, sc.n), dtype=torch.int32,
                       device=dev)
     w = torch.empty((batch, 2, sc.n), dtype=torch.int32, device=dev)
     o0, o1 = torch.empty_like(c0), torch.empty_like(c0)
     common.launch("server_ks_apply_rot_launch", dev, c0.data_ptr(),
                   h.data_ptr(), perm.data_ptr(), ksk_b.data_ptr(),
-                  ksk_a.data_ptr(), table.data_ptr(), acc.data_ptr(),
-                  w.data_ptr(), o0.data_ptr(), o1.data_ptr(), batch, level,
-                  sc.kc.logn, sc.ncols, sc.off_pinv)
+                  ksk_a.data_ptr(), table.data_ptr(), tw.data_ptr(),
+                  acc.data_ptr(), w.data_ptr(), o0.data_ptr(), o1.data_ptr(),
+                  batch, level, sc.kc.logn, sc.ncols, sc.off_pinv)
     LAUNCHES["ks_apply_rot"] += 1
     return o0, o1

@@ -64,11 +64,11 @@ _HOST_ENTRIES = {
     "fft_rows_host": ("fft_df.cu", [_P] * 9 + [_I] * 3),
     "server_pointwise_host": ("server_eval.cu",
                               [_I] + [_P] * 7 + [_I] * 4),
-    "server_rescale_host": ("server_eval.cu", [_P] * 7 + [_I] * 5),
-    "server_ks_decompose_host": ("server_eval.cu", [_P] * 4 + [_I] * 4),
-    "server_ks_apply_rot_host": ("server_eval.cu", [_P] * 10 + [_I] * 5),
-    "server_rotate_host": ("server_eval.cu", [_P] * 12 + [_I] * 5),
-    "server_mul_ct_host": ("server_eval.cu", [_P] * 18 + [_I] * 7),
+    "server_rescale_host": ("server_eval.cu", [_P] * 8 + [_I] * 9),
+    "server_ks_decompose_host": ("server_eval.cu", [_P] * 5 + [_I] * 8),
+    "server_ks_apply_rot_host": ("server_eval.cu", [_P] * 11 + [_I] * 9),
+    "server_rotate_host": ("server_eval.cu", [_P] * 13 + [_I] * 9),
+    "server_mul_ct_host": ("server_eval.cu", [_P] * 19 + [_I] * 11),
     "ntt_rows_host": ("ntt_rows.cu", [_P] * 4 + [_I] * 3),
     "encrypt_limb_host": ("client_pointwise.cu", [_P] * 8 + [_I] * 2
                           + [_U] * 5),
@@ -313,8 +313,8 @@ def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
     """K1's tiled schedule under a forced geometry (a, lc, lr, brev) on
     random residues of every limb, lines of odd and even stage counts
     (one-stage lines at a = 1 and b = 1): the words of the one-row stage
-    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K3's and the
-    server kernels' loop) and of the plain stage loops."""
+    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K3's, K12's
+    and K13's loop) and of the plain stage loops."""
     ctx = get_context(profile)
     L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
     rng = np.random.default_rng(11)
@@ -532,12 +532,24 @@ def _zeros(*shape) -> np.ndarray:
     return np.zeros(shape, np.uint32)
 
 
-def _server_op_host(host_libs, profile, level, op, datapath):
-    """One server body of the host build and its plain version on
-    `datapath` (the plain REDC engine: uint32 or u64) on random words
-    of the right ranges (the kernels' words do not depend on the keys being
-    real keys): B=2 ciphertexts, an (l, N) plaintext, (l, l+1, N) keys, the
-    r=3 Galois permutation. Returns (host words, plain words)."""
+# the ops whose host entries take a forced tile geometry (a, lc, lr, brev)
+# of their transform stages: every op but K7's
+_SERVER_TILED_OPS = ("rescale", "mul_pt_rescale", "mul_ct", "rotate",
+                     "hoisted")
+_SERVER_DEFAULT_GEO = (-1, -1, -1, 0)
+# forced geometries at N = 2^6: several tiles per pass, an uneven a != b
+# split with one column a tile and the chunk tiles in bit-reversed order,
+# a = 1 (one-stage column lines), b = 1 (one-stage chunk lines), a single
+# pass at an uneven split
+_SERVER_GEOS = ((3, 1, 1, 0), (2, 0, 1, 1), (1, 2, 1, 0), (5, 1, 2, 1),
+                (2, 4, 2, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _server_inputs(profile, level) -> dict:
+    """Random words of the right ranges (the kernels' words do not depend on
+    the keys being real keys): B=2 ciphertexts, an (l, N) plaintext,
+    (l, l+1, N) keys, the r=3 Galois permutation."""
     ctx = get_context(profile)
     n, batch = ctx.n, 2
     sc = server_eval.server_consts(ctx, level)
@@ -549,74 +561,114 @@ def _server_op_host(host_libs, profile, level, op, datapath):
     kb, ka = (_words(rng, qs, (level, level + 1, n)) for _ in range(2))
     perm = skeys.galois_perm_ntt(skeys.galois_element(3, n), n
                                  ).reshape(1, n)
-    table = np.ascontiguousarray(sc.table)
-    geo = (batch, level, sc.kc.logn, sc.ncols)
+    return {"ctx": ctx, "sc": sc, "batch": batch, "a0": a0, "a1": a1,
+            "b0": b0, "b1": b1, "pt": pt, "kb": kb, "ka": ka, "perm": perm,
+            "table": np.ascontiguousarray(sc.table)}
+
+
+@functools.lru_cache(maxsize=None)
+def _server_plain(profile, level, op, datapath) -> tuple:
+    """The plain version's words of one server op on _server_inputs, under
+    `datapath`'s REDC engine (uint32 or u64); for "hoisted" K11a's digit
+    stack, then K11b's pair, checked equal to the fused rotation's."""
+    x = _server_inputs(profile, level)
+    ctx = x["ctx"]
+    ta0, ta1, tb0, tb1, tpt = (_t(x[k]) for k in ("a0", "a1", "b0", "b1",
+                                                  "pt"))
+    tkb, tka, tperm = _t(x["kb"]), _t(x["ka"]), torch.tensor(x["perm"])
+    dp = {"datapath": datapath}
+    if op in ("add_ct", "add_pt", "mul_pt"):
+        args = ((ta0, ta1, tb0, tb1) if op == "add_ct" else (ta0, ta1, tpt))
+        want = getattr(server_eval, op + "_plain")(
+            *args, ctx, **(dp if op == "mul_pt" else {}))
+    elif op in ("rescale", "mul_pt_rescale"):
+        args = (ta0, ta1) if op == "rescale" else (ta0, ta1, tpt)
+        want = getattr(server_eval, op + "_plain")(*args, ctx, **dp)
+    elif op == "mul_ct":
+        want = server_eval.mul_ct_relin_plain(ta0, ta1, tb0, tb1, tkb, tka,
+                                              ctx, **dp)
+    elif op == "rotate":
+        want = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
+    else:                                   # hoisted: K11a then K11b
+        h = server_eval.ks_decompose_plain(ta1, ctx)
+        pair = server_eval.ks_apply_rot_plain(ta0, h, tperm, tkb, tka, ctx,
+                                              **dp)
+        rot = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
+        for a, b in zip(pair, rot):           # hoisted == fused
+            assert torch.equal(a, b)
+        want = (h, *pair)
+    return tuple(t.numpy().view(np.uint32) for t in want)
+
+
+def _server_host(host_libs, profile, level, op, geo) -> tuple:
+    """The host build's words of one server op on _server_inputs, the
+    transform stages under the tile geometry `geo` (a, lc, lr, brev)."""
+    x = _server_inputs(profile, level)
+    sc, batch, n = x["sc"], x["batch"], x["ctx"].n
+    a0, a1, b0, b1, pt, kb, ka, perm, table = (
+        x[k] for k in ("a0", "a1", "b0", "b1", "pt", "kb", "ka", "perm",
+                       "table"))
+    geo_args = (batch, level, sc.kc.logn, sc.ncols)
     o0, o1 = _zeros(batch, level, n), _zeros(batch, level, n)
     r0, r1 = _zeros(batch, level - 1, n), _zeros(batch, level - 1, n)
+    tw = _zeros(2, level + 1, n)
     w = np.zeros((batch, 2, n), np.int32)
     digits = np.zeros((batch, level, n), np.int32)
     h = _zeros(batch, level + 1, level, n)
     acc = _zeros(batch, 2, level + 1, n)
-    ta0, ta1, tb0, tb1, tpt = _t(a0), _t(a1), _t(b0), _t(b1), _t(pt)
-    tkb, tka, tperm = _t(kb), _t(ka), torch.tensor(perm)
     fn = {k.replace("server_", "").replace("_host", ""): v
           for k, v in host_libs.items() if k.startswith("server_")}
-    dp = {"datapath": datapath}
 
     if op in ("add_ct", "add_pt", "mul_pt"):
+        assert geo == _SERVER_DEFAULT_GEO
         mode = _SERVER_OPS.index(op)
         err = fn["pointwise"](mode, _ptr(a0), _ptr(a1),
                               _ptr(b0 if mode == 0 else pt),
                               _ptr(b1 if mode == 0 else pt), _ptr(table),
-                              _ptr(o0), _ptr(o1), *geo)
-        args = ((ta0, ta1, tb0, tb1) if mode == 0 else (ta0, ta1, tpt))
-        want = getattr(server_eval, op + "_plain")(
-            *args, ctx, **(dp if op == "mul_pt" else {}))
+                              _ptr(o0), _ptr(o1), *geo_args)
         got = (o0, o1)
     elif op in ("rescale", "mul_pt_rescale"):
         pm = pt if op == "mul_pt_rescale" else None
         err = fn["rescale"](_ptr(a0), _ptr(a1),
                             None if pm is None else _ptr(pm), _ptr(table),
-                            _ptr(w), _ptr(r0), _ptr(r1), *geo, sc.off_qdinv)
-        args = (ta0, ta1) if pm is None else (ta0, ta1, tpt)
-        want = getattr(server_eval, op + "_plain")(*args, ctx, **dp)
+                            _ptr(tw), _ptr(w), _ptr(r0), _ptr(r1), *geo_args,
+                            sc.off_qdinv, *geo)
         got = (r0, r1)
     elif op == "mul_ct":
         d = [_zeros(batch, level, n) for _ in range(5)]
         err = fn["mul_ct"](_ptr(a0), _ptr(a1), _ptr(b0), _ptr(b1),
-                           _ptr(kb), _ptr(ka), _ptr(table),
-                           *(_ptr(x) for x in d[:3]), _ptr(digits), _ptr(h),
+                           _ptr(kb), _ptr(ka), _ptr(table), _ptr(tw),
+                           *(_ptr(t) for t in d[:3]), _ptr(digits), _ptr(h),
                            _ptr(acc), _ptr(w), _ptr(d[3]), _ptr(d[4]),
-                           _ptr(r0), _ptr(r1), *geo, sc.off_r2, sc.off_pinv,
-                           sc.off_qdinv)
-        want = server_eval.mul_ct_relin_plain(ta0, ta1, tb0, tb1, tkb, tka,
-                                              ctx, **dp)
+                           _ptr(r0), _ptr(r1), *geo_args, sc.off_r2,
+                           sc.off_pinv, sc.off_qdinv, *geo)
         got = (r0, r1)
     elif op == "rotate":
         err = fn["rotate"](_ptr(a0), _ptr(a1), _ptr(perm), _ptr(kb),
-                           _ptr(ka), _ptr(table), _ptr(digits), _ptr(h),
-                           _ptr(acc), _ptr(w), _ptr(o0), _ptr(o1), *geo,
-                           sc.off_pinv)
-        want = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
+                           _ptr(ka), _ptr(table), _ptr(tw), _ptr(digits),
+                           _ptr(h), _ptr(acc), _ptr(w), _ptr(o0), _ptr(o1),
+                           *geo_args, sc.off_pinv, *geo)
         got = (o0, o1)
     else:                                   # hoisted: K11a then K11b
-        err = fn["ks_decompose"](_ptr(a1), _ptr(table), _ptr(digits),
-                                 _ptr(h), *geo)
+        err = fn["ks_decompose"](_ptr(a1), _ptr(table), _ptr(tw),
+                                 _ptr(digits), _ptr(h), *geo_args, *geo)
         assert err == 0
-        want_h = server_eval.ks_decompose_plain(ta1, ctx)
-        np.testing.assert_array_equal(h, want_h.numpy().view(np.uint32))
         err = fn["ks_apply_rot"](_ptr(a0), _ptr(h), _ptr(perm),
-                                 _ptr(kb), _ptr(ka), _ptr(table), _ptr(acc),
-                                 _ptr(w), _ptr(o0), _ptr(o1), *geo,
-                                 sc.off_pinv)
-        want = server_eval.ks_apply_rot_plain(ta0, want_h, tperm, tkb, tka,
-                                              ctx, **dp)
-        got = (o0, o1)
-        rot = server_eval.rotate_plain(ta0, ta1, tperm, tkb, tka, ctx, **dp)
-        for a, b in zip(want, rot):           # hoisted == fused
-            assert torch.equal(a, b)
+                                 _ptr(kb), _ptr(ka), _ptr(table), _ptr(tw),
+                                 _ptr(acc), _ptr(w), _ptr(o0), _ptr(o1),
+                                 *geo_args, sc.off_pinv, *geo)
+        got = (h, o0, o1)
     assert err == 0
-    return got, want
+    return got
+
+
+def _server_op_host(host_libs, profile, level, op, datapath,
+                    geo=_SERVER_DEFAULT_GEO):
+    """One server body of the host build and its plain version on
+    `datapath` (the plain REDC engine: uint32 or u64) on _server_inputs.
+    Returns (host words, plain words)."""
+    return (_server_host(host_libs, profile, level, op, geo),
+            _server_plain(profile, level, op, datapath))
 
 
 @pytest.mark.parametrize("op", _SERVER_OPS)
@@ -625,8 +677,8 @@ def test_host_server_ops_match_plain(host_libs, profile, level, op):
     """Each server body against its plain version on the df32 datapath
     (the uint32 REDC)."""
     got, want = _server_op_host(host_libs, profile, level, op, "df32")
-    for g, wnt in zip(got, want):
-        np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))
+    for g, wnt in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, wnt)
 
 
 @pytest.mark.parametrize("op", _SERVER_OPS)
@@ -635,8 +687,25 @@ def test_host_server_ops_match_plain_f64(host_libs, profile, level, op):
     """Each server body against its plain version on the f64 datapath (the
     u64 REDC): the one body gives the words of both."""
     got, want = _server_op_host(host_libs, profile, level, op, "f64")
-    for g, wnt in zip(got, want):
-        np.testing.assert_array_equal(g, wnt.numpy().view(np.uint32))
+    for g, wnt in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, wnt)
+
+
+@pytest.mark.parametrize("datapath", ["df32", "f64"])
+@pytest.mark.parametrize("geo", _SERVER_GEOS,
+                         ids=["-".join(map(str, g)) for g in _SERVER_GEOS])
+@pytest.mark.parametrize("op", _SERVER_TILED_OPS)
+@pytest.mark.parametrize("profile,level", [("tiny", 3), ("tinyboot", 6)])
+def test_host_server_ops_forced_geometry_match_plain(host_libs, profile,
+                                                     level, op, geo,
+                                                     datapath):
+    """K8, K8b, K9, K10 and K11a + K11b with their transform stages (the
+    lift's INTT, the base extension's and the scale-down's NTTs) under a
+    forced tile geometry (a, lc, lr, brev) against the plain versions on
+    both REDC engines; hoisted == fused is checked on the plain side."""
+    got, want = _server_op_host(host_libs, profile, level, op, datapath, geo)
+    for g, wnt in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, wnt)
 
 
 # ---------------------------------------------------------------------------
