@@ -16,12 +16,14 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      intermediates of a staged round trip. K5 / K6 also on both datapaths
      at ``paper`` B=1 and ``n15`` B=2 (odd logN: an uneven tile split of
      their two-pass NTT / FFT), and on the f64 datapath at ``test`` B=16
-     and ``paper`` B=4, every row. K1 (both directions) and K2 also on
-     random residues at the shapes the tiled NTT's planning reaches
-     (``STAGED_SHAPES``: ``paper`` B=1, the encrypted flow's ``boot``
-     (6, 1, 2^16) stack, ``n15`` B=2, ``server`` (one pass), K2 rows
-     across the 2^32 nonce wrap), K2 on the transposed plaintext view the
-     staged client passes and on its contiguous copy;
+     and ``paper`` B=4, every row. K1 (both directions), K2, K3 and K4
+     (both directions) also on random words at the shapes the tiled NTT's
+     and FFT's planning reaches (``STAGED_SHAPES``: ``paper`` B=1, the
+     encrypted flow's ``boot`` (6, 1, 2^16) stack (K1), ``n15`` B=2,
+     ``server`` (one pass), K2 rows across the 2^32 nonce wrap), K2 on the
+     transposed plaintext view the staged client passes and on its
+     contiguous copy, K3 on the 2- and 3-limb views of a (B, L, N) batch,
+     K4's forward on the halves of (B, N) rows;
   4. drives both client paths at the ``paper`` profile (N=2^16, 24 limbs,
      Delta=2^55), B=16: ``encode_encrypt_batch`` -> ``truncated(2)`` ->
      ``decrypt_decode_batch``, first the default megakernel path, then
@@ -35,7 +37,7 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      idle share), then times every kernel at ``paper``, B=1 and B=16 (CUDA
      events around 5 calls queued behind a spin, so the card never waits
      on the host; after warm-up), and the plain versions at B=16; prints
-     the device kernels one K5 / K6 / K1 / K2 call launches, each with its
+     the device kernels one K5 / K6 / K1 - K4 call launches, each with its
      time, and times K1 both ways at the flow's (6, 1, 2^16) stack beside
      its bound and its plain version;
   6. the server op set (K7-K11): holds each of its nine kernel bodies
@@ -86,7 +88,7 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
  10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
-     bound; for K5 / K6, K1, K2 and the server kernels K8-K11 also the
+     bound; for K5 / K6, K1 - K4 and the server kernels K8-K11 also the
      device kernels per call), then, as the last line, ``{"ok": true,
      "device": ...}``.
 
@@ -536,10 +538,10 @@ def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
         return f(*args) if errs is not None else None
 
     x = {"enc_planes": client.encrypt_operands(msgs)}
-    y = fft_df.fft_rows_cuda(x["enc_planes"], p.m, True)
+    y = fft_df.special_fft_cuda(x["enc_planes"], p.m, True)
     check("special_ifft", y,
-          plain(fft_df.fft_rows_plain, x["enc_planes"], p.m, True))
-    w = dfl.dfc_from_planes(fft_df.bitrev_planes(y))
+          plain(fft_df.special_fft_plain, x["enc_planes"], p.m, True))
+    w = dfl.dfc_from_planes(y)
     digits = encoder.delta_scale_digits(encoder.planes_to_coeff_df(w),
                                         p.delta)
     x["residues"] = modmul.i64_to_u32(rns.digits_to_residues_stacked(
@@ -570,11 +572,12 @@ def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
     scale = torch.full((len(msgs), 1), p.delta, dtype=torch.float32,
                        device=m.device)
     v = rns.centered_to_df(sign, vh, vl, 1.0 / scale)
-    x["dec_planes"] = fft_df.bitrev_planes(
-        (v.hi[:, :ns], v.lo[:, :ns], v.hi[:, ns:], v.lo[:, ns:]))
-    out = fft_df.fft_rows_cuda(x["dec_planes"], p.m, False)
+    # the halves of the (B, N) rows, views read through their row stride
+    x["dec_planes"] = (v.hi[:, :ns], v.lo[:, :ns], v.hi[:, ns:],
+                       v.lo[:, ns:])
+    out = fft_df.special_fft_cuda(x["dec_planes"], p.m, False)
     check("special_fft", out,
-          plain(fft_df.fft_rows_plain, x["dec_planes"], p.m, False))
+          plain(fft_df.special_fft_plain, x["dec_planes"], p.m, False))
     # the chain is the client's staged path: same words as the client
     client.nonce = nonce0
     cts = client.encode_encrypt_batch(msgs)
@@ -586,16 +589,17 @@ def _staged_chain(client, msgs, nonce0: int, errs=None) -> dict:
     return x
 
 
-# K1 / K2 against their plain versions beyond CHECKS, at the shapes the
-# tiled NTT's planning reaches: (profile, K1 stack (L, rows) or None, K2
-# batch or None, K2 nonce base)
+# K1 - K4 against their plain versions beyond CHECKS, at the shapes the
+# tiled NTT's and FFT's planning reaches: (profile, K1 stack (L, rows) or
+# None, K2 batch or None, K2 nonce base, K3 / K4 batch or None)
 STAGED_SHAPES = (
-    ("paper", (24, 1), 1, 123),       # B=1: the fewest blocks at N = 2^16
-    ("boot", (6, 1), None, 0),        # the flow's plaintext encoder
-    ("n15", (24, 2), 2, 123),         # odd logN: an uneven 8 + 7 split
-    ("server", (8, 2), 2, 123),       # N = 2^10: one pass
-    ("paper", None, 4, 0xFFFFFFFE),   # K2 rows across the nonce wrap
+    ("paper", (24, 1), 1, 123, 1),    # B=1: the fewest blocks at N = 2^16
+    ("boot", (6, 1), None, 0, None),  # the flow's plaintext encoder
+    ("n15", (24, 2), 2, 123, 2),      # odd logN: an uneven 8 + 7 split
+    ("server", (8, 2), 2, 123, 2),    # N = 2^10: one pass
+    ("paper", None, 4, 0xFFFFFFFE, None),  # K2 rows across the nonce wrap
 )
+K3_LIMBS = (2, 3)    # K3 on the L_dec-limb views of a (B, L, N) batch
 FLOW_K1_PROFILE, FLOW_K1_STACK = "boot", (6, 1)   # (L, rows) a flow call
 
 
@@ -611,15 +615,30 @@ def _rand_words(ctx, shape, seed: int, dev):
     return torch.from_numpy(w.view(np.int32)).to(dev)
 
 
+def _rand_planes(ns: int, rows: int, seed: int, dev):
+    """Four (rows, 2 ns) float32 df planes of random values on `dev`."""
+    import numpy as np
+    import torch
+    z = np.random.default_rng(seed).standard_normal((2, rows, 2 * ns))
+    hi = z.astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        hi[0], (z[0] - hi[0]).astype(np.float32),
+        hi[1], (z[1] - hi[1]).astype(np.float32)))
+
+
 def _check_staged_shapes(dev, errs: dict) -> None:
-    """K1 (both directions) and K2 against their plain versions, bit for
-    bit, on random residues at STAGED_SHAPES; K2 on the (L, B, N) ->
-    (B, L, N) transposed view (as the staged client passes it) and on its
-    contiguous copy. The kernels' words do not depend on the key rows being
-    a real key, so K2 takes random ones."""
+    """K1 (both directions), K2, K3 and K4 (both directions) against their
+    plain versions, bit for bit, on random words at STAGED_SHAPES; K2 on
+    the (L, B, N) -> (B, L, N) transposed view (as the staged client passes
+    it) and on its contiguous copy; K3 on the L_dec-limb views of a
+    (B, L, N) batch (L_dec = 2, as the client decrypts, and 3); K4's
+    forward on the halves of (B, N) rows (as the staged decode passes
+    them), its inverse on contiguous planes. The kernels' words do not
+    depend on the key rows being a real key, so K2 and K3 take random
+    ones."""
     from repro_torch.core.context import get_context
-    from repro_torch.kernels import client_pointwise, ntt_butterfly
-    for i, (profile, stack, batch, nonce0) in enumerate(STAGED_SHAPES):
+    from repro_torch.kernels import client_pointwise, fft_df, ntt_butterfly
+    for i, (profile, stack, batch, nonce0, k34) in enumerate(STAGED_SHAPES):
         ctx = get_context(profile)
         p = ctx.params
         done = []
@@ -653,6 +672,33 @@ def _check_staged_shapes(dev, errs: dict) -> None:
                 pt.contiguous(), pkb, pka, ctx, SEED, nonce0), want, at)
             done.append(f"K2 B={batch} nonce0 {nonce0:#x} (view and "
                         f"contiguous)")
+        if k34 is not None:
+            L, ns = p.n_limbs, p.n_slots
+            c0, c1 = (_rand_words(ctx, (L, k34, p.n), 100 + i + k, dev
+                                  ).transpose(0, 1).contiguous()
+                      for k in (0, 1))
+            s_mont = _rand_words(ctx, (L, p.n), 102 + i, dev)
+            for n_limbs in K3_LIMBS:
+                _hold(errs, "decrypt_limbs",
+                      client_pointwise.decrypt_limbs_cuda(
+                          c0[:, :n_limbs], c1[:, :n_limbs], s_mont, ctx),
+                      client_pointwise.decrypt_limbs_plain(
+                          c0[:, :n_limbs], c1[:, :n_limbs], s_mont, ctx),
+                      f"its plain version at {profile} B={k34} on the "
+                      f"{n_limbs}-limb view")
+            full = _rand_planes(ns, k34, 110 + i, dev)
+            halves = (full[0][:, :ns], full[1][:, :ns], full[2][:, ns:],
+                      full[3][:, ns:])
+            contiguous = tuple(h.contiguous() for h in halves)
+            for name, inverse, planes in (("special_fft", False, halves),
+                                          ("special_ifft", True,
+                                           contiguous)):
+                _hold(errs, name,
+                      fft_df.special_fft_cuda(planes, p.m, inverse),
+                      fft_df.special_fft_plain(planes, p.m, inverse),
+                      f"its plain version at {profile} B={k34}")
+            done.append(f"K3 B={k34} L_dec {K3_LIMBS} (views); K4 both "
+                        f"ways B={k34} (forward on row halves)")
         print(f"kernel == plain (bit-identical), {profile}: "
               f"{'; '.join(done)}", flush=True)
 
@@ -1859,7 +1905,7 @@ def main() -> int:
 
     # --- 5. times -------------------------------------------------------------
     def device_kernels(by_name: dict | None) -> dict:
-        """the device kernels of one entry call, for a K5 / K6 / K1 / K2
+        """the device kernels of one entry call, for a K5 / K6 / K1 - K4
         or server entry (None where the profiler saw none: not
         measured)"""
         if by_name is None:
@@ -1921,9 +1967,10 @@ def main() -> int:
         for name, inverse, key in (("special_fft", False, "dec_planes"),
                                    ("special_ifft", True, "enc_planes")):
             calls[name] = (
-                lambda i=inverse, k=key: fft_df.fft_rows_cuda(x[k], p.m, i),
-                lambda i=inverse, k=key: fft_df.fft_rows_plain(x[k], p.m,
-                                                               i),
+                lambda i=inverse, k=key: fft_df.special_fft_cuda(x[k], p.m,
+                                                                 i),
+                lambda i=inverse, k=key: fft_df.special_fft_plain(x[k], p.m,
+                                                                  i),
                 _cost_fft_rows(p, batch, inverse))
         for name, (kernel, plain_fn, cost) in calls.items():
             times[name, batch] = _device_ms(kernel, iters=5)
@@ -1932,7 +1979,8 @@ def main() -> int:
                 times[name + "_plain", batch] = _cuda_ms(plain_fn, iters=1,
                                                          warmup=1)
         for name in ("encode_encrypt_stream", "decrypt_decode_stream",
-                     "ntt_limbs", "intt_limbs", "encrypt_limbs"):
+                     "ntt_limbs", "intt_limbs", "encrypt_limbs",
+                     "decrypt_limbs", "special_fft", "special_ifft"):
             dkernels[name, batch] = _device_kernels(calls[name][0])
             _print_device_kernels(name, f"{MAIN_PROFILE} B={batch}",
                                   dkernels[name, batch], card)

@@ -55,8 +55,10 @@ ENTRY_POINTS = {
         + [_U32] * 5 + [_P]),
     "decrypt_limbs_launch": (
         "client_pointwise.cu",
-        [_P, _P, ctypes.c_longlong] + [_P] * 3 + [_I32] * 4 + [_P]),
-    "fft_rows_launch": ("fft_df.cu", [_P] * 9 + [_I32] * 3 + [_P]),
+        [_P, _P, ctypes.c_longlong] + [_P] * 4 + [_I32] * 4 + [_P]),
+    "special_fft_launch": (
+        "fft_df.cu",
+        [_P] * 4 + [ctypes.c_longlong] + [_P] * 5 + [_I32] * 3 + [_P]),
     "server_pointwise_launch": (
         "server_eval.cu", [_I32] + [_P] * 7 + [_I32] * 4 + [_P]),
     "server_rescale_launch": (

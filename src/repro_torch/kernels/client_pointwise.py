@@ -10,7 +10,8 @@ Port of ``repro.kernels.client_pointwise``:
   * ``encrypt_limbs_cuda`` launches ``csrc/client_pointwise.cu``'s K2
     (replaces the TPU kernel ``_encrypt_kernel_folded``; K5's encrypt body
     on the tiled NTT block, reading pt through its strides),
-    ``decrypt_limbs_cuda`` its K3 (replaces ``_decrypt_kernel_folded``);
+    ``decrypt_limbs_cuda`` its K3 (replaces ``_decrypt_kernel_folded``;
+    an INTT stage on the same tiled block, c0 + c1*s in its first load);
     ``encrypt_limbs_plain`` / ``decrypt_limbs_plain`` are the same
     functions composed from the stages, limb by limb. Both take and return
     int32 tensors holding uint32 words; each CUDA wrapper counts its
@@ -198,14 +199,16 @@ def decrypt_limbs_cuda(c0, c1, s_mont, ctx):
     common.check_limb_views(c0, c1, n_limbs, n, dev)
     if c1.shape[1] != n_limbs:
         raise ValueError("c0 and c1 must hold the same limbs")
-    common.check_grid_rows(batch)
+    if batch == 0:
+        raise ValueError("decrypt_limbs_cuda needs at least one row")
     common.check_key_rows(s_mont, "s_mont", n_limbs, n, dev)
     kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
     m = torch.empty((batch, n_limbs, n), dtype=torch.int32, device=dev)
+    tw_heap = torch.empty((n_limbs, n), dtype=torch.int32, device=dev)
     common.launch("decrypt_limbs_launch", dev, c0.data_ptr(), c1.data_ptr(),
                   c0.stride(0), s_mont.data_ptr(),
                   common.device_seed_table(kc, dev).data_ptr(), m.data_ptr(),
-                  batch, n_limbs, kc.logn, kc.n_scalars)
+                  tw_heap.data_ptr(), batch, n_limbs, kc.logn, kc.n_scalars)
     LAUNCHES["decrypt_limbs"] += 1
     return m
 

@@ -8,8 +8,9 @@
 // CRT, the f64 datapath's df64 transforms (exact Delta-scale round, fmod
 // RNS, df64 CRT), the NTT/INTT stage loops with
 // on-the-fly twiddle doubling from the (L, K) seed table (templated on the
-// REDC policy), the df32 SpecialFFT stage loop, and the (limb, row)
-// encrypt and decrypt block bodies.
+// REDC policy; the one-row loop of the per-prime kernels), the df32
+// SpecialIFFT's 1/n scale, and the (limb, row) encrypt and decrypt block
+// bodies of K13.
 //
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
@@ -20,10 +21,12 @@
 // round (which round half away from zero).
 //
 // Work layout: a block body walks its index ranges with a stride of the
-// block size and separates dependent phases with RT_SYNC(). The NTT and
-// FFT rows (256 KB / 512 KB at N = 2^16) live in global memory (scratch or
-// the output buffers themselves, L2-resident per block); only a stage's
-// NTT twiddles (at most N/2 words = 128 KB) sit in dynamic shared memory.
+// block size and separates dependent phases with RT_SYNC(). In the
+// one-row loops the NTT rows (256 KB at N = 2^16) live in global memory
+// (scratch or the output buffers themselves, L2-resident per block); only
+// a stage's NTT twiddles (at most N/2 words = 128 KB) sit in dynamic shared
+// memory. The tiled transforms (ntt_tiled.cuh) hold their tiles in shared
+// memory instead.
 //
 // The same header compiles as plain C++ (no __CUDACC__): one thread per
 // block, RT_SYNC a no-op. Each phase is race-free by construction, so that
@@ -578,32 +581,9 @@ RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
 }
 
 // ---------------------------------------------------------------------------
-// df32 SpecialFFT stage loops on one row of n complex values
-// (fft_df.fft_stage_pipeline); tw: the packed (4, n) table of the direction
+// the 1/n scale of the df32 SpecialIFFT (fft_df.fft_stage_pipeline's last
+// step; the tiled stage loops are ntt_tiled.cuh's)
 // ---------------------------------------------------------------------------
-
-// encode direction: GS stages, length n .. 2 (offset of stage s is
-// n - n/2^s), then the 1/n scale (the caller applies it elementwise:
-// ifft_scale)
-RT_FN void fft_inv_stages(Planes x, int logns, const float *tw) {
-  const int n = 1 << logns;
-  for (int s = 0; s < logns; ++s) {
-    const int loglh = logns - 1 - s;  // lenh = length / 2
-    const int off = n - (n >> s);
-    for (int idx = RT_TID; idx < n / 2; idx += RT_NT) {
-      const int g = idx >> loglh;
-      const int i = idx & ((1 << loglh) - 1);
-      const int p0 = (g << (loglh + 1)) + i;
-      const int p1 = p0 + (1 << loglh);
-      const dfc u = load_dfc(x, p0), v = load_dfc(x, p1);
-      const dfc w = load_tw(tw, n, off + i);
-      store_dfc(x, p0, dfc_add(u, v));
-      store_dfc(x, p1, dfc_mul(dfc_sub(u, v), w));
-    }
-    RT_SYNC();
-  }
-}
-
 RT_FN dfc ifft_scale(dfc z, int logns) {
   df sc;
   sc.hi = 1.0f / (float)(1 << logns);  // 1/n is a power of two: lo = 0
@@ -612,26 +592,6 @@ RT_FN dfc ifft_scale(dfc z, int logns) {
   r.re = df_mul(z.re, sc);
   r.im = df_mul(z.im, sc);
   return r;
-}
-
-// decode direction: CT stages, length 2 .. n (offset of stage s is
-// 2^s - 1), input already bit-reversed
-RT_FN void fft_fwd_stages(Planes x, int logns, const float *tw) {
-  const int n = 1 << logns;
-  for (int s = 0; s < logns; ++s) {  // lenh = 2^s
-    const int off = (1 << s) - 1;
-    for (int idx = RT_TID; idx < n / 2; idx += RT_NT) {
-      const int g = idx >> s;
-      const int i = idx & ((1 << s) - 1);
-      const int p0 = (g << (s + 1)) + i;
-      const int p1 = p0 + (1 << s);
-      const dfc u = load_dfc(x, p0);
-      const dfc v = dfc_mul(load_dfc(x, p1), load_tw(tw, n, off + i));
-      store_dfc(x, p0, dfc_add(u, v));
-      store_dfc(x, p1, dfc_sub(u, v));
-    }
-    RT_SYNC();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -722,9 +682,9 @@ RT_FN void encrypt_limb_block(const EncLimb &e, const Red &red,
   }
 }
 
-// One decrypt block (K3 and K13b client_pointwise.cu, K6 phase 1): m =
-// INTT(c0 + c1*s) of one (limb, row), in place in the row m
-// (client_pointwise.decrypt_limb_stage).
+// One decrypt block (K13b, client_pointwise.cu): m = INTT(c0 + c1*s) of
+// one (limb, row), in place in the row m (client_pointwise.decrypt_limb_plain
+// under the REDC policy `red`).
 template <class Red>
 RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
                               const uint32_t *s, uint32_t *m, int logn,
@@ -736,12 +696,6 @@ RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
   RT_SYNC();
   Rows rows = {{m, m, m, m}};
   ntt_inv(rows, 1, logn, trow, red, tw);
-}
-
-RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
-                              const uint32_t *s, uint32_t *m, int logn,
-                              const uint32_t *trow, uint32_t *tw) {
-  decrypt_limb_block(x0, x1, s, m, logn, trow, mont_redc(trow), tw);
 }
 
 }  // namespace rt

@@ -23,11 +23,17 @@
 // c0 and c1; rows that fit one tile (logn <= 11) take one pass, a block
 // per (limb, row). pt is read through its row and limb strides (the
 // (L, B, N) -> (B, L, N) transpose of the staged client needs no copy).
-// K3: grid (L_dec, B), one block per (limb, row) runs the one-row block
-// body rt::decrypt_limb_block (client_common.cuh); it reads rows of any
-// stride (the 2-limb view of a (B, L, N) batch) and writes (B, L_dec, N).
-// The reference's batch block (_batch_block) only bounds a TPU grid step's
-// working set and changes no output.
+// K3 is a transform stage (DecRows) on the tiled NTT block's stage_tile
+// (ntt_tiled.cuh), as K1 is: one entry call launches the prologue
+// (heap_rows_kernel: the inverse twiddle heaps (L_dec, N)), then on rows
+// above one tile the chunk pass, whose load forms c0 + c1*s, and the column
+// pass, whose store folds in N^-1 (decrypt_limbs_{chunks,cols}_kernel, a
+// block per (row, limb, tile)); rows that fit one tile (logn <= 11) take
+// one pass, a block per (row, limb). It reads rows of any stride (the
+// 2-limb view of a (B, L, N) batch) and writes (B, L_dec, N), which also
+// holds the transform between the passes. The reference's batch block
+// (_batch_block) only bounds a TPU grid step's working set and changes no
+// output.
 //
 // K13a replaces :_encrypt_kernel (encrypt_limb) and K13b :_decrypt_kernel
 // (decrypt_limb): the one-row block bodies rt::encrypt_limb_block /
@@ -42,9 +48,9 @@
 // What bounds them on an H100: K2 writes 8 bytes per (row, limb,
 // coefficient) but needs three 16-stage NTTs and five Philox-10 words per
 // coefficient; K3 one INTT per (row, limb): operations, not bytes. K2's
-// tiled passes keep its butterflies in shared memory (two stages per
-// barrier, four points a thread in registers; a row crosses device memory
-// twice). K3 and K13 still stream their NTT rows (256 KB at N = 2^16)
+// and K3's tiled passes keep their butterflies in shared memory (two stages
+// per barrier, four points a thread in registers; a row crosses device
+// memory twice). K13 still streams its NTT rows (256 KB at N = 2^16)
 // through global memory with a barrier per stage; only a stage's twiddles
 // sit in shared memory. Times against the bounds: PERF.md §6.
 #include "encrypt_tiled.cuh"
@@ -76,22 +82,36 @@ rt::tiled::EncNtt enc_ntt(const uint32_t *pk_b, const uint32_t *pk_a,
           logn, n_scalars, {seed0, seed1, seed2, seed3}, nonce0, {}};
 }
 
-struct DecArgs {
-  const uint32_t *c0, *c1;  // (B, >=L, N), row stride `row_stride`
+// K3's transform stage: row b * L_dec + l of the (B, L_dec, N) output m is
+// INTT(c0 + c1*s) of limb l of row b, with table row l; m also holds the
+// transform between the passes
+struct DecRows {
+  static constexpr bool kInverse = true;
+  const uint32_t *c0, *c1;  // (B, >= L_dec, N), row stride `row_stride`
   long long row_stride;
-  const uint32_t *s_mont;   // (>=L, N)
-  const uint32_t *table;    // (L, K) seed table
-  uint32_t *m;              // (B, L, N)
+  const uint32_t *s_mont;   // (>= L_dec, N)
+  const uint32_t *table;    // (L_dec, K) seed table
+  uint32_t *m;              // (B, L_dec, N)
   int n_limbs, logn, n_scalars;
+  struct Row {
+    int prime;
+    uint32_t *mid;
+    const uint32_t *x0, *x1, *s;
+    rt::MontRedc red;
+    RT_MEMBER uint32_t load(int p) const {
+      return rt::addmod(x0[p], rt::redc(red, x1[p], s[p]), red.q);
+    }
+    RT_MEMBER void store(int p, uint32_t v) const { mid[p] = v; }
+  };
+  RT_MEMBER Row bind(long long row) const {
+    const int l = (int)(row % n_limbs);
+    const size_t in = (size_t)(row / n_limbs) * row_stride +
+                      ((size_t)l << logn);
+    return Row{l, m + ((size_t)row << logn), c0 + in, c1 + in,
+               s_mont + ((size_t)l << logn),
+               rt::mont_redc(table + (size_t)l * n_scalars)};
+  }
 };
-
-RT_BODY void decrypt_limb(const DecArgs &a, int l, int b, uint32_t *tw) {
-  const int n = 1 << a.logn;
-  const size_t row = (size_t)b * a.row_stride + (size_t)l * n;
-  rt::decrypt_limb_block(a.c0 + row, a.c1 + row, a.s_mont + (size_t)l * n,
-                         a.m + ((size_t)b * a.n_limbs + l) * n, a.logn,
-                         a.table + (size_t)l * a.n_scalars, tw);
-}
 
 // K13: one limb of a (B, N) batch under the shift-add REDC
 struct EncOneArgs {
@@ -144,14 +164,19 @@ RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
           n_limbs, logn, n_scalars, seed0, seed1, seed2, seed3, nonce0)
 #define ENC_PT PtNtt{pt, pt_row_stride, pt_limb_stride}
 
+// K3's entry arguments (the host entry adds the tile geometry)
+#define DEC_PARAMS                                                          \
+  const uint32_t *c0, const uint32_t *c1, long long row_stride,             \
+      const uint32_t *s_mont, const uint32_t *table, uint32_t *m,           \
+      uint32_t *tw_heap, int batch, int n_limbs, int logn, int n_scalars
+#define DEC_ROWS                                                            \
+  DecRows{c0, c1, row_stride, s_mont, table, m, n_limbs, logn, n_scalars}
+
 #if defined(__CUDACC__)
 
 namespace {
 
-__global__ void __launch_bounds__(1024) decrypt_folded_kernel(DecArgs a) {
-  extern __shared__ uint32_t tw_smem[];
-  decrypt_limb(a, blockIdx.x, blockIdx.y, tw_smem);
-}
+RT_STAGE_KERNELS(decrypt_limbs, DecRows)
 
 __global__ void __launch_bounds__(1024) encrypt_limb_kernel(EncOneArgs a) {
   extern __shared__ uint32_t tw_smem[];
@@ -176,22 +201,19 @@ extern "C" int encrypt_limbs_launch(ENC_PARAMS, void *stream) {
   return (int)enc_ntt_launch(a, ENC_PT, s);
 }
 
-extern "C" int decrypt_limbs_launch(const uint32_t *c0, const uint32_t *c1,
-                                    long long row_stride,
-                                    const uint32_t *s_mont,
-                                    const uint32_t *table, uint32_t *m,
-                                    int batch, int n_limbs, int logn,
-                                    int n_scalars, void *stream) {
-  DecArgs a = {c0, c1, row_stride, s_mont, table, m, n_limbs, logn,
-               n_scalars};
-  const size_t smem = sizeof(uint32_t) << (logn - 1);
-  static rt::SmemAllowance allowance;
-  cudaError_t err =
-      rt::allow_dynamic_smem(decrypt_folded_kernel, smem, allowance);
+extern "C" int decrypt_limbs_launch(DEC_PARAMS, void *stream) {
+  const long long rows = (long long)batch * n_limbs;
+  const rt::tiled::Tiling t = rt::tiled::rows_tiling(
+      table, n_scalars, tw_heap, rows, logn, -1, -1, -1, 0);
+  if (!rt::tiled::geo_valid(t.g)) return (int)cudaErrorInvalidValue;
+  if (!rt::tiled::stage_fits(t.g, rows))
+    return (int)cudaErrorInvalidConfiguration;  // a grid's x extent
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = rt::tiled::launch_heap_rows<true>(
+      table, n_scalars, logn, tw_heap, n_limbs, s);
   if (err != cudaSuccess) return (int)err;
-  decrypt_folded_kernel<<<dim3(n_limbs, batch), 1024, smem,
-                          (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const DecRows st = DEC_ROWS;
+  return (int)rt::tiled::launch_stage(stage_kernels(st), st, t, rows, s);
 }
 
 extern "C" int encrypt_limb_launch(
@@ -241,18 +263,16 @@ extern "C" int encrypt_limbs_host(ENC_PARAMS, int ga, int lc, int lr) {
   return 0;
 }
 
-extern "C" int decrypt_limbs_host(const uint32_t *c0, const uint32_t *c1,
-                                  long long row_stride,
-                                  const uint32_t *s_mont,
-                                  const uint32_t *table, uint32_t *m,
-                                  int batch, int n_limbs, int logn,
-                                  int n_scalars) {
-  DecArgs a = {c0, c1, row_stride, s_mont, table, m, n_limbs, logn,
-               n_scalars};
-  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
-  for (int b = 0; b < batch; ++b)
-    for (int l = 0; l < n_limbs; ++l) decrypt_limb(a, l, b, tw_smem.data());
-  return 0;
+// K3's host entry takes the tile geometry and the chunk tiles' order too
+// (a, lc, lr = -1: the CUDA entry's plan; brev 0: its order).
+extern "C" int decrypt_limbs_host(DEC_PARAMS, int ga, int lc, int lr,
+                                  int brev) {
+  const long long rows = (long long)batch * n_limbs;
+  const rt::tiled::Tiling t = rt::tiled::rows_tiling(
+      table, n_scalars, tw_heap, rows, logn, ga, lc, lr, brev);
+  if (!rt::tiled::geo_valid(t.g)) return 1;
+  rt::tiled::heap_rows_host(table, n_scalars, logn, true, tw_heap, n_limbs);
+  return rt::tiled::run_stage_host(DEC_ROWS, t, rows) ? 0 : 1;
 }
 
 extern "C" int encrypt_limb_host(

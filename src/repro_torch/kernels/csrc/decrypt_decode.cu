@@ -164,8 +164,7 @@ bool dec_plan(DecArgs &a, const int *geo) {
   const long long rows = a.batch, limb_rows = 2LL * a.batch;
   a.ng = plan_geo(a.logn, geo[0], geo[1], geo[2], kSinglePassLogn,
                   limb_rows, limb_rows, 3, 5, 1, 3, 0);
-  a.fg = plan_geo(a.logn - 1, geo[3], geo[4], geo[5], kSinglePassLognFft,
-                  rows, rows, 2, 3, 2, 3, 1);
+  a.fg = fft_geo(a.logn - 1, geo[3], geo[4], geo[5], rows);
   return geo_valid(a.ng) && geo_valid(a.fg);
 }
 

@@ -178,8 +178,7 @@ bool enc_plan(EncArgs &a, const int *geo) {
   using namespace rt::tiled;
   const int batch = a.ntt.batch, logn = a.ntt.logn;
   a.ntt.g = enc_ntt_geo(logn, geo[0], geo[1], geo[2], batch, a.ntt.n_limbs);
-  a.fg = plan_geo(logn - 1, geo[3], geo[4], geo[5], kSinglePassLognFft,
-                  batch, batch, 2, 3, 2, 3, 1);
+  a.fg = fft_geo(logn - 1, geo[3], geo[4], geo[5], batch);
   return geo_valid(a.ntt.g) && geo_valid(a.fg);
 }
 

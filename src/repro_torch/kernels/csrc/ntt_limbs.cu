@@ -10,9 +10,9 @@
 //
 // One entry call launches, on the caller's stream, on the tiled NTT block
 // of ntt_tiled.cuh:
-//   1. ntt_limbs_prologue_kernel, grid-stride: each limb's twiddle heap of
-//      the call's direction into an (L, N) scratch (heap_word), made on the
-//      fly once per call;
+//   1. heap_rows_kernel (ntt_tiled.cuh), grid-stride: each limb's twiddle
+//      heap of the call's direction into an (L, N) scratch (heap_word), made
+//      on the fly once per call;
 //   2. the transform stage LimbRows, whose load and store are the words as
 //      they are: rows of logn <= kSinglePassLogn in one pass, a block per
 //      (limb, row) (ntt_limbs_row_kernel / intt_limbs_row_kernel); larger
@@ -41,7 +41,6 @@
 
 namespace {
 
-using rt::tiled::Geo;
 using rt::tiled::Tiling;
 
 // K1's transform stage: row limb * rows + r of the (L, rows, N) stack x,
@@ -66,42 +65,22 @@ struct LimbRows {
   }
 };
 
-// The transform's tiling (a, lc, lr < 0: the CUDA entry's plan; brev: the
-// chunk tiles' order, 0 on the card); tw: the (L, N) heaps.
-Tiling ntt_tiling(const uint32_t *table, uint32_t *tw, int n_limbs, int rows,
-                  int logn, int n_scalars, int ga, int lc, int lr,
-                  int brev) {
-  const long long limb_rows = (long long)n_limbs * rows;
-  return Tiling{rt::tiled::plan_geo(logn, ga, lc, lr,
-                                    rt::tiled::kSinglePassLogn, limb_rows,
-                                    limb_rows, 3, 5, 1, 3, brev),
-                table, n_scalars, tw};
-}
-
 }  // namespace
 
 #if defined(__CUDACC__)
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-    ntt_limbs_prologue_kernel(const uint32_t *table, int n_scalars,
-                              int logn, int inverse, uint32_t *tw,
-                              long long total) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += step)
-    rt::tiled::heap_word(table, n_scalars, logn, inverse != 0, tw, t);
-}
-
 RT_STAGE_KERNELS(ntt_limbs, LimbRows<false>)
 RT_STAGE_KERNELS(intt_limbs, LimbRows<true>)
 
 template <bool inverse>
-int transform(const uint32_t *x, uint32_t *out, const Tiling &t, int n_limbs,
-              int rows, int logn, cudaStream_t s) {
+int transform(const uint32_t *x, uint32_t *out, uint32_t *tw_heap,
+              const Tiling &t, int n_limbs, int rows, int logn,
+              cudaStream_t s) {
+  const cudaError_t err = rt::tiled::launch_heap_rows<inverse>(
+      t.table, t.ncols, logn, tw_heap, n_limbs, s);
+  if (err != cudaSuccess) return (int)err;
   const LimbRows<inverse> st = {x, out, rows, logn};
   return (int)rt::tiled::launch_stage(stage_kernels(st), st, t,
                                       (long long)n_limbs * rows, s);
@@ -113,21 +92,16 @@ extern "C" int ntt_limbs_launch(const uint32_t *x, uint32_t *out,
                                 const uint32_t *table, uint32_t *tw_heap,
                                 int n_limbs, int rows, int logn,
                                 int n_scalars, int inverse, void *stream) {
-  const Tiling t = ntt_tiling(table, tw_heap, n_limbs, rows, logn, n_scalars,
-                              -1, -1, -1, 0);
+  const Tiling t = rt::tiled::rows_tiling(table, n_scalars, tw_heap,
+                                          (long long)n_limbs * rows, logn,
+                                          -1, -1, -1, 0);
   if (!rt::tiled::geo_valid(t.g)) return (int)cudaErrorInvalidValue;
   if (!rt::tiled::stage_fits(t.g, (long long)n_limbs * rows))
     return (int)cudaErrorInvalidConfiguration;  // a grid's x extent
   cudaStream_t s = (cudaStream_t)stream;
-  const long long total = (long long)n_limbs << logn;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  ntt_limbs_prologue_kernel<<<(int)(blocks < 132 * 16 ? blocks : 132 * 16),
-                              kThreads, 0, s>>>(table, n_scalars, logn,
-                                                inverse, tw_heap, total);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return inverse ? transform<true>(x, out, t, n_limbs, rows, logn, s)
-                 : transform<false>(x, out, t, n_limbs, rows, logn, s);
+  return inverse
+             ? transform<true>(x, out, tw_heap, t, n_limbs, rows, logn, s)
+             : transform<false>(x, out, tw_heap, t, n_limbs, rows, logn, s);
 }
 
 #else  // host build: the passes' blocks in order, and the one-row stage
@@ -142,12 +116,12 @@ extern "C" int ntt_limbs_host(const uint32_t *x, uint32_t *out,
                               const uint32_t *table, uint32_t *tw_heap,
                               int n_limbs, int rows, int logn, int n_scalars,
                               int inverse, int ga, int lc, int lr, int brev) {
-  const Tiling t = ntt_tiling(table, tw_heap, n_limbs, rows, logn, n_scalars,
-                              ga, lc, lr, brev);
-  if (!rt::tiled::geo_valid(t.g)) return 1;
-  for (long long i = 0; i < (long long)n_limbs << logn; ++i)
-    rt::tiled::heap_word(table, n_scalars, logn, inverse != 0, tw_heap, i);
   const long long n_rows = (long long)n_limbs * rows;
+  const Tiling t = rt::tiled::rows_tiling(table, n_scalars, tw_heap, n_rows,
+                                          logn, ga, lc, lr, brev);
+  if (!rt::tiled::geo_valid(t.g)) return 1;
+  rt::tiled::heap_rows_host(table, n_scalars, logn, inverse != 0, tw_heap,
+                            n_limbs);
   const bool ok =
       inverse
           ? rt::tiled::run_stage_host(LimbRows<true>{x, out, rows, logn}, t,
@@ -158,8 +132,8 @@ extern "C" int ntt_limbs_host(const uint32_t *x, uint32_t *out,
 }
 
 // The one-row stage loop of client_common.cuh (rt::ntt_fwd / ntt_inv, the
-// loop K3, K12 and K13 still run) on the same stack: what the
-// tests hold the tiled schedule against.
+// loop K12 and K13 still run) on the same stack: what the tests hold the
+// tiled schedule against.
 extern "C" int ntt_limbs_loop_host(const uint32_t *x, uint32_t *out,
                                    const uint32_t *table, int n_limbs,
                                    int rows, int logn, int n_scalars,

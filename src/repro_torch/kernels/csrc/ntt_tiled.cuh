@@ -1,9 +1,10 @@
 // The tiled two-pass NTT / INTT and df32 SpecialFFT / IFFT of the client
-// megakernels (encode_encrypt.cu, decrypt_decode.cu), of the folded
-// encrypt K2 (client_pointwise.cu, through encrypt_tiled.cuh), and the
-// transform stage (stage_tile and its pass launchers) that the limb-folded
-// NTT / INTT K1 (ntt_limbs.cu) and the server's lift, base extension and
-// scale-down (server_eval.cu) run.
+// megakernels (encode_encrypt.cu, decrypt_decode.cu), of the staged
+// SpecialFFT / IFFT K4 (fft_df.cu), of the folded encrypt K2
+// (client_pointwise.cu, through encrypt_tiled.cuh), and the transform stage
+// (stage_tile and its pass launchers) that the limb-folded NTT / INTT K1
+// (ntt_limbs.cu), the folded decrypt K3 (client_pointwise.cu) and the
+// server's lift, base extension and scale-down (server_eval.cu) run.
 //
 // A row of 2^logn points is viewed as a 2^a x 2^b matrix, a + b = logn,
 // point p at row p >> b, column p & (2^b - 1). The butterflies of a
@@ -26,8 +27,8 @@
 // column stages and then the chunk stages run on one shared-memory row in
 // natural order, since both tile maps are then the identity.
 //
-// Each butterfly is the one of rt::ntt_fwd / ntt_inv / fft_inv_stages /
-// fft_fwd_stages (client_common.cuh), on the same words with the same
+// Each butterfly is the one of rt::ntt_fwd / ntt_inv (client_common.cuh)
+// and of fft_df.fft_stage_pipeline, on the same words with the same
 // twiddle words: the schedule changes where data lives and which block
 // does which butterfly, never a butterfly's arithmetic. So a tiled
 // transform gives the words of the stage loops bit for bit.
@@ -42,8 +43,8 @@
 // and last store carry elementwise work: a stage type S gives, per row, its
 // table row and what the first pass loads and the last pass stores, and
 // stage_tile runs one tile of any pass of it. K1's stage loads and stores
-// the words as they are; the server's stages gather, REDC, centre and
-// combine there.
+// the words as they are, K3's load forms c0 + c1*s; the server's stages
+// gather, REDC, centre and combine there.
 //
 // Compiles as plain C++ too (one thread per block, RT_SYNC a no-op), like
 // client_common.cuh, so the host build checks these loops on a CPU.
@@ -124,6 +125,17 @@ RT_FN int chunk_pos(const Geo &g, int tile, int i) {
 // fall in runs of 2^lr words.
 RT_FN int chunk_slot_across(const Geo &g, int k) {
   return ((k & ((1 << g.lr) - 1)) << geo_b(g)) + (k >> g.lr);
+}
+
+// The same for a column tile that stores through a bit reversal: point
+// (r, c) goes to bitrev(c) 2^a + bitrev_a(r), so neighbouring k walk
+// neighbouring bitrev_a(r) in runs of 2^lr (the chunk pass's run), then the
+// tile's columns, then the runs.
+RT_FN int col_slot_across(const Geo &g, int k) {
+  const int run = k & ((1 << g.lr) - 1);
+  const int cc = (k >> g.lr) & ((1 << g.lc) - 1);
+  const int rev_r = ((k >> (g.lr + g.lc)) << g.lr) + run;
+  return ((int)rt_brev((uint32_t)rev_r, g.a) << g.lc) + cc;
 }
 
 // ---------------------------------------------------------------------------
@@ -459,6 +471,14 @@ inline bool geo_valid(const Geo &g) {
          g.lr >= 0 && g.lr <= g.a;
 }
 
+// The geometry of a df32 SpecialFFT / IFFT of `rows` rows of 2^logn points
+// (the FFT of K6, K5 and K4): chunk tiles in bit-reversed order, so that the
+// gather and scatter through the bit reversal meet runs of 2^lr words.
+inline Geo fft_geo(int logn, int a, int lc, int lr, long long rows) {
+  return plan_geo(logn, a, lc, lr, kSinglePassLognFft, rows, rows, 2, 3, 2,
+                  3, 1);
+}
+
 #if defined(__CUDACC__)
 // Launch one pass of `threads` threads a block with `smem` bytes of dynamic
 // shared memory, allowed first where above the default 48 KB. `allow`
@@ -490,6 +510,17 @@ struct Tiling {
   int ncols;
   const uint32_t *tw;
 };
+
+// The tiling of an NTT / INTT stage over `rows` rows of 2^logn words, as K1
+// and K3 plan it (a, lc, lr < 0: the defaults; brev: the chunk tiles'
+// order, 0 on the card); tw: the heaps, table row r's at tw + r N.
+inline Tiling rows_tiling(const uint32_t *table, int ncols,
+                          const uint32_t *tw, long long rows, int logn,
+                          int a, int lc, int lr, int brev) {
+  return Tiling{plan_geo(logn, a, lc, lr, kSinglePassLogn, rows, rows, 3, 5,
+                         1, 3, brev),
+                table, ncols, tw};
+}
 
 // log2 of a pass's tiles per row
 RT_HD int log_tiles(const Geo &g, int pass) {
@@ -625,7 +656,38 @@ inline cudaError_t launch_stage(const PassKernels<S> &k, const S &s,
   return cudaSuccess;
 }
 
+// The heaps of one direction for table rows 0 .. rows - 1 into tw (rows,
+// N), a grid-stride pass of at most 16 blocks an SM (K1's and K3's
+// prologue).
+template <bool inverse>
+__global__ void __launch_bounds__(kPassThreads)
+    heap_rows_kernel(const uint32_t *table, int ncols, int logn,
+                     uint32_t *tw, long long total) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < total; t += step)
+    heap_word(table, ncols, logn, inverse, tw, t);
+}
+
+template <bool inverse>
+inline cudaError_t launch_heap_rows(const uint32_t *table, int ncols,
+                                    int logn, uint32_t *tw, long long rows,
+                                    cudaStream_t s) {
+  const long long total = rows << logn;
+  long long blocks = (total + kPassThreads - 1) / kPassThreads;
+  blocks = blocks < 132 * 16 ? blocks : 132 * 16;
+  heap_rows_kernel<inverse><<<(int)blocks, kPassThreads, 0, s>>>(
+      table, ncols, logn, tw, total);
+  return cudaGetLastError();
+}
+
 #else  // host build: every block of each pass in order, one thread a block
+
+inline void heap_rows_host(const uint32_t *table, int ncols, int logn,
+                           bool inverse, uint32_t *tw, long long rows) {
+  for (long long t = 0; t < rows << logn; ++t)
+    heap_word(table, ncols, logn, inverse, tw, t);
+}
 
 template <int pass, class S>
 void host_pass(const S &s, const Tiling &t, long long rows, uint32_t *smem) {

@@ -9,11 +9,13 @@ Port of ``repro.kernels.fft_df``:
     CUDA stage loops in ``csrc/client_common.cuh`` follow this schedule
     operation for operation;
   * ``special_fft_planes`` / ``special_ifft_planes``: the transforms on
-    four (rows, n) float32 planes, the bit-reversal a torch gather before
-    the forward and after the inverse stages, as in the reference. The
-    stages run in ``fft_rows_cuda`` (launches ``csrc/fft_df.cu``, replaces
-    the TPU kernel ``_kernel``; counts its launches in ``LAUNCHES``) for
-    CUDA tensors and in ``fft_rows_plain`` for CPU tensors.
+    four (rows, n) float32 planes, the bit-reversal before the forward and
+    after the inverse stages, as in the reference. CUDA tensors go to
+    ``special_fft_cuda`` (launches ``csrc/fft_df.cu``, which replaces the
+    TPU kernel ``_kernel`` and does the bit reversal in its loads and
+    stores; counts its launches in ``LAUNCHES``), CPU tensors to
+    ``special_fft_plain`` (a torch gather and ``fft_rows_plain``, the
+    stages the megakernels' plain versions run too).
 """
 
 from __future__ import annotations
@@ -151,46 +153,64 @@ def fft_rows_plain(planes, m: int, inverse: bool):
     return tuple(p.contiguous() for p in dfl.dfc_to_planes(z))
 
 
-def fft_rows_cuda(planes, m: int, inverse: bool):
-    """CUDA launch of ``fft_df.cu``; same function as ``fft_rows_plain``."""
-    dev = planes[0].device
-    if dev.type != "cuda":
-        raise ValueError("fft_rows_cuda needs CUDA tensors")
-    rows, n = _rows_shape(planes)
-    for i, t in enumerate(planes):
-        common.check_tensor(t, f"planes[{i}]", torch.float32, (rows, n), dev)
-    if rows == 0:
-        raise ValueError("fft_rows_cuda needs at least one row")
-    tw = device_twiddles(n, m, inverse, str(dev))
-    outs = tuple(torch.empty_like(p) for p in planes)
-    common.launch("fft_rows_launch", dev, *(p.data_ptr() for p in planes),
-                  *(o.data_ptr() for o in outs), tw.data_ptr(), rows,
-                  n.bit_length() - 1, int(inverse))
-    LAUNCHES["special_ifft" if inverse else "special_fft"] += 1
-    return outs
-
-
-def _fft_rows(planes, m: int, inverse: bool):
-    if common.route(planes[0].device) == "cuda":
-        return fft_rows_cuda(planes, m, inverse)
-    return fft_rows_plain(planes, m, inverse)
-
-
 def bitrev_planes(planes):
     """Each plane's last axis in bit-reversed order (a torch gather)."""
     rev = device_bitrev(planes[0].shape[-1], str(planes[0].device))
     return tuple(p[..., rev] for p in planes)
 
 
+def special_fft_plain(planes, m: int, inverse: bool):
+    """The plain version of K4: forward, the bit reversal (a torch gather)
+    and then the stages; inverse, the stages (1/n folded in) and then the
+    bit reversal -> four contiguous (rows, n) planes."""
+    _rows_shape(planes)
+    if not inverse:
+        return fft_rows_plain(bitrev_planes(planes), m, False)
+    return bitrev_planes(fft_rows_plain(planes, m, True))
+
+
+def special_fft_cuda(planes, m: int, inverse: bool):
+    """CUDA launch of ``fft_df.cu``; same function as
+    ``special_fft_plain``. The four planes may be (rows, n) views of one
+    row stride (the staged decode's halves of (B, N) rows): the kernel
+    reads them through it. The output planes are contiguous."""
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError("special_fft_cuda needs CUDA tensors")
+    rows, n = _rows_shape(planes)
+    if rows == 0:
+        raise ValueError("special_fft_cuda needs at least one row")
+    if any(p.stride() != planes[0].stride() for p in planes) \
+            or planes[0].stride(1) != 1:
+        planes = tuple(p.contiguous() for p in planes)
+    for i, t in enumerate(planes):
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != (rows, n):
+            raise ValueError(f"planes[{i}] must be a ({rows}, {n}) float32 "
+                             f"tensor on {dev}")
+    tw = device_twiddles(n, m, inverse, str(dev))
+    outs = tuple(torch.empty((rows, n), dtype=torch.float32, device=dev)
+                 for _ in planes)
+    common.launch("special_fft_launch", dev, *(p.data_ptr() for p in planes),
+                  planes[0].stride(0), *(o.data_ptr() for o in outs),
+                  tw.data_ptr(), rows, n.bit_length() - 1, int(inverse))
+    LAUNCHES["special_ifft" if inverse else "special_fft"] += 1
+    return outs
+
+
+def _special_fft(planes, m: int, inverse: bool):
+    if common.route(planes[0].device) == "cuda":
+        return special_fft_cuda(planes, m, inverse)
+    return special_fft_plain(planes, m, inverse)
+
+
 def special_fft_planes(planes, m: int):
     """Decode-direction transform on four (rows, n) float32 df planes:
     bit-reversal, then the forward stages."""
-    _rows_shape(planes)
-    return _fft_rows(bitrev_planes(planes), m, inverse=False)
+    return _special_fft(planes, m, inverse=False)
 
 
 def special_ifft_planes(planes, m: int):
     """Encode-direction transform (1/n folded in) on four (rows, n)
     float32 df planes: the inverse stages, then bit-reversal."""
-    _rows_shape(planes)
-    return bitrev_planes(_fft_rows(planes, m, inverse=True))
+    return _special_fft(planes, m, inverse=True)

@@ -167,7 +167,8 @@ def decrypt_fused(c0, c1, s_mont, ctx: CKKSContext, n_limbs: int = 2):
 
 def special_fft_planes(planes, m: int):
     """df32 SpecialFFT (decode direction) on four (rows, n) float32
-    planes. Needs no lone-row padding: every row is its own block."""
+    planes. Needs no lone-row padding: the kernel takes any number of
+    rows."""
     return fft_df.special_fft_planes(planes, m)
 
 

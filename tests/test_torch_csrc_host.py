@@ -5,13 +5,14 @@ in code that also compiles as plain C++ (one thread per block, barriers as
 no-ops; every phase is race-free, so that build computes what the kernel
 computes). Here g++ builds every source that way (the megakernels
 ``encode_encrypt.cu`` / ``decrypt_decode.cu`` and the staged kernels
-``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu`` (K1 and K2 also
-under forced tile geometries of the tiled NTT block), the server
-op set ``server_eval.cu``, and the per-prime kernels ``ntt_rows.cu`` (K12,
-the stage loop under the shift-add REDC), K13 in ``client_pointwise.cu``
-and the four-step ``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and
-Barrett recombination)), with ``-ffp-contract=off`` (the host twin of
-``--fmad=false``), and each ``_host`` entry's results must equal the plain
+``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu`` (K1, K2, K3 and
+K4 also under forced tile geometries of the tiled NTT / FFT block), the
+server op set ``server_eval.cu``, and the per-prime kernels
+``ntt_rows.cu`` (K12, the stage loop under the shift-add REDC), K13 in
+``client_pointwise.cu`` and the four-step ``ntt_matmul.cu`` (K14: its dp4a
+digit-product tiles and Barrett recombination)), with
+``-ffp-contract=off`` (the host twin of ``--fmad=false``), and each
+``_host`` entry's results must equal the plain
 PyTorch version word for word, on both datapaths (K5 / K6's df32 and f64
 branches; the server bodies, whose one u64 REDC must give the words of the
 plain versions under either datapath's REDC engine). The
@@ -60,8 +61,9 @@ _HOST_ENTRIES = {
                            [_P, _LL, _LL] + [_P] * 8 + [_I] * 4 + [_U] * 5
                            + [_I] * 3),
     "decrypt_limbs_host": ("client_pointwise.cu",
-                           [_P, _P, _LL] + [_P] * 3 + [_I] * 4),
-    "fft_rows_host": ("fft_df.cu", [_P] * 9 + [_I] * 3),
+                           [_P, _P, _LL] + [_P] * 4 + [_I] * 8),
+    "special_fft_host": ("fft_df.cu",
+                         [_P] * 4 + [_LL] + [_P] * 5 + [_I] * 6),
     "server_pointwise_host": ("server_eval.cu",
                               [_I] + [_P] * 7 + [_I] * 4),
     "server_rescale_host": ("server_eval.cu", [_P] * 8 + [_I] * 9),
@@ -313,8 +315,8 @@ def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
     """K1's tiled schedule under a forced geometry (a, lc, lr, brev) on
     random residues of every limb, lines of odd and even stage counts
     (one-stage lines at a = 1 and b = 1): the words of the one-row stage
-    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K3's, K12's
-    and K13's loop) and of the plain stage loops."""
+    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K12's and
+    K13's loop) and of the plain stage loops."""
     ctx = get_context(profile)
     L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
     rng = np.random.default_rng(11)
@@ -416,14 +418,63 @@ def test_host_encrypt_decrypt_limbs_match_plain(host_libs, profile, batch,
     # decrypt the 2-limb row-strided view of the (B, L, N) batch
     want = client_pointwise.decrypt_limbs_plain(ref0[:, :2], ref1[:, :2],
                                                 client.keys.sk.s_mont, ctx)
-    kc2 = common.stacked_kernel_consts(ctx.plans[:2])
-    table2 = np.ascontiguousarray(kc2.table)
-    s_np = client.keys.sk.s_mont.numpy().copy()
-    m = np.zeros((batch, 2, n), np.uint32)
+    m = _k3_host(host_libs, ctx, c0[:, :2], c1[:, :2],
+                 client.keys.sk.s_mont.numpy().view(np.uint32))
+    np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+
+
+def _k3_host(host_libs, ctx, c0, c1, s_mont, geo=(-1, -1, -1, 0)):
+    """The host build of K3 (client_pointwise.cu's INTT stage) on (B, L_dec,
+    N) uint32 views whose rows share one stride and hold their limbs
+    contiguously (the first limbs of a (B, L, N) batch), under NTT geometry
+    (a, lc, lr, brev)."""
+    batch, n_limbs, n = c0.shape
+    assert c0.strides == c1.strides and c0.strides[1:] == (4 * n, 4)
+    kc = common.stacked_kernel_consts(ctx.plans[:n_limbs])
+    m = np.zeros((batch, n_limbs, n), np.uint32)
+    tw_heap = np.zeros((n_limbs, n), np.uint32)
     err = host_libs["decrypt_limbs_host"](
-        _ptr(c0), _ptr(c1), L * n, _ptr(s_np), _ptr(table2), _ptr(m), batch,
-        2, kc2.logn, kc2.n_scalars)
+        _ptr(c0), _ptr(c1), c0.strides[0] // 4,
+        _ptr(np.ascontiguousarray(s_mont)),
+        _ptr(np.ascontiguousarray(kc.table)), _ptr(m), _ptr(tw_heap), batch,
+        n_limbs, kc.logn, kc.n_scalars, *geo)
     assert err == 0
+    return m
+
+
+# forced NTT geometries (a, lc, lr, brev) of K3 by case: (profile, batch,
+# L_dec); the input is the L_dec-limb view of a (B, L, N) batch. One pass
+# (the default at `test`), two at uneven splits, several tiles per pass,
+# chunk tiles in bit-reversed order
+_K3_CASES = {"test-B2-L2": ("test", 2, 2), "test-B2-L3": ("test", 2, 3),
+             "n15-B1-L3": ("n15", 1, 3)}
+_K3_GEOS = {
+    "test": {"default": (-1, -1, -1, 0), "3+7": (3, 2, 1, 0),
+             "7+3-brev": (7, 1, 2, 1), "single-3+7": (3, 7, 3, 0)},
+    "n15": {"default": (-1, -1, -1, 0), "8+7-brev": (8, 3, 2, 1),
+            "6+9": (6, 5, 3, 0)},
+}
+
+
+@pytest.mark.parametrize("case,geo", [
+    (case, name) for case, (prof, _, _) in _K3_CASES.items()
+    for name in _K3_GEOS[prof]])
+def test_host_decrypt_limbs_forced_geometry_matches_plain(host_libs, case,
+                                                          geo):
+    """K3's host entry (an INTT stage on the tiled block) under forced
+    geometries and its default plan, on the L_dec-limb row-strided view of
+    a (B, L, N) batch of random words, L_dec = 2 and 3: the plain
+    version's words."""
+    profile, batch, n_limbs = _K3_CASES[case]
+    ctx = get_context(profile)
+    L, n = ctx.params.n_limbs, ctx.params.n
+    rng = np.random.default_rng(14)
+    c0, c1 = (_rand_residues(ctx, (batch, L, n), rng) for _ in range(2))
+    s_mont = _rand_residues(ctx, (L, n), rng)
+    want = client_pointwise.decrypt_limbs_plain(
+        _t(c0)[:, :n_limbs], _t(c1)[:, :n_limbs], _t(s_mont), ctx)
+    m = _k3_host(host_libs, ctx, c0[:, :n_limbs], c1[:, :n_limbs], s_mont,
+                 _K3_GEOS[profile][geo])
     np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
 
 
@@ -462,36 +513,87 @@ def test_host_encrypt_limbs_forced_geometry_matches_plain(host_libs,
     np.testing.assert_array_equal(c1, ref1.numpy().view(np.uint32))
 
 
+def _k4_planes(ctx, rows, seed, view):
+    """Four (rows, n_slots) float32 df planes of random slots: contiguous,
+    or (view) the halves of (rows, N) arrays, as the staged decode passes
+    them."""
+    ns = ctx.params.n_slots
+    z = np.random.default_rng(seed).standard_normal((2, rows, ns))
+    hi = z.astype(np.float32)
+    parts = (hi[0], (z[0] - hi[0]).astype(np.float32),
+             hi[1], (z[1] - hi[1]).astype(np.float32))
+    if not view:
+        return [np.ascontiguousarray(a) for a in parts]
+    full_hi = np.concatenate(parts[0::2], axis=1)
+    full_lo = np.concatenate(parts[1::2], axis=1)
+    return [full_hi[:, :ns], full_lo[:, :ns], full_hi[:, ns:],
+            full_lo[:, ns:]]
+
+
+def _k4_host(host_libs, ctx, planes, inverse, geo=(-1, -1, -1)):
+    """The four output planes of the host build of K4 (fft_df.cu) on four
+    (rows, n_slots) planes of one row stride, under FFT geometry (a, lc,
+    lr)."""
+    rows, ns = planes[0].shape
+    assert all(p.strides == planes[0].strides for p in planes)
+    m = ctx.params.m
+    tw = np.ascontiguousarray(fft_df.packed_twiddles(ns, m, inverse)[0])
+    outs = [np.zeros((rows, ns), np.float32) for _ in range(4)]
+    err = host_libs["special_fft_host"](
+        *(_ptr(p) for p in planes), planes[0].strides[0] // 4,
+        *(_ptr(o) for o in outs), _ptr(tw), rows, ns.bit_length() - 1,
+        int(inverse), *geo)
+    assert err == 0
+    return outs
+
+
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 @pytest.mark.parametrize("profile", ["tiny", "test"])
 def test_host_fft_rows_match_plain(host_libs, profile, inverse):
+    """K4's host entry (the bit reversal in its loads and stores) at its
+    default plan on contiguous planes: the plain version's words."""
     ctx = FHEClient(profile, device="cpu").ctx
-    ns, m, rows = ctx.params.n_slots, ctx.params.m, 3
-    rng = np.random.default_rng(8)
-    z = rng.standard_normal((2, rows, ns))
-    hi = z.astype(np.float32)
-    planes = [np.ascontiguousarray(a) for a in (
-        hi[0], (z[0] - hi[0]).astype(np.float32),
-        hi[1], (z[1] - hi[1]).astype(np.float32))]
-    want = fft_df.fft_rows_plain(tuple(torch.tensor(p) for p in planes), m,
-                                 inverse)
-    tw = np.ascontiguousarray(fft_df.packed_twiddles(ns, m, inverse)[0])
-    outs = [np.zeros((rows, ns), np.float32) for _ in range(4)]
-    err = host_libs["fft_rows_host"](
-        *(_ptr(p) for p in planes), *(_ptr(o) for o in outs), _ptr(tw),
-        rows, ns.bit_length() - 1, int(inverse))
-    assert err == 0
-    for got, ref in zip(outs, want):
-        np.testing.assert_array_equal(got.view(np.uint32),
-                                      ref.numpy().view(np.uint32))
+    planes = _k4_planes(ctx, 3, 8, view=False)
+    want = fft_df.special_fft_plain(tuple(torch.tensor(p) for p in planes),
+                                    ctx.params.m, inverse)
+    _assert_same_planes(_k4_host(host_libs, ctx, planes, inverse), want)
+
+
+# forced FFT geometries (a, lc, lr) of K4 by (profile, rows): an odd
+# log n_slots (`test`, 2^9) and an even one (`n15` B=1, 2^14), uneven
+# splits, several tiles per pass, a single pass at an uneven split, and the
+# default plan (one pass at `tiny`, two above)
+_K4_CASES = {"tiny": 2, "test": 2, "n15": 1}
+_K4_GEOS = {
+    "tiny": {"default": (-1, -1, -1)},
+    "test": {"default": (-1, -1, -1), "5+4": (5, 1, 2), "3+6": (3, 2, 0),
+             "7+2": (7, 2, 3), "single-4+5": (4, 5, 4)},
+    "n15": {"default": (-1, -1, -1), "7+7": (7, 3, 3), "9+5": (9, 1, 2)},
+}
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile,geo", [
+    (prof, name) for prof, cases in _K4_GEOS.items() for name in cases])
+def test_host_special_fft_forced_geometry_matches_plain(host_libs, profile,
+                                                        geo, inverse):
+    """K4's host entry both ways under forced FFT geometries and its default
+    plan, on the halves of (rows, N) arrays read through their row stride:
+    the plain version's words (the torch gather and the stage pipeline)."""
+    ctx = get_context(profile)
+    planes = _k4_planes(ctx, _K4_CASES[profile], 9, view=True)
+    want = fft_df.special_fft_plain(tuple(torch.tensor(p) for p in planes),
+                                    ctx.params.m, inverse)
+    _assert_same_planes(_k4_host(host_libs, ctx, planes, inverse,
+                                 _K4_GEOS[profile][geo]), want)
 
 
 @pytest.mark.parametrize("profile", ["tiny", "test", "paper"])
 def test_kernel_table_offsets_match_host_layout(profile):
     """The kernels compute the seed-table and FFT-twiddle stage offsets in
-    closed form (csrc/client_common.cuh: fwd_off, inv_off, and the stage
-    offsets of fft_inv_stages / fft_fwd_stages); they must equal the host
-    tables' offsets the wrappers upload."""
+    closed form (csrc/client_common.cuh: fwd_off, inv_off; csrc/
+    ntt_tiled.cuh: the stage offsets of the FFT column and chunk loops);
+    they must equal the host tables' offsets the wrappers upload."""
     from repro_torch.core.context import get_context
     ctx = get_context(profile)
     L, ns = ctx.params.n_limbs, ctx.params.n_slots

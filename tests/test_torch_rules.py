@@ -306,7 +306,7 @@ def test_staged_cuda_wrappers_refuse_cpu_tensors(tiny_client, wrapper):
             x, b, b, ctx, 1, 0),
         "decrypt_limbs": lambda: client_pointwise.decrypt_limbs_cuda(
             x[:, :2], x[:, :2], s, ctx),
-        "fft_rows": lambda: fft_df.fft_rows_cuda(
+        "fft_rows": lambda: fft_df.special_fft_cuda(
             tuple(torch.zeros((1, 32)) for _ in range(4)), ctx.params.m,
             True),
         "ntt_rows": lambda: ntt_butterfly.rows_cuda(x[0], ctx.plans[0],
