@@ -72,8 +72,16 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      after. K12 must equal K1 per limb, K13 K2 / K3 per limb, K14 K1 under
      bit reversal, the inverses must give x back, and each must equal its
      plain version on the first 4 rows of each limb; K14 also on one
-     ``n15`` limb (256 x 128 split), B=2.
-     Then each is timed (queued ahead, as in 5) beside its plain version;
+     ``n15`` limb (256 x 128 split), B=2; K12 (both ways) and K13a also on
+     random words at ``paper`` B=1, ``n15`` B=2 (an uneven 8 + 7 split) and
+     ``server`` B=2 (one pass), every limb == K1 / K2, limbs 0 and L-1 ==
+     plain, K13a's rows across the 2^32 nonce wrap.
+     Then each is timed (queued ahead, as in 5) beside its plain version,
+     K12 and K13a also at B=1, and the device kernels one K12 / K13 call
+     launches are printed, each with its time (K12, K13a: a heap or noise
+     prologue and two passes at N=2^16); K12 and K13a beside their
+     control, K1 / K2 on the same limb and rows (the same tile plan under
+     the general REDC), pass by pass;
   9. the f64 datapath: ``FHEClient('paper', datapath='f64')`` at B=16 and
      B=1 (K5 / K6's f64 branches), counters set to 0 just before and read
      just after, >= 19.29 bits; K5 / K6 f64 == their plain versions on the
@@ -88,8 +96,8 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
  10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
-     bound; for K5 / K6, K1 - K4 and the server kernels K8-K11 also the
-     device kernels per call), then, as the last line, ``{"ok": true,
+     bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 / K13
+     also the device kernels per call), then, as the last line, ``{"ok": true,
      "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
@@ -792,6 +800,17 @@ def _device_kernels(fn, calls: int = 3) -> dict | None:
     return out or None
 
 
+def _device_kernel_fields(by_name: dict | None) -> dict:
+    """The kernels line's fields for the device kernels of one entry call
+    (None where the profiler saw none: not measured)."""
+    if by_name is None:
+        return {"device_kernels": None, "device_kernels_by_name": None}
+    return {"device_kernels": sum(n for n, _ in by_name.values()),
+            "device_kernels_by_name": {
+                k: {"launches": n, "ms": ms}
+                for k, (n, ms) in by_name.items()}}
+
+
 def _print_device_kernels(name: str, what: str, kernels: dict | None,
                           card: str) -> None:
     if kernels is None:
@@ -1183,6 +1202,13 @@ ENGINE_NONCE0 = 0xFFFFFFFE      # rows 2.. wrap past 2^32, inside the
                                 # rows the plain checks compare
 ENGINE_PLAIN_ROWS = 4           # K12 / K13 plain checks: the first 4 rows
 ENGINE_DEC_LIMBS = 2
+# K12 and K13a beyond the paper B=16 stack, at the shapes the tiled
+# planning reaches: (profile, batch). paper B=1 (the fewest blocks at
+# N = 2^16), n15 B=2 (odd logN: an uneven 8 + 7 split), server B=2
+# (N = 2^10: one pass); row 1 of a B=2 batch encrypts across the 2^32
+# nonce wrap
+ENGINE_SHAPES = (("paper", 1), ("n15", 2), ("server", 2))
+ENGINE_SHAPE_NONCE0 = 0xFFFFFFFF
 
 
 def _engine_path(ctx, keys, seed: int, x) -> dict:
@@ -1204,6 +1230,52 @@ def _engine_path(ctx, keys, seed: int, x) -> dict:
     out["dec"] = [client_pointwise.decrypt_limb(c0, c1, s[l], ctx, l)
                   for l, (c0, c1) in enumerate(out["enc"][:ENGINE_DEC_LIMBS])]
     return out
+
+
+def _check_engine_shapes(dev, errs: dict) -> None:
+    """K12 (both directions) and K13a on random words at ENGINE_SHAPES, on
+    every limb: == K1 / K2 on that limb (their own launches) and, on the
+    first and the last limb, == their plain versions. The kernels' words do
+    not depend on the key rows being a real key, so K13a takes random
+    ones."""
+    from repro_torch.core.context import get_context
+    from repro_torch.kernels import client_pointwise, ntt_butterfly
+    nonce0 = ENGINE_SHAPE_NONCE0
+    for i, (profile, batch) in enumerate(ENGINE_SHAPES):
+        ctx = get_context(profile)
+        p = ctx.params
+        L, plans = p.n_limbs, ctx.plans[:p.n_limbs]
+        x = _rand_words(ctx, (L, batch, p.n), 120 + i, dev)
+        pkb, pka = (_rand_words(ctx, (L, p.n), 130 + 2 * i + k, dev)
+                    for k in (0, 1))
+        k1 = ntt_butterfly.limb_rows_cuda(x, plans, False)
+        k1_back = ntt_butterfly.limb_rows_cuda(k1, plans, True)
+        k2 = client_pointwise.encrypt_limbs_cuda(k1.transpose(0, 1), pkb,
+                                                 pka, ctx, SEED, nonce0)
+        at = f"at {profile} B={batch}"
+        for l, plan in enumerate(plans):
+            y = ntt_butterfly.rows_cuda(x[l], plan, False)
+            back = ntt_butterfly.rows_cuda(y, plan, True)
+            enc = client_pointwise.encrypt_limb_cuda(y, pkb[l], pka[l], ctx,
+                                                     l, SEED, nonce0)
+            _hold(errs, "ntt_rows", y, k1[l], f"K1 on limb {l} {at}")
+            _hold(errs, "intt_rows", back, k1_back[l], f"K1 on limb {l} {at}")
+            _hold(errs, "intt_rows", back, x[l], f"x on limb {l} {at}")
+            _hold(errs, "encrypt_limb", enc, (k2[0][:, l], k2[1][:, l]),
+                  f"K2 on limb {l} {at}")
+            if l not in (0, L - 1):
+                continue
+            plain = f"its plain version on limb {l} {at}"
+            _hold(errs, "ntt_rows", y,
+                  ntt_butterfly.rows_plain(x[l], plan, False), plain)
+            _hold(errs, "intt_rows", back,
+                  ntt_butterfly.rows_plain(y, plan, True), plain)
+            _hold(errs, "encrypt_limb", enc,
+                  client_pointwise.encrypt_limb_plain(
+                      y, pkb[l], pka[l], ctx, l, SEED, nonce0), plain)
+        print(f"kernel == K1 / K2 per limb (bit-identical), K12 both ways "
+              f"and K13a, {profile} B={batch} nonce0 {nonce0:#x}, every "
+              f"limb; == plain on limbs 0 and {L - 1}", flush=True)
 
 
 def _engine_phase(client, card: str):
@@ -1321,11 +1393,36 @@ def _engine_phase(client, card: str):
         _fail("K14 differs from K12 under bit reversal at n15")
     print(f"K14 at n15 (split {ntt_matmul.split_n(ctx15.n)}), B=2: == plain, "
           f"== K12[:, bitrev], round trip", flush=True)
+    _check_engine_shapes(dev, errs)
 
     # times: one call each at B=16 (K12 / K13: one limb; K14: the stack),
-    # queued ahead; K12 also as the 24 launches of a stack
+    # queued ahead; K12 also as the 24 launches of a stack; K12 and K13a
+    # also at B=1 (the first row of limb 0); the device kernels of one call
     y0, (e0, e1) = out["rows"][0], out["enc"][0]
     pkb, pka, s = keys.pk.b_mont, keys.pk.a_mont, keys.sk.s_mont
+    x1, y1 = x[0, :1], y0[:1]
+    at_b1 = {
+        "ntt_rows": (lambda: ntt_butterfly.rows_cuda(x1, plans[0], False),
+                     _cost_ntt_rows(p, 1, False)),
+        "intt_rows": (lambda: ntt_butterfly.rows_cuda(y1, plans[0], True),
+                      _cost_ntt_rows(p, 1, True)),
+        "encrypt_limb": (
+            lambda: client_pointwise.encrypt_limb_cuda(
+                y1, pkb[0], pka[0], ctx, 0, seed, ENGINE_NONCE0),
+            _cost_encrypt_limb(p, 1)),
+    }
+    # the control: K1 / K2 on the same limb and rows, a (1, B, N) / (B, 1,
+    # N) stack (the same tile plan under MontRedc), so that the per-pass
+    # times show what the shift-add REDC costs
+    same_limb = {
+        "ntt_rows": ("ntt_limbs", lambda b: ntt_butterfly.limb_rows_cuda(
+            x[:1, :b], plans[:1], False)),
+        "intt_rows": ("intt_limbs", lambda b: ntt_butterfly.limb_rows_cuda(
+            y0[None, :b], plans[:1], True)),
+        "encrypt_limb": (
+            "encrypt_limbs", lambda b: client_pointwise.encrypt_limbs_cuda(
+                y0[:b, None], pkb, pka, ctx, seed, ENGINE_NONCE0)),
+    }
     calls = {
         "ntt_rows": (lambda: ntt_butterfly.rows_cuda(x[0], plans[0], False),
                      lambda: ntt_butterfly.rows_plain(x[0], plans[0], False),
@@ -1377,6 +1474,36 @@ def _engine_phase(client, card: str):
         print(f"time: {name} {MAIN_PROFILE} {shape}: {ms:.4f} ms per launch"
               f"{stack}, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})  [{card}]", flush=True)
+        if name.endswith("_mm"):
+            continue
+        by_name = _device_kernels(kernel)
+        _print_device_kernels(name, f"{MAIN_PROFILE} one limb B={batch}",
+                              by_name, card)
+        extra.update(_device_kernel_fields(by_name))
+        if name not in at_b1:
+            continue
+        kernel1, cost1 = at_b1[name]
+        ms1, bound1 = _device_ms(kernel1, iters=5), _bound_ms(*cost1)
+        by_name = _device_kernels(kernel1)
+        extra["at_batch_1"] = {"ms": ms1, "bound_ms": bound1[0],
+                               "bound_by": bound1[1],
+                               **_device_kernel_fields(by_name)}
+        print(f"time: {name} {MAIN_PROFILE} one limb, B=1: {ms1:.4f} ms per "
+              f"launch, bound {bound1[0]:.4f} ms ({bound1[1]})  [{card}]",
+              flush=True)
+        _print_device_kernels(name, f"{MAIN_PROFILE} one limb B=1", by_name,
+                              card)
+        control, fn = same_limb[name]
+        extra["same_limb_control"] = {"kernel": control}
+        for b in (batch, 1):
+            ms_c = _device_ms(lambda b=b: fn(b), iters=5)
+            by_name = _device_kernels(lambda b=b: fn(b))
+            extra["same_limb_control"][f"B={b}"] = {
+                "ms": ms_c, **_device_kernel_fields(by_name)}
+            print(f"time: {name}'s control, {control} on the same limb, "
+                  f"B={b}: {ms_c:.4f} ms  [{card}]", flush=True)
+            _print_device_kernels(control, f"{MAIN_PROFILE} one limb B={b} "
+                                  f"(the control of {name})", by_name, card)
     return launches, errs, times
 
 
@@ -1904,17 +2031,6 @@ def main() -> int:
     _f64_server_phase(server_out, dev)
 
     # --- 5. times -------------------------------------------------------------
-    def device_kernels(by_name: dict | None) -> dict:
-        """the device kernels of one entry call, for a K5 / K6 / K1 - K4
-        or server entry (None where the profiler saw none: not
-        measured)"""
-        if by_name is None:
-            return {"device_kernels": None, "device_kernels_by_name": None}
-        return {"device_kernels": sum(n for n, _ in by_name.values()),
-                "device_kernels_by_name": {
-                    k: {"launches": n, "ms": ms}
-                    for k, (n, ms) in by_name.items()}}
-
     p = mc.ctx.params
     ctx = mc.ctx
     plans = ctx.plans[:p.n_limbs]
@@ -2005,7 +2121,7 @@ def main() -> int:
                              flow_launches[FLOW_K1_PROFILE][name],
                          "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound[0], "bound_by": bound[1],
-                         **device_kernels(by_name)}
+                         **_device_kernel_fields(by_name)}
         print(f"time: {name} {FLOW_K1_PROFILE} ({L}, {rows}, {fp.n}) (the "
               f"flow's encoder): {ms:.4f} ms, plain {plain_ms:.1f} ms, "
               f"bound {bound[0]:.4f} ms ({bound[1]})  [{card}]", flush=True)
@@ -2040,7 +2156,7 @@ def main() -> int:
               "client_stream.py:200", mega_launches["decrypt_decode_stream"]),
     ]
     for k in kernels:
-        k.update(device_kernels(dkernels[k["name"], MAIN_BATCH]))
+        k.update(_device_kernel_fields(dkernels[k["name"], MAIN_BATCH]))
         at_batch_1(k)
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),
@@ -2059,7 +2175,8 @@ def main() -> int:
                 continue
             at_batch_1(e)
             if (e["name"], MAIN_BATCH) in dkernels:
-                e.update(device_kernels(dkernels[e["name"], MAIN_BATCH]))
+                e.update(_device_kernel_fields(
+                    dkernels[e["name"], MAIN_BATCH]))
             if e["name"] in flow_k1:
                 e["at_flow_shape"] = flow_k1[e["name"]]
         kernels.append(k)
@@ -2068,7 +2185,7 @@ def main() -> int:
         ms24, plain24, bound24, by_name24 = server_times[name, 24]
         extra = {}
         if name in SERVER_TILED:
-            extra = device_kernels(by_name)
+            extra = _device_kernel_fields(by_name)
         kernels.append({
             "name": name, "id": id_, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/server_eval.cu",
@@ -2080,7 +2197,8 @@ def main() -> int:
             "shape": "boot level 6 B=1",
             "at_level_24": {"ms": ms24, "plain_ms": plain24,
                             "bound_ms": bound24[0], "bound_by": bound24[1],
-                            **(device_kernels(by_name24) if extra else {})},
+                            **(_device_kernel_fields(by_name24)
+                               if extra else {})},
             **extra,
         })
     for fwd, inv in (("ntt_rows", "intt_rows"), ("encrypt_limb", None),
@@ -2123,7 +2241,7 @@ def main() -> int:
             "shape": f"{MAIN_PROFILE} B={MAIN_BATCH}",
             "at_batch_1": {"ms": ms1, "bound_ms": bound1[0],
                            "bound_by": bound1[1]},
-            **device_kernels(by_name),
+            **_device_kernel_fields(by_name),
         })
     print("library_ms: none; no single PyTorch call computes a negacyclic "
           "NTT, a Philox RLWE encrypt, the rotation-group-ordered df32 "

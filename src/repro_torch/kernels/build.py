@@ -71,9 +71,9 @@ ENTRY_POINTS = {
         "server_eval.cu", [_P] * 13 + [_I32] * 5 + [_P]),
     "server_mul_ct_launch": (
         "server_eval.cu", [_P] * 19 + [_I32] * 7 + [_P]),
-    "ntt_rows_launch": ("ntt_rows.cu", [_P] * 4 + [_I32] * 3 + [_P]),
+    "ntt_rows_launch": ("ntt_rows.cu", [_P] * 5 + [_I32] * 3 + [_P]),
     "encrypt_limb_launch": (
-        "client_pointwise.cu", [_P] * 8 + [_I32] * 2 + [_U32] * 5 + [_P]),
+        "client_pointwise.cu", [_P] * 10 + [_I32] * 2 + [_U32] * 5 + [_P]),
     "decrypt_limb_launch": (
         "client_pointwise.cu", [_P] * 6 + [_I32] * 2 + [_P]),
     "ntt_mm_pow_table": ("ntt_matmul.cu", [_P] * 2 + [_I32] * 3 + [_P]),

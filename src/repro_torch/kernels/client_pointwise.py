@@ -21,8 +21,10 @@ Port of ``repro.kernels.client_pointwise``:
     ``_encrypt_kernel`` / ``_decrypt_kernel``): one limb of a (B, N) batch,
     one launch per limb, the shift-add REDC of paper eq. 9-11.
     ``encrypt_limb_cuda`` / ``decrypt_limb_cuda`` launch
-    ``csrc/client_pointwise.cu``'s K13a / K13b, ``encrypt_limb_plain`` /
-    ``decrypt_limb_plain`` are the plain versions, and ``encrypt_limb`` /
+    ``csrc/client_pointwise.cu``'s K13a (K2's tiled encrypt body on the
+    one limb) / K13b (a one-row block per batch row),
+    ``encrypt_limb_plain`` / ``decrypt_limb_plain`` are the plain
+    versions, and ``encrypt_limb`` /
     ``decrypt_limb`` pick one by the tensors' device. Their words equal
     K2's / K3's on that limb.
 """
@@ -265,14 +267,17 @@ def encrypt_limb_cuda(pt_l, b_mont_l, a_mont_l, ctx, limb: int, seed: int,
     _check_limb_batch(pt_l, "pt_l", kc.n, dev)
     for name, t in (("b_mont_l", b_mont_l), ("a_mont_l", a_mont_l)):
         common.check_tensor(t, name, torch.int32, (kc.n,), dev)
-    c0 = torch.empty_like(pt_l)
-    c1 = torch.empty_like(pt_l)
-    v_scratch = torch.empty_like(pt_l)
+    batch = pt_l.shape[0]
+    common.check_grid_rows(batch)
+    c0, c1, v_scratch = (torch.empty_like(pt_l) for _ in range(3))
+    tw_heap = torch.empty((1, kc.n), dtype=torch.int32, device=dev)
+    noise = torch.empty((batch, 3, kc.n), dtype=torch.int8, device=dev)
     common.launch("encrypt_limb_launch", dev, pt_l.data_ptr(),
                   b_mont_l.data_ptr(), a_mont_l.data_ptr(), table.data_ptr(),
                   sa.data_ptr(), c0.data_ptr(), c1.data_ptr(),
-                  v_scratch.data_ptr(), pt_l.shape[0], kc.logn,
-                  *prng.seed_words(seed), int(nonce0) & MASK32)
+                  v_scratch.data_ptr(), tw_heap.data_ptr(), noise.data_ptr(),
+                  batch, kc.logn, *prng.seed_words(seed),
+                  int(nonce0) & MASK32)
     LAUNCHES["encrypt_limb"] += 1
     return c0, c1
 

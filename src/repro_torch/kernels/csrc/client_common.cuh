@@ -3,14 +3,15 @@
 // client_pointwise.cu, fft_df.cu, and the per-prime kernels ntt_rows.cu,
 // ntt_matmul.cu): the two uint32 Montgomery REDC policies (MontRedc: the
 // general one with -q^-1; SaRedc: the shift-add NTT-friendly one of paper
-// eq. 9-11), the u64 REDC of the server kernels, Philox-4x32-10, the df32
-// error-free transforms, the exact Delta-scale digit split, the two-limb
-// CRT, the f64 datapath's df64 transforms (exact Delta-scale round, fmod
-// RNS, df64 CRT), the NTT/INTT stage loops with
+// eq. 9-11; a tiled stage or encrypt picks one at compile time, see
+// ntt_tiled.cuh), the u64 REDC of the server kernels, Philox-4x32-10, the
+// df32 error-free transforms, the exact Delta-scale digit split, the
+// two-limb CRT, the f64 datapath's df64 transforms (exact Delta-scale
+// round, fmod RNS, df64 CRT), the one-row NTT/INTT stage loops with
 // on-the-fly twiddle doubling from the (L, K) seed table (templated on the
-// REDC policy; the one-row loop of the per-prime kernels), the df32
-// SpecialIFFT's 1/n scale, and the (limb, row) encrypt and decrypt block
-// bodies of K13.
+// REDC policy: K13b's loop under SaRedc, and under MontRedc the oracle the
+// host tests hold the tiled block against), the df32 SpecialIFFT's 1/n
+// scale, and the one-row decrypt block body of K13b.
 //
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
@@ -22,11 +23,11 @@
 //
 // Work layout: a block body walks its index ranges with a stride of the
 // block size and separates dependent phases with RT_SYNC(). In the
-// one-row loops the NTT rows (256 KB at N = 2^16) live in global memory
-// (scratch or the output buffers themselves, L2-resident per block); only
-// a stage's NTT twiddles (at most N/2 words = 128 KB) sit in dynamic shared
-// memory. The tiled transforms (ntt_tiled.cuh) hold their tiles in shared
-// memory instead.
+// one-row loops (K13b's, the only kernel that still runs one) the NTT rows
+// (256 KB at N = 2^16) live in global memory (the output buffer itself,
+// L2-resident per block); only a stage's NTT twiddles (at most N/2 words =
+// 128 KB) sit in dynamic shared memory. The tiled transforms
+// (ntt_tiled.cuh) hold their tiles in shared memory instead.
 //
 // The same header compiles as plain C++ (no __CUDACC__): one thread per
 // block, RT_SYNC a no-op. Each phase is race-free by construction, so that
@@ -630,57 +631,8 @@ RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
 }
 
 // ---------------------------------------------------------------------------
-// (limb, row) block bodies shared by the staged kernels and the megakernels
+// the one-row block body of K13b
 // ---------------------------------------------------------------------------
-
-// One encrypt block (K13a, client_pointwise.cu, under the shift-add REDC;
-// K2 and K5 run the tiled encrypt of encrypt_tiled.cuh): the row's (v, e0,
-// e1) from Philox under `nonce` (the streams do not depend on the limb),
-// mapped to residues, one NTT stage loop over them, then
-// c0 = (v*b + e0) + pt and c1 = v*a + e1, pt in the NTT domain
-// (client_pointwise.encrypt_limb_stage). e0 and e1 are transformed in the
-// c0 / c1 output rows, v in a scratch row.
-struct EncLimb {
-  uint32_t *c0, *c1;         // (N) output rows
-  uint32_t *v;               // (N) scratch row
-  const uint32_t *pt;        // (N) plaintext row, NTT domain
-  const uint32_t *pkb, *pka; // (N) public-key rows, Montgomery form
-  const uint32_t *trow;      // this limb's (K,) seed-table row
-  int logn;
-  uint32_t nonce;
-  Seed seed;
-};
-
-template <class Red>
-RT_FN void encrypt_limb_block(const EncLimb &e, const Red &red,
-                              uint32_t *tw) {
-  const int n = 1 << e.logn;
-  const uint32_t q = red.q;
-  const uint32_t sv = 0x10000u + 16u * e.nonce;  // STREAM_ENC_V + 16*nonce
-  const uint32_t s0 = 0x20000u + 16u * e.nonce;  // STREAM_ENC_E0
-  const uint32_t s1 = 0x30000u + 16u * e.nonce;  // STREAM_ENC_E1
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    const uint32_t ui = (uint32_t)i;
-    e.v[i] = to_residue(zo(philox_word(ui, sv, 0u, e.seed)), q);
-    e.c0[i] = to_residue(cbd(philox_word(ui, s0, 0u, e.seed),
-                             philox_word(ui, s0, 1u, e.seed)),
-                         q);
-    e.c1[i] = to_residue(cbd(philox_word(ui, s1, 0u, e.seed),
-                             philox_word(ui, s1, 1u, e.seed)),
-                         q);
-  }
-  RT_SYNC();
-  Rows rows = {{e.v, e.c0, e.c1, nullptr}};
-  ntt_fwd(rows, 3, e.logn, e.trow, red, tw);
-  for (int i = RT_TID; i < n; i += RT_NT) {
-    const uint32_t vh = e.v[i];
-    const uint32_t c0 =
-        addmod(addmod(redc(red, vh, e.pkb[i]), e.c0[i], q), e.pt[i], q);
-    const uint32_t c1 = addmod(redc(red, vh, e.pka[i]), e.c1[i], q);
-    e.c0[i] = c0;
-    e.c1[i] = c1;
-  }
-}
 
 // One decrypt block (K13b, client_pointwise.cu): m = INTT(c0 + c1*s) of
 // one (limb, row), in place in the row m (client_pointwise.decrypt_limb_plain

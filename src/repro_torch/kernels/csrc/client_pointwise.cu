@@ -36,31 +36,39 @@
 // output.
 //
 // K13a replaces :_encrypt_kernel (encrypt_limb) and K13b :_decrypt_kernel
-// (decrypt_limb): the one-row block bodies rt::encrypt_limb_block /
-// rt::decrypt_limb_block for ONE limb of a (B, N) batch, grid (B,), one
-// launch per limb as in the reference, with the shift-add REDC of paper
-// eq. 9-11 (rt::SaRedc; the reference bakes the prime's k-terms into each
-// compiled kernel, here they come from a row of common.sa_table). Row b
-// encrypts under nonce0 + b (mod 2^32). Their words equal K2's / K3's on
-// that limb and the plain versions (client_pointwise.encrypt_limb_plain /
-// decrypt_limb_plain).
+// (decrypt_limb): ONE limb of a (B, N) batch, one launch per limb as in the
+// reference, with the shift-add REDC of paper eq. 9-11 (rt::SaRedc; the
+// reference bakes the prime's k-terms into each compiled kernel, here they
+// come from a row of common.sa_table). Row b encrypts under nonce0 + b
+// (mod 2^32). Their words equal K2's / K3's on that limb and the plain
+// versions (client_pointwise.encrypt_limb_plain / decrypt_limb_plain).
+// K13a runs K2's tiled encrypt with one limb and the plaintext policy
+// PtNttSa, whose REDC is SaRedc in the butterflies and in v*b, v*a: the
+// prologue (the limb's forward heap (1, N), the noise (B, 3, N)), then on
+// rows above one tile the column pass, grid (1, 3 x tiles, B), and the
+// chunk pass, grid (B, tiles, 1); rows that fit one tile take one pass, a
+// block per row. K13b still runs the one-row block body
+// rt::decrypt_limb_block (grid (B,): the row in device memory, a barrier
+// per stage; client_common.cuh's stage loop under SaRedc).
 //
 // What bounds them on an H100: K2 writes 8 bytes per (row, limb,
 // coefficient) but needs three 16-stage NTTs and five Philox-10 words per
-// coefficient; K3 one INTT per (row, limb): operations, not bytes. K2's
-// and K3's tiled passes keep their butterflies in shared memory (two stages
-// per barrier, four points a thread in registers; a row crosses device
-// memory twice). K13 still streams its NTT rows (256 KB at N = 2^16)
-// through global memory with a barrier per stage; only a stage's twiddles
-// sit in shared memory. Times against the bounds: PERF.md §6.
+// coefficient; K3 one INTT per (row, limb): operations, not bytes. K2's,
+// K13a's and K3's tiled passes keep their butterflies in shared memory (two
+// stages per barrier, four points a thread in registers; a row crosses
+// device memory twice). K13b still streams its NTT rows (256 KB at
+// N = 2^16) through global memory with a barrier per stage; only a stage's
+// twiddles sit in shared memory. Times against the bounds: PERF.md §6.
 #include "encrypt_tiled.cuh"
 
 namespace {
 
 // The plaintext of K2: NTT-domain words (B, L, N) of any row and limb
-// stride, joined to c0 in the chunk store (encrypt_tiled.cuh).
+// stride, joined to c0 in the chunk store (encrypt_tiled.cuh), under the
+// general REDC.
 struct PtNtt {
   static constexpr bool kLoad = false, kStore = true;
+  using Red = rt::MontRedc;
   const uint32_t *pt;
   long long row_stride, limb_stride;
   struct Row {
@@ -70,6 +78,17 @@ struct PtNtt {
   RT_METHOD Row row(int l, int b, int) const {
     return Row{pt + b * row_stride + l * limb_stride};
   }
+  RT_METHOD Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
+};
+
+// The plaintext of K13a: K2's on one limb, under the shift-add REDC whose
+// constants are the prime's common.sa_table row
+struct PtNttSa : PtNtt {
+  using Red = rt::SaRedc;
+  const int32_t *sa;
+  RT_METHOD Red make_red(const uint32_t *) const { return rt::sa_redc(sa); }
 };
 
 rt::tiled::EncNtt enc_ntt(const uint32_t *pk_b, const uint32_t *pk_a,
@@ -87,6 +106,10 @@ rt::tiled::EncNtt enc_ntt(const uint32_t *pk_b, const uint32_t *pk_a,
 // transform between the passes
 struct DecRows {
   static constexpr bool kInverse = true;
+  using Red = rt::MontRedc;
+  RT_MEMBER Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
   const uint32_t *c0, *c1;  // (B, >= L_dec, N), row stride `row_stride`
   long long row_stride;
   const uint32_t *s_mont;   // (>= L_dec, N)
@@ -113,27 +136,7 @@ struct DecRows {
   }
 };
 
-// K13: one limb of a (B, N) batch under the shift-add REDC
-struct EncOneArgs {
-  const uint32_t *pt;          // (B, N) NTT domain
-  const uint32_t *pk_b, *pk_a; // (N) Montgomery form
-  const uint32_t *trow;        // (K,) seed-table row of the limb's prime
-  const int32_t *sa;           // (SA_COLS,) its shift-add REDC row
-  uint32_t *c0, *c1;           // (B, N)
-  uint32_t *v;                 // (B, N) scratch
-  int logn;
-  rt::Seed seed;
-  uint32_t nonce0;
-};
-
-RT_BODY void encrypt_one_limb(const EncOneArgs &a, int b, uint32_t *tw) {
-  const size_t off = (size_t)b << a.logn;
-  rt::EncLimb e = {a.c0 + off, a.c1 + off, a.v + off, a.pt + off,
-                   a.pk_b, a.pk_a, a.trow, a.logn, a.nonce0 + (uint32_t)b,
-                   a.seed};
-  rt::encrypt_limb_block(e, rt::sa_redc(a.sa), tw);
-}
-
+// K13b: one limb of a (B, N) batch under the shift-add REDC
 struct DecOneArgs {
   const uint32_t *c0, *c1;  // (B, N)
   const uint32_t *s_mont;   // (N)
@@ -164,6 +167,20 @@ RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
           n_limbs, logn, n_scalars, seed0, seed1, seed2, seed3, nonce0)
 #define ENC_PT PtNtt{pt, pt_row_stride, pt_limb_stride}
 
+// K13a's entry arguments (the host entry adds the tile geometry): K2's for
+// one limb, its table row trow and its shift-add REDC row sa. The one table
+// row's stride is never read (0).
+#define ENC1_PARAMS                                                         \
+  const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,           \
+      const uint32_t *trow, const int32_t *sa, uint32_t *c0, uint32_t *c1,  \
+      uint32_t *v_scratch, uint32_t *ntt_tw, int8_t *noise, int batch,      \
+      int logn, uint32_t seed0, uint32_t seed1, uint32_t seed2,             \
+      uint32_t seed3, uint32_t nonce0
+#define ENC1_NTT                                                            \
+  enc_ntt(pk_b, pk_a, trow, c0, c1, v_scratch, ntt_tw, noise, batch, 1,     \
+          logn, 0, seed0, seed1, seed2, seed3, nonce0)
+#define ENC1_PT PtNttSa{{pt, (long long)1 << logn, 0}, sa}
+
 // K3's entry arguments (the host entry adds the tile geometry)
 #define DEC_PARAMS                                                          \
   const uint32_t *c0, const uint32_t *c1, long long row_stride,             \
@@ -178,27 +195,26 @@ namespace {
 
 RT_STAGE_KERNELS(decrypt_limbs, DecRows)
 
-__global__ void __launch_bounds__(1024) encrypt_limb_kernel(EncOneArgs a) {
-  extern __shared__ uint32_t tw_smem[];
-  encrypt_one_limb(a, blockIdx.x, tw_smem);
-}
-
 __global__ void __launch_bounds__(1024) decrypt_limb_kernel(DecOneArgs a) {
   extern __shared__ uint32_t tw_smem[];
   decrypt_one_limb(a, blockIdx.x, tw_smem);
 }
 
+// K2's and K13a's launches: the prologue, then the NTT passes
+template <class Pt>
+int encrypt(rt::tiled::EncNtt a, const Pt &pt, cudaStream_t s) {
+  using namespace rt::tiled;
+  a.g = enc_ntt_geo(a.logn, -1, -1, -1, a.batch, a.n_limbs);
+  if (!geo_valid(a.g)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = enc_prologue_launch(a, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)enc_ntt_launch(a, pt, s);
+}
+
 }  // namespace
 
 extern "C" int encrypt_limbs_launch(ENC_PARAMS, void *stream) {
-  using namespace rt::tiled;
-  EncNtt a = ENC_NTT;
-  a.g = enc_ntt_geo(logn, -1, -1, -1, batch, n_limbs);
-  if (!geo_valid(a.g)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = enc_prologue_launch(a, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)enc_ntt_launch(a, ENC_PT, s);
+  return encrypt(ENC_NTT, ENC_PT, (cudaStream_t)stream);
 }
 
 extern "C" int decrypt_limbs_launch(DEC_PARAMS, void *stream) {
@@ -216,20 +232,8 @@ extern "C" int decrypt_limbs_launch(DEC_PARAMS, void *stream) {
   return (int)rt::tiled::launch_stage(stage_kernels(st), st, t, rows, s);
 }
 
-extern "C" int encrypt_limb_launch(
-    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
-    const uint32_t *trow, const int32_t *sa, uint32_t *c0, uint32_t *c1,
-    uint32_t *v_scratch, int batch, int logn, uint32_t seed0, uint32_t seed1,
-    uint32_t seed2, uint32_t seed3, uint32_t nonce0, void *stream) {
-  EncOneArgs a = {pt, pk_b, pk_a, trow, sa, c0, c1, v_scratch, logn,
-                  {seed0, seed1, seed2, seed3}, nonce0};
-  const size_t smem = sizeof(uint32_t) << (logn - 1);
-  static rt::SmemAllowance allowance;
-  cudaError_t err =
-      rt::allow_dynamic_smem(encrypt_limb_kernel, smem, allowance);
-  if (err != cudaSuccess) return (int)err;
-  encrypt_limb_kernel<<<batch, 1024, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+extern "C" int encrypt_limb_launch(ENC1_PARAMS, void *stream) {
+  return encrypt(ENC1_NTT, ENC1_PT, (cudaStream_t)stream);
 }
 
 extern "C" int decrypt_limb_launch(const uint32_t *c0, const uint32_t *c1,
@@ -251,16 +255,28 @@ extern "C" int decrypt_limb_launch(const uint32_t *c0, const uint32_t *c1,
 
 #include <vector>
 
-// The host entry takes the tile geometry too, so that tests can force
-// splits and tile sizes (-1: the CUDA entry's plan).
-extern "C" int encrypt_limbs_host(ENC_PARAMS, int ga, int lc, int lr) {
+namespace {
+
+template <class Pt>
+int encrypt_host(rt::tiled::EncNtt a, const Pt &pt, int ga, int lc, int lr) {
   using namespace rt::tiled;
-  EncNtt a = ENC_NTT;
-  a.g = enc_ntt_geo(logn, ga, lc, lr, batch, n_limbs);
+  a.g = enc_ntt_geo(a.logn, ga, lc, lr, a.batch, a.n_limbs);
   if (!geo_valid(a.g)) return 1;
   enc_prologue_host(a);
-  enc_ntt_host(a, ENC_PT);
+  enc_ntt_host(a, pt);
   return 0;
+}
+
+}  // namespace
+
+// The encrypt host entries take the tile geometry too, so that tests can
+// force splits and tile sizes (-1: the CUDA entry's plan).
+extern "C" int encrypt_limbs_host(ENC_PARAMS, int ga, int lc, int lr) {
+  return encrypt_host(ENC_NTT, ENC_PT, ga, lc, lr);
+}
+
+extern "C" int encrypt_limb_host(ENC1_PARAMS, int ga, int lc, int lr) {
+  return encrypt_host(ENC1_NTT, ENC1_PT, ga, lc, lr);
 }
 
 // K3's host entry takes the tile geometry and the chunk tiles' order too
@@ -273,18 +289,6 @@ extern "C" int decrypt_limbs_host(DEC_PARAMS, int ga, int lc, int lr,
   if (!rt::tiled::geo_valid(t.g)) return 1;
   rt::tiled::heap_rows_host(table, n_scalars, logn, true, tw_heap, n_limbs);
   return rt::tiled::run_stage_host(DEC_ROWS, t, rows) ? 0 : 1;
-}
-
-extern "C" int encrypt_limb_host(
-    const uint32_t *pt, const uint32_t *pk_b, const uint32_t *pk_a,
-    const uint32_t *trow, const int32_t *sa, uint32_t *c0, uint32_t *c1,
-    uint32_t *v_scratch, int batch, int logn, uint32_t seed0, uint32_t seed1,
-    uint32_t seed2, uint32_t seed3, uint32_t nonce0) {
-  EncOneArgs a = {pt, pk_b, pk_a, trow, sa, c0, c1, v_scratch, logn,
-                  {seed0, seed1, seed2, seed3}, nonce0};
-  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
-  for (int b = 0; b < batch; ++b) encrypt_one_limb(a, b, tw_smem.data());
-  return 0;
 }
 
 extern "C" int decrypt_limb_host(const uint32_t *c0, const uint32_t *c1,

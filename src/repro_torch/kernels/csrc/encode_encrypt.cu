@@ -77,6 +77,7 @@ struct EncArgs {
 // e0 in the NTT's column load (encrypt_tiled.cuh).
 struct PtDigits {
   static constexpr bool kLoad = true, kStore = false;
+  using Red = rt::MontRedc;
   const int32_t *digits;       // (B, 3, N)
   const uint32_t *digit_mont;  // (L, 2)
   struct Row {
@@ -96,6 +97,9 @@ struct PtDigits {
   RT_METHOD Row row(int l, int b, int n) const {
     return Row{digits + (size_t)b * 3 * n, digit_mont[2 * l],
                digit_mont[2 * l + 1], n};
+  }
+  RT_METHOD Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
   }
 };
 

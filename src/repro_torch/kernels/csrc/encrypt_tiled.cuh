@@ -1,21 +1,26 @@
 // The RLWE public-key encrypt of the client kernels on the tiled NTT block
-// (ntt_tiled.cuh): one body for K5 (encode_encrypt.cu) and K2
+// (ntt_tiled.cuh): one body for K5 (encode_encrypt.cu), K2 and K13a
 // (client_pointwise.cu).
 //
 // For every (limb l, row b) of a batch: Philox (v, e0, e1) keyed by
 // (seed, nonce0 + b) (the sum wraps mod 2^32), residues, the forward NTT
-// of three polynomials, c0 = v*b + e0 + pt and c1 = v*a + e1. The two
-// kernels differ only in where the plaintext enters, a policy class Pt:
+// of three polynomials, c0 = v*b + e0 + pt and c1 = v*a + e1. The
+// kernels differ only in where the plaintext enters and in the REDC, a
+// policy class Pt:
 //   K5 (PtDigits): its coefficients' residues join polynomial 1 in the
 //       column load, so the three NTTs are of v, e0 + pt and e1
 //       (NTT(e0) + NTT(pt) = NTT(e0 + pt) mod q, word for word);
-//   K2 (PtNtt): its NTT-domain words join c0 in the chunk store
-//       (addition of canonical residues mod q gives the same word in any
-//       order, so c0 = v*b + (e0 + pt) is the plain version's
-//       (v*b + e0) + pt bit for bit).
+//   K2 (PtNtt) and K13a (PtNttSa, one limb): its NTT-domain words join c0
+//       in the chunk store (addition of canonical residues mod q gives the
+//       same word in any order, so c0 = v*b + (e0 + pt) is the plain
+//       version's (v*b + e0) + pt bit for bit).
 // Pt::kLoad / Pt::kStore say which. pt.row(l, b, n) binds one (limb,
 // row) once per block; its load(p, red) (kLoad) gives coefficient p's
 // residue, its store(p) (kStore) the NTT-domain word at position p.
+// pt.make_red(table row) gives the REDC policy Pt::Red of the butterflies
+// and of v*b, v*a: the general MontRedc for K5 and K2, the shift-add SaRedc
+// (paper eq. 9-11) for K13a, as their TPU kernels run. The twiddle heaps
+// are made under MontRedc in every case (heap_word: the same words).
 //
 // Launches, on the caller's stream:
 //   1. enc_prologue_kernel, grid-stride: each limb's forward twiddle heap
@@ -111,7 +116,7 @@ RT_BODY void enc_ntt_tile(const EncNtt &a, const Pt &pt, int l, int poly,
   const Geo &g = a.g;
   const int n = 1 << g.logn;
   const uint32_t *trow = a.table + (size_t)l * a.n_scalars;
-  const MontRedc red = mont_redc(trow);
+  const typename Pt::Red red = pt.make_red(trow);
   const uint32_t q = red.q;
   const uint32_t *tw = a.ntt_tw + (size_t)l * n;
   const size_t off = ((size_t)b * a.n_limbs + l) * n;

@@ -49,6 +49,10 @@ using rt::tiled::Tiling;
 template <bool inverse>
 struct LimbRows {
   static constexpr bool kInverse = inverse;
+  using Red = rt::MontRedc;
+  RT_MEMBER Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
   const uint32_t *x;
   uint32_t *out;
   int rows, logn;
@@ -131,8 +135,8 @@ extern "C" int ntt_limbs_host(const uint32_t *x, uint32_t *out,
   return ok ? 0 : 1;
 }
 
-// The one-row stage loop of client_common.cuh (rt::ntt_fwd / ntt_inv, the
-// loop K12 and K13 still run) on the same stack: what the tests hold the
+// The one-row stage loop of client_common.cuh (rt::ntt_fwd / ntt_inv, whose
+// inverse K13b still runs) on the same stack: what the tests hold the
 // tiled schedule against.
 extern "C" int ntt_limbs_loop_host(const uint32_t *x, uint32_t *out,
                                    const uint32_t *table, int n_limbs,

@@ -1,9 +1,10 @@
 // The tiled two-pass NTT / INTT and df32 SpecialFFT / IFFT of the client
 // megakernels (encode_encrypt.cu, decrypt_decode.cu), of the staged
-// SpecialFFT / IFFT K4 (fft_df.cu), of the folded encrypt K2
-// (client_pointwise.cu, through encrypt_tiled.cuh), and the transform stage
-// (stage_tile and its pass launchers) that the limb-folded NTT / INTT K1
-// (ntt_limbs.cu), the folded decrypt K3 (client_pointwise.cu) and the
+// SpecialFFT / IFFT K4 (fft_df.cu), of the folded and per-limb encrypts K2
+// and K13a (client_pointwise.cu, through encrypt_tiled.cuh), and the
+// transform stage (stage_tile and its pass launchers) that the limb-folded
+// NTT / INTT K1 (ntt_limbs.cu), the per-prime NTT / INTT K12
+// (ntt_rows.cu), the folded decrypt K3 (client_pointwise.cu) and the
 // server's lift, base extension and scale-down (server_eval.cu) run.
 //
 // A row of 2^logn points is viewed as a 2^a x 2^b matrix, a + b = logn,
@@ -42,9 +43,16 @@
 // A transform stage is an NTT or INTT of independent rows whose first load
 // and last store carry elementwise work: a stage type S gives, per row, its
 // table row and what the first pass loads and the last pass stores, and
-// stage_tile runs one tile of any pass of it. K1's stage loads and stores
-// the words as they are, K3's load forms c0 + c1*s; the server's stages
-// gather, REDC, centre and combine there.
+// stage_tile runs one tile of any pass of it. K1's and K12's stages load
+// and store the words as they are, K3's load forms c0 + c1*s; the server's
+// stages gather, REDC, centre and combine there.
+//
+// The REDC policy is the stage's, fixed at compile time: S::Red, made by
+// s.make_red(table row). Every stage but K12's runs the general MontRedc;
+// K12 (ntt_rows.cu) runs the shift-add SaRedc of paper eq. 9-11, as its TPU
+// kernel does. The encrypt tile of encrypt_tiled.cuh takes its policy the
+// same way from its plaintext policy Pt (K13a: SaRedc). The butterfly loops
+// are templates on the policy, so no loop branches on it at run time.
 //
 // Compiles as plain C++ too (one thread per block, RT_SYNC a no-op), like
 // client_common.cuh, so the host build checks these loops on a CPU.
@@ -156,7 +164,9 @@ RT_FN uint32_t heap_twiddle(const uint32_t *trow, int logn, bool inverse,
 
 // Word t of the heaps of one direction for consecutive table rows, laid out
 // (rows, N) from tw: row t / N's heap twiddle t % N (slot 0 unused); table
-// row r at table + r * stride.
+// row r at table + r * stride. Made under MontRedc for every stage, those
+// under SaRedc too: every correct REDC returns the same word
+// (client_common.cuh), so the heap is the same table under either policy.
 RT_FN void heap_word(const uint32_t *table, int stride, int logn,
                      bool inverse, uint32_t *tw, long long t) {
   const int m = (int)(t & ((1 << logn) - 1));
@@ -547,7 +557,8 @@ inline bool stage_fits(const Geo &g, long long rows) {
 // holds the transform between the passes, load(p) (the word the first
 // pass reads at position p: the stage's elementwise work in front of the
 // transform) and store(p, v) (what the last pass does with the transform's
-// word v at p).
+// word v at p). s.make_red(trow) gives the REDC policy S::Red of the
+// butterflies and of N^-1.
 template <int pass, class S>
 RT_BODY void stage_tile(const S &s, const Tiling &t, long long blk,
                         uint32_t *x) {
@@ -557,7 +568,7 @@ RT_BODY void stage_tile(const S &s, const Tiling &t, long long blk,
   const int tile = (int)(blk & ((1 << lt) - 1));
   const typename S::Row r = s.bind(blk >> lt);
   const uint32_t *trow = t.table + (size_t)r.prime * t.ncols;
-  const MontRedc red = mont_redc(trow);
+  const typename S::Red red = s.make_red(trow);
   const uint32_t *tw = t.tw + ((size_t)r.prime << g.logn);
   constexpr bool first =
       pass == kRow || pass == (inverse ? kChunks : kColumns);
@@ -657,7 +668,7 @@ inline cudaError_t launch_stage(const PassKernels<S> &k, const S &s,
 }
 
 // The heaps of one direction for table rows 0 .. rows - 1 into tw (rows,
-// N), a grid-stride pass of at most 16 blocks an SM (K1's and K3's
+// N), a grid-stride pass of at most 16 blocks an SM (K1's, K3's and K12's
 // prologue).
 template <bool inverse>
 __global__ void __launch_bounds__(kPassThreads)

@@ -186,6 +186,10 @@ struct MacStage {
 // mod-down (x0 = l). src must not alias dst.
 struct LiftStage {
   static constexpr bool kInverse = true;
+  using Red = rt::MontRedc;
+  RT_MEMBER Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
   Consts g;
   const uint32_t *src, *src1;
   int src_rows, x0;    // rows per batch entry of a source poly, first row
@@ -227,6 +231,10 @@ struct LiftStage {
 // NTT_i(residue(D[b][j])), the residue taken in the load
 struct ExtendStage {
   static constexpr bool kInverse = false;
+  using Red = rt::MontRedc;
+  RT_MEMBER Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
   Consts g;
   const int32_t *digits;  // (B, l, N)
   uint32_t *h;            // (B, l+1, l, N)
@@ -260,6 +268,10 @@ struct ExtendStage {
 // relinearization). The order of scale_down in _rescale2 / _ks_moddown.
 struct ScaleDownStage {
   static constexpr bool kInverse = false;
+  using Red = rt::MontRedc;
+  RT_MEMBER Red make_red(const uint32_t *trow) const {
+    return rt::mont_redc(trow);
+  }
   Consts g;
   const uint32_t *x0, *x1;
   int x_rows;

@@ -22,8 +22,9 @@ K12 is the port of ``ntt_rows`` / ``intt_rows`` (the TPU kernels
 shift-add REDC of paper eq. 9-11 (``common.ntt_stages`` /
 ``intt_stages``), the same orders as K1:
 
-  * ``rows_cuda`` launches ``csrc/ntt_rows.cu`` (grid (rows,)) and counts
-    ``ntt_rows`` / ``intt_rows``;
+  * ``rows_cuda`` launches ``csrc/ntt_rows.cu`` (K1's twiddle-heap
+    prologue and tiled passes on the one prime, under the shift-add REDC)
+    and counts ``ntt_rows`` / ``intt_rows``;
   * ``rows_plain`` runs the static stage loops;
   * ``ntt_rows`` / ``intt_rows`` pick one by the tensor's device.
 """
@@ -96,10 +97,11 @@ def rows_cuda(x: torch.Tensor, plan, inverse: bool) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     common.check_tensor(x, "x", torch.int32, (x.shape[0], kc.n), dev)
     out = torch.empty_like(x)
+    tw_heap = torch.empty((1, kc.n), dtype=torch.int32, device=dev)
     common.launch("ntt_rows_launch", dev, x.data_ptr(), out.data_ptr(),
                   common.device_seed_table(kc, dev).data_ptr(),
                   common.device_sa_table([plan], dev).data_ptr(),
-                  x.shape[0], kc.logn, int(inverse))
+                  tw_heap.data_ptr(), x.shape[0], kc.logn, int(inverse))
     LAUNCHES["intt_rows" if inverse else "ntt_rows"] += 1
     return out
 

@@ -8,9 +8,12 @@ computes). Here g++ builds every source that way (the megakernels
 ``ntt_limbs.cu``, ``client_pointwise.cu``, ``fft_df.cu`` (K1, K2, K3 and
 K4 also under forced tile geometries of the tiled NTT / FFT block), the
 server op set ``server_eval.cu``, and the per-prime kernels
-``ntt_rows.cu`` (K12, the stage loop under the shift-add REDC), K13 in
-``client_pointwise.cu`` and the four-step ``ntt_matmul.cu`` (K14: its dp4a
-digit-product tiles and Barrett recombination)), with
+``ntt_rows.cu`` (K12, a stage of the tiled NTT block under the shift-add
+REDC), K13 in ``client_pointwise.cu`` (K13a, K2's tiled encrypt under the
+shift-add REDC, K12 / K13a also under forced geometries and against K1 /
+K2 on the same limb; K13b, the one-row loop) and the four-step
+``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and Barrett
+recombination)), with
 ``-ffp-contract=off`` (the host twin of ``--fmad=false``), and each
 ``_host`` entry's results must equal the plain
 PyTorch version word for word, on both datapaths (K5 / K6's df32 and f64
@@ -71,9 +74,9 @@ _HOST_ENTRIES = {
     "server_ks_apply_rot_host": ("server_eval.cu", [_P] * 11 + [_I] * 9),
     "server_rotate_host": ("server_eval.cu", [_P] * 13 + [_I] * 9),
     "server_mul_ct_host": ("server_eval.cu", [_P] * 19 + [_I] * 11),
-    "ntt_rows_host": ("ntt_rows.cu", [_P] * 4 + [_I] * 3),
-    "encrypt_limb_host": ("client_pointwise.cu", [_P] * 8 + [_I] * 2
-                          + [_U] * 5),
+    "ntt_rows_host": ("ntt_rows.cu", [_P] * 5 + [_I] * 7),
+    "encrypt_limb_host": ("client_pointwise.cu", [_P] * 10 + [_I] * 2
+                          + [_U] * 5 + [_I] * 3),
     "decrypt_limb_host": ("client_pointwise.cu", [_P] * 6 + [_I] * 2),
     "ntt_mm_pow_table_host": ("ntt_matmul.cu", [_P] * 2 + [_I] * 3),
     "ntt_mm_host": ("ntt_matmul.cu", [_P] * 7 + [_I] * 6),
@@ -315,8 +318,8 @@ def test_host_tiled_ntt_matches_stage_loop(host_libs, profile, geo, inverse):
     """K1's tiled schedule under a forced geometry (a, lc, lr, brev) on
     random residues of every limb, lines of odd and even stage counts
     (one-stage lines at a = 1 and b = 1): the words of the one-row stage
-    loop rt::ntt_fwd / ntt_inv (K1 before its redesign, still K12's and
-    K13's loop) and of the plain stage loops."""
+    loop rt::ntt_fwd / ntt_inv (K1 before its redesign; its inverse is
+    K13b's loop still) and of the plain stage loops."""
     ctx = get_context(profile)
     L, n, rows = ctx.params.n_limbs, ctx.params.n, 3
     rng = np.random.default_rng(11)
@@ -380,12 +383,20 @@ def test_host_ntt_limbs_matches_plain(host_libs, profile, inverse):
 def _k2_host(host_libs, client, pt, nonce0, geo=(-1, -1, -1)):
     """(c0, c1) of the host build of K2 (client_pointwise.cu) on a (B, L, N)
     uint32 plaintext, any view whose (row, limb) rows are contiguous (read
-    through its strides), under NTT geometry (a, lc, lr)."""
-    ctx = client.ctx
+    through its strides), under NTT geometry (a, lc, lr), with the
+    client's public key and seed."""
+    pk = [k.numpy().view(np.uint32)
+          for k in (client.keys.pk.b_mont, client.keys.pk.a_mont)]
+    return _k2_host_keys(host_libs, client.ctx, pk, client.seed, pt, nonce0,
+                         geo)
+
+
+def _k2_host_keys(host_libs, ctx, pk, seed, pt, nonce0, geo=(-1, -1, -1)):
+    """``_k2_host`` with the (>= L, N) uint32 key rows pk = (b, a) and the
+    seed given."""
     batch, L, n = pt.shape
     kc = common.stacked_kernel_consts(ctx.plans[:L])
-    keys = [np.ascontiguousarray(k.numpy().view(np.uint32))
-            for k in (client.keys.pk.b_mont, client.keys.pk.a_mont)]
+    keys = [np.ascontiguousarray(k) for k in pk]
     c0, c1, v = (np.zeros((batch, L, n), np.uint32) for _ in range(3))
     scratch = (np.zeros((L, n), np.uint32), np.zeros((batch, 3, n), np.int8))
     row_stride, limb_stride, one = (st // pt.itemsize for st in pt.strides)
@@ -394,7 +405,7 @@ def _k2_host(host_libs, client, pt, nonce0, geo=(-1, -1, -1)):
         _ptr(pt), row_stride, limb_stride, *(_ptr(k) for k in keys),
         _ptr(np.ascontiguousarray(kc.table)), _ptr(c0), _ptr(c1), _ptr(v),
         *(_ptr(a) for a in scratch), batch, L, kc.logn, kc.n_scalars,
-        *prng.seed_words(client.seed), nonce0, *geo)
+        *prng.seed_words(seed), nonce0, *geo)
     assert err == 0
     return c0, c1
 
@@ -816,11 +827,47 @@ def test_host_server_ops_forced_geometry_match_plain(host_libs, profile,
 # ---------------------------------------------------------------------------
 
 
+def _k12_host(host_libs, plan, x, inverse, geo=(-1, -1, -1, 0)):
+    """The host build of K12 (ntt_rows.cu: a stage of the tiled NTT block
+    under the shift-add REDC) on (rows, N) uint32 words of one prime, under
+    NTT geometry (a, lc, lr, brev)."""
+    kc = common.stacked_kernel_consts([plan])
+    out, tw_heap = np.zeros_like(x), np.zeros((1, kc.n), np.uint32)
+    err = host_libs["ntt_rows_host"](
+        _ptr(x), _ptr(out), _ptr(np.ascontiguousarray(kc.table)),
+        _ptr(np.ascontiguousarray(common.sa_table([plan]))), _ptr(tw_heap),
+        x.shape[0], kc.logn, int(inverse), *geo)
+    assert err == 0
+    return out
+
+
+def _k13a_host(host_libs, ctx, limb, pt_l, b_l, a_l, seed, nonce0,
+               geo=(-1, -1, -1)):
+    """(c0, c1) of the host build of K13a (client_pointwise.cu: K2's tiled
+    encrypt on one limb under the shift-add REDC) on a (B, N) uint32
+    plaintext of limb `limb`, key rows b_l / a_l (N,), under NTT geometry
+    (a, lc, lr)."""
+    plan = ctx.plans[limb]
+    kc = common.stacked_kernel_consts([plan])
+    batch, n = pt_l.shape
+    c0, c1, v = (_zeros(batch, n) for _ in range(3))
+    tw_heap, noise = _zeros(1, n), np.zeros((batch, 3, n), np.int8)
+    err = host_libs["encrypt_limb_host"](
+        _ptr(pt_l), *(_ptr(np.ascontiguousarray(k)) for k in (b_l, a_l)),
+        _ptr(np.ascontiguousarray(kc.table)),
+        _ptr(np.ascontiguousarray(common.sa_table([plan]))), _ptr(c0),
+        _ptr(c1), _ptr(v), _ptr(tw_heap), _ptr(noise), batch, kc.logn,
+        *prng.seed_words(seed), nonce0, *geo)
+    assert err == 0
+    return c0, c1
+
+
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 @pytest.mark.parametrize("profile", ["tiny", "test"])
 def test_host_ntt_rows_match_plain(host_libs, profile, inverse):
-    """K12's stage loop under the shift-add REDC, every limb's prime; its
-    words also equal K1's (the same loop under the general REDC)."""
+    """K12 (the tiled stage under the shift-add REDC), every limb's prime;
+    its words also equal K1's (the same transform under the general
+    REDC)."""
     ctx = get_context(profile)
     n, rows = ctx.n, 3
     rng = np.random.default_rng(9)
@@ -829,13 +876,7 @@ def test_host_ntt_rows_match_plain(host_libs, profile, inverse):
     for limb, plan in enumerate(ctx.plans):
         xl = np.ascontiguousarray(x[limb])
         want = ntt_butterfly.rows_plain(_t(xl), plan, inverse)
-        kc = common.stacked_kernel_consts([plan])
-        out = np.zeros_like(xl)
-        err = host_libs["ntt_rows_host"](
-            _ptr(xl), _ptr(out), _ptr(np.ascontiguousarray(kc.table)),
-            _ptr(np.ascontiguousarray(common.sa_table([plan]))), rows,
-            kc.logn, int(inverse))
-        assert err == 0
+        out = _k12_host(host_libs, plan, xl, inverse)
         np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
         np.testing.assert_array_equal(out, k1[limb].numpy().view(np.uint32))
 
@@ -861,13 +902,8 @@ def test_host_encrypt_decrypt_limb_match_plain(host_libs, profile, batch,
         kc = common.stacked_kernel_consts([plan])
         table = np.ascontiguousarray(kc.table)
         sa = np.ascontiguousarray(common.sa_table([plan]))
-        c0, c1, v = _zeros(batch, n), _zeros(batch, n), _zeros(batch, n)
-        bl, al = (np.ascontiguousarray(k[limb]) for k in (b_np, a_np))
-        err = host_libs["encrypt_limb_host"](
-            _ptr(ptl), _ptr(bl), _ptr(al), _ptr(table), _ptr(sa), _ptr(c0),
-            _ptr(c1), _ptr(v), batch, kc.logn, *prng.seed_words(client.seed),
-            nonce0)
-        assert err == 0
+        c0, c1 = _k13a_host(host_libs, ctx, limb, ptl, b_np[limb],
+                            a_np[limb], client.seed, nonce0)
         np.testing.assert_array_equal(c0, w0.numpy().view(np.uint32))
         np.testing.assert_array_equal(c1, w1.numpy().view(np.uint32))
         want = client_pointwise.decrypt_limb_plain(w0, w1, keys[2][limb],
@@ -879,6 +915,78 @@ def test_host_encrypt_decrypt_limb_match_plain(host_libs, profile, batch,
             batch, kc.logn)
         assert err == 0
         np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+
+
+# K12 / K13a by case: (profile, batch, NTT geometry (a, lc, lr, brev); K13a
+# takes (a, lc, lr)). The default plan is one pass at `tiny` and `test`, two
+# at `n15` (an uneven 2^8 x 2^7 split); forced splits at `test`, one with
+# the chunk tiles in bit-reversed order.
+_PER_PRIME_CASES = {
+    "tiny-B3": ("tiny", 3, (-1, -1, -1, 0)),
+    "test-B1-3+7": ("test", 1, (3, 2, 1, 0)),
+    "test-B3-7+3-brev": ("test", 3, (7, 1, 2, 1)),
+    "n15-B1": ("n15", 1, (-1, -1, -1, 0)),
+    "n15-B3-6+9": ("n15", 3, (6, 5, 3, 0)),
+}
+
+
+def _case_limbs(ctx) -> list:
+    """Every limb at `tiny` / `test`; the first and the last at `n15`."""
+    L = ctx.params.n_limbs
+    return list(range(L)) if ctx.n <= 1024 else [0, L - 1]
+
+
+@pytest.mark.parametrize("case", list(_PER_PRIME_CASES))
+def test_host_ntt_rows_forced_geometry_matches_plain(host_libs, case):
+    """K12 both ways under forced geometries and its default plan (one pass,
+    two at an odd log N), B = 1 and 3, on random residues of each limb's
+    prime: the plain versions' words and K1's (ntt_limbs_host) on that
+    limb; the inverse returns x."""
+    profile, rows, geo = _PER_PRIME_CASES[case]
+    ctx = get_context(profile)
+    L, n = ctx.params.n_limbs, ctx.n
+    x = _rand_residues(ctx, (rows, L, n), np.random.default_rng(15))
+    x = np.ascontiguousarray(x.transpose(1, 0, 2))            # (L, B, N)
+    k1 = _k1_host(host_libs, ctx, x, False)
+    k1_back = _k1_host(host_libs, ctx, k1, True)
+    for limb in _case_limbs(ctx):
+        plan = ctx.plans[limb]
+        fwd = _k12_host(host_libs, plan, x[limb], False, geo)
+        want = ntt_butterfly.rows_plain(_t(x[limb]), plan, False)
+        np.testing.assert_array_equal(fwd, want.numpy().view(np.uint32))
+        np.testing.assert_array_equal(fwd, k1[limb])
+        back = _k12_host(host_libs, plan, fwd, True, geo)
+        want = ntt_butterfly.rows_plain(_t(fwd), plan, True)
+        np.testing.assert_array_equal(back, want.numpy().view(np.uint32))
+        np.testing.assert_array_equal(back, k1_back[limb])
+        np.testing.assert_array_equal(back, x[limb])
+
+
+@pytest.mark.parametrize("case", list(_PER_PRIME_CASES))
+def test_host_encrypt_limb_forced_geometry_matches_plain(host_libs, case):
+    """K13a under forced geometries and its default plan, B = 1 and 3,
+    nonce0 = 2^32 - 2 (the nonce wraps inside a batch of 3), random key
+    rows: the plain version's words and K2's (encrypt_limbs_host) on that
+    limb."""
+    profile, batch, geo = _PER_PRIME_CASES[case]
+    ctx = get_context(profile)
+    L, n = ctx.params.n_limbs, ctx.n
+    seed, nonce0 = 0xC0FFEE, 0xFFFFFFFE
+    rng = np.random.default_rng(16)
+    pt = _rand_residues(ctx, (batch, L, n), rng)
+    pk = [_rand_residues(ctx, (L, n), rng) for _ in range(2)]
+    k2 = _k2_host_keys(host_libs, ctx, pk, seed, pt, nonce0)
+    for limb in _case_limbs(ctx):
+        ptl = np.ascontiguousarray(pt[:, limb])
+        c0, c1 = _k13a_host(host_libs, ctx, limb, ptl, pk[0][limb],
+                            pk[1][limb], seed, nonce0, geo[:3])
+        w0, w1 = client_pointwise.encrypt_limb_plain(
+            _t(ptl), _t(pk[0][limb]), _t(pk[1][limb]), ctx, limb, seed,
+            nonce0)
+        np.testing.assert_array_equal(c0, w0.numpy().view(np.uint32))
+        np.testing.assert_array_equal(c1, w1.numpy().view(np.uint32))
+        np.testing.assert_array_equal(c0, k2[0][:, limb])
+        np.testing.assert_array_equal(c1, k2[1][:, limb])
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
