@@ -72,16 +72,17 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      after. K12 must equal K1 per limb, K13 K2 / K3 per limb, K14 K1 under
      bit reversal, the inverses must give x back, and each must equal its
      plain version on the first 4 rows of each limb; K14 also on one
-     ``n15`` limb (256 x 128 split), B=2; K12 (both ways) and K13a also on
-     random words at ``paper`` B=1, ``n15`` B=2 (an uneven 8 + 7 split) and
-     ``server`` B=2 (one pass), every limb == K1 / K2, limbs 0 and L-1 ==
-     plain, K13a's rows across the 2^32 nonce wrap.
+     ``n15`` limb (256 x 128 split), B=2; K12 (both ways), K13a and K13b
+     also on random words at ``paper`` B=1, ``n15`` B=2 (an uneven 8 + 7
+     split) and ``server`` B=2 (one pass), every limb == K1 / K2 / K3,
+     limbs 0 and L-1 == plain, K13a's rows across the 2^32 nonce wrap.
      Then each is timed (queued ahead, as in 5) beside its plain version,
-     K12 and K13a also at B=1, and the device kernels one K12 / K13 call
-     launches are printed, each with its time (K12, K13a: a heap or noise
-     prologue and two passes at N=2^16); K12 and K13a beside their
-     control, K1 / K2 on the same limb and rows (the same tile plan under
-     the general REDC), pass by pass;
+     K12, K13a and K13b also at B=1, and the device kernels one K12 / K13
+     / K14 call launches are printed, each with its time (K12, K13a, K13b:
+     a heap or noise prologue and two passes at N=2^16; K14: its two
+     products, one device kernel each); K12, K13a and K13b beside their
+     control, K1 / K2 / K3 on the same limb and rows (the same tile plan
+     under the general REDC), pass by pass;
   9. the f64 datapath: ``FHEClient('paper', datapath='f64')`` at B=16 and
      B=1 (K5 / K6's f64 branches), counters set to 0 just before and read
      just after, >= 19.29 bits; K5 / K6 f64 == their plain versions on the
@@ -96,7 +97,7 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
  10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
-     bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 / K13
+     bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call), then, as the last line, ``{"ok": true,
      "device": ...}``.
 
@@ -1202,7 +1203,7 @@ ENGINE_NONCE0 = 0xFFFFFFFE      # rows 2.. wrap past 2^32, inside the
                                 # rows the plain checks compare
 ENGINE_PLAIN_ROWS = 4           # K12 / K13 plain checks: the first 4 rows
 ENGINE_DEC_LIMBS = 2
-# K12 and K13a beyond the paper B=16 stack, at the shapes the tiled
+# K12 and K13 beyond the paper B=16 stack, at the shapes the tiled
 # planning reaches: (profile, batch). paper B=1 (the fewest blocks at
 # N = 2^16), n15 B=2 (odd logN: an uneven 8 + 7 split), server B=2
 # (N = 2^10: one pass); row 1 of a B=2 batch encrypts across the 2^32
@@ -1233,11 +1234,11 @@ def _engine_path(ctx, keys, seed: int, x) -> dict:
 
 
 def _check_engine_shapes(dev, errs: dict) -> None:
-    """K12 (both directions) and K13a on random words at ENGINE_SHAPES, on
-    every limb: == K1 / K2 on that limb (their own launches) and, on the
-    first and the last limb, == their plain versions. The kernels' words do
-    not depend on the key rows being a real key, so K13a takes random
-    ones."""
+    """K12 (both directions), K13a and K13b on random words at
+    ENGINE_SHAPES, on every limb: == K1 / K2 / K3 on that limb (their own
+    launches) and, on the first and the last limb, == their plain versions.
+    The kernels' words do not depend on the key rows being a real key, so
+    K13a and K13b take random ones."""
     from repro_torch.core.context import get_context
     from repro_torch.kernels import client_pointwise, ntt_butterfly
     nonce0 = ENGINE_SHAPE_NONCE0
@@ -1252,6 +1253,10 @@ def _check_engine_shapes(dev, errs: dict) -> None:
         k1_back = ntt_butterfly.limb_rows_cuda(k1, plans, True)
         k2 = client_pointwise.encrypt_limbs_cuda(k1.transpose(0, 1), pkb,
                                                  pka, ctx, SEED, nonce0)
+        c0, c1 = (_rand_words(ctx, (L, batch, p.n), 140 + 2 * i + k,
+                              dev).transpose(0, 1).contiguous()
+                  for k in (0, 1))
+        k3 = client_pointwise.decrypt_limbs_cuda(c0, c1, pkb, ctx)
         at = f"at {profile} B={batch}"
         for l, plan in enumerate(plans):
             y = ntt_butterfly.rows_cuda(x[l], plan, False)
@@ -1263,6 +1268,9 @@ def _check_engine_shapes(dev, errs: dict) -> None:
             _hold(errs, "intt_rows", back, x[l], f"x on limb {l} {at}")
             _hold(errs, "encrypt_limb", enc, (k2[0][:, l], k2[1][:, l]),
                   f"K2 on limb {l} {at}")
+            c0l, c1l = c0[:, l].contiguous(), c1[:, l].contiguous()
+            dec = client_pointwise.decrypt_limb_cuda(c0l, c1l, pkb[l], ctx, l)
+            _hold(errs, "decrypt_limb", dec, k3[:, l], f"K3 on limb {l} {at}")
             if l not in (0, L - 1):
                 continue
             plain = f"its plain version on limb {l} {at}"
@@ -1273,9 +1281,13 @@ def _check_engine_shapes(dev, errs: dict) -> None:
             _hold(errs, "encrypt_limb", enc,
                   client_pointwise.encrypt_limb_plain(
                       y, pkb[l], pka[l], ctx, l, SEED, nonce0), plain)
-        print(f"kernel == K1 / K2 per limb (bit-identical), K12 both ways "
-              f"and K13a, {profile} B={batch} nonce0 {nonce0:#x}, every "
-              f"limb; == plain on limbs 0 and {L - 1}", flush=True)
+            _hold(errs, "decrypt_limb", dec,
+                  client_pointwise.decrypt_limb_plain(c0l, c1l, pkb[l], ctx,
+                                                      l), plain)
+        print(f"kernel == K1 / K2 / K3 per limb (bit-identical), K12 both "
+              f"ways, K13a and K13b, {profile} B={batch} nonce0 "
+              f"{nonce0:#x}, every limb; == plain on limbs 0 and {L - 1}",
+              flush=True)
 
 
 def _engine_phase(client, card: str):
@@ -1396,7 +1408,7 @@ def _engine_phase(client, card: str):
     _check_engine_shapes(dev, errs)
 
     # times: one call each at B=16 (K12 / K13: one limb; K14: the stack),
-    # queued ahead; K12 also as the 24 launches of a stack; K12 and K13a
+    # queued ahead; K12 also as the 24 launches of a stack; K12 and K13
     # also at B=1 (the first row of limb 0); the device kernels of one call
     y0, (e0, e1) = out["rows"][0], out["enc"][0]
     pkb, pka, s = keys.pk.b_mont, keys.pk.a_mont, keys.sk.s_mont
@@ -1410,10 +1422,14 @@ def _engine_phase(client, card: str):
             lambda: client_pointwise.encrypt_limb_cuda(
                 y1, pkb[0], pka[0], ctx, 0, seed, ENGINE_NONCE0),
             _cost_encrypt_limb(p, 1)),
+        "decrypt_limb": (
+            lambda: client_pointwise.decrypt_limb_cuda(e0[:1], e1[:1], s[0],
+                                                       ctx, 0),
+            _cost_decrypt_limb(p, 1)),
     }
-    # the control: K1 / K2 on the same limb and rows, a (1, B, N) / (B, 1,
-    # N) stack (the same tile plan under MontRedc), so that the per-pass
-    # times show what the shift-add REDC costs
+    # the control: K1 / K2 / K3 on the same limb and rows, a (1, B, N) /
+    # (B, 1, N) stack (the same tile plan under MontRedc), so that the
+    # per-pass times show what the shift-add REDC costs
     same_limb = {
         "ntt_rows": ("ntt_limbs", lambda b: ntt_butterfly.limb_rows_cuda(
             x[:1, :b], plans[:1], False)),
@@ -1422,6 +1438,9 @@ def _engine_phase(client, card: str):
         "encrypt_limb": (
             "encrypt_limbs", lambda b: client_pointwise.encrypt_limbs_cuda(
                 y0[:b, None], pkb, pka, ctx, seed, ENGINE_NONCE0)),
+        "decrypt_limb": (
+            "decrypt_limbs", lambda b: client_pointwise.decrypt_limbs_cuda(
+                e0[:b, None], e1[:b, None], s, ctx)),
     }
     calls = {
         "ntt_rows": (lambda: ntt_butterfly.rows_cuda(x[0], plans[0], False),
@@ -1465,7 +1484,8 @@ def _engine_phase(client, card: str):
             extra["stack_launches"] = L
         times[name] = (ms, plain_ms, bound, extra)
         # each call is one counted launch; K14's C entry point issues two
-        # device kernels (the two products; the psi^k table is built once)
+        # device kernels (the two products, each under its own name; the
+        # psi^k table is built once)
         shape = (f"the {tuple(x.shape)} stack (1 launch per call: 2 device "
                  f"kernels)" if name.endswith("_mm")
                  else f"one limb, B={batch} (1 launch per call)")
@@ -1474,11 +1494,11 @@ def _engine_phase(client, card: str):
         print(f"time: {name} {MAIN_PROFILE} {shape}: {ms:.4f} ms per launch"
               f"{stack}, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})  [{card}]", flush=True)
-        if name.endswith("_mm"):
-            continue
         by_name = _device_kernels(kernel)
-        _print_device_kernels(name, f"{MAIN_PROFILE} one limb B={batch}",
-                              by_name, card)
+        _print_device_kernels(
+            name, f"{MAIN_PROFILE} the {tuple(x.shape)} stack"
+            if name.endswith("_mm") else f"{MAIN_PROFILE} one limb "
+            f"B={batch}", by_name, card)
         extra.update(_device_kernel_fields(by_name))
         if name not in at_b1:
             continue

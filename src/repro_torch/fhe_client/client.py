@@ -36,8 +36,10 @@ ciphertexts from the same seed and nonce base are bit-identical to the JAX
 client's, whatever the configuration. ``make_evaluation_keys`` makes the
 relinearization and rotation keys of ``fhe_server.ServerEvaluator``.
 
-The client runs on ``device`` (default ``cuda``; no silent CPU fall-back:
-the tests pass ``device='cpu'`` explicitly).
+The client runs on ``device``, a keyword-only parameter after the
+reference's ``(profile, seed, fourier, pipeline, datapath)`` (default
+``cuda``; no silent CPU fall-back: the tests pass ``device='cpu'``
+explicitly).
 """
 
 from __future__ import annotations
@@ -129,9 +131,9 @@ class FHEClient:
     ``ValueError``, as in the reference.
     """
 
-    def __init__(self, profile="test", seed: int | None = None, device=None,
+    def __init__(self, profile="test", seed: int | None = None,
                  fourier: str = "device", pipeline: str | None = None,
-                 datapath: str | None = None):
+                 datapath: str | None = None, *, device=None):
         if fourier not in FOURIERS:
             raise ValueError(f"fourier must be one of {FOURIERS}, got "
                              f"{fourier!r}")
@@ -175,15 +177,19 @@ class FHEClient:
         self.keys = keys_from_numpy(s_mont, b_mont, a_mont, s_coeffs,
                                     self.device)
 
-    def make_evaluation_keys(self, rotations=()):
+    def make_evaluation_keys(self, rotations=(), include_relin: bool = True,
+                             seed: int | None = None):
         """Relinearization and rotation keys for a
         ``fhe_server.ServerEvaluator`` (hybrid key switching, one special
         prime), on the client's device. Only RLWE-encrypted key pairs leave
         this method. ``rotations``: the slot left-rotations the server may
-        apply (e.g. ``fhe_server.inference.matvec_rotations(d)``); the key
-        stream is seeded by the profile's seed, as in the reference."""
-        return server_keys.make_evaluation_keys(self.ctx, self.keys.sk,
-                                                rotations=rotations)
+        apply (e.g. ``fhe_server.inference.matvec_rotations(d)``);
+        ``include_relin=False`` leaves out the relinearization key; the key
+        stream is seeded by ``seed``, the profile's seed when None, as in
+        the reference."""
+        return server_keys.make_evaluation_keys(
+            self.ctx, self.keys.sk, rotations=rotations,
+            include_relin=include_relin, seed=seed)
 
     # --- message packing ----------------------------------------------------
 

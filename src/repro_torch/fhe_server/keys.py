@@ -171,18 +171,22 @@ def make_keyswitch_key(ctx: CKKSContext, s_from, s_ext_mont, seed: int,
     return KeySwitchKey(b_mont=b_mont, a_mont=a_mont)
 
 
-def make_evaluation_keys(ctx: CKKSContext, sk: SecretKey,
-                         rotations=()) -> EvaluationKeys:
-    """Relinearization (s^2 -> s) and one rotation key per requested slot
-    rotation (sigma_g(s) -> s), on the secret key's device. Deterministic
-    in (the profile's seed, key id), as in the reference."""
-    seed = ctx.params.seed
+def make_evaluation_keys(ctx: CKKSContext, sk: SecretKey, rotations=(),
+                         include_relin: bool = True,
+                         seed: int | None = None) -> EvaluationKeys:
+    """Relinearization (s^2 -> s; none when ``include_relin`` is False) and
+    one rotation key per requested slot rotation (sigma_g(s) -> s), on the
+    secret key's device. Deterministic in (seed, key id), the seed the
+    profile's when None, as in the reference."""
+    seed = seed if seed is not None else ctx.params.seed
     n = ctx.n
     sp = _ext_sp(ctx)
     s_plain = _sp_small_to_ntt(sk.s_coeffs, sp)          # (L+1, N)
     s_mont = _sp_to_mont(s_plain, sp)
-    s2 = _sp_mul(s_plain, s_mont, sp)                    # s^2, plain domain
-    relin = make_keyswitch_key(ctx, s2, s_mont, seed, key_id=0)
+    relin = None
+    if include_relin:
+        s2 = _sp_mul(s_plain, s_mont, sp)                # s^2, plain domain
+        relin = make_keyswitch_key(ctx, s2, s_mont, seed, key_id=0)
     rot = {}
     for r in rotations:
         rn = int(r) % (n // 2)

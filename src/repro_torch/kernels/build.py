@@ -75,7 +75,7 @@ ENTRY_POINTS = {
     "encrypt_limb_launch": (
         "client_pointwise.cu", [_P] * 10 + [_I32] * 2 + [_U32] * 5 + [_P]),
     "decrypt_limb_launch": (
-        "client_pointwise.cu", [_P] * 6 + [_I32] * 2 + [_P]),
+        "client_pointwise.cu", [_P] * 7 + [_I32] * 2 + [_P]),
     "ntt_mm_pow_table": ("ntt_matmul.cu", [_P] * 2 + [_I32] * 3 + [_P]),
     "ntt_mm_launch": ("ntt_matmul.cu", [_P] * 7 + [_I32] * 6 + [_P]),
 }

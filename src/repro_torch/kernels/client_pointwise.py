@@ -22,7 +22,7 @@ Port of ``repro.kernels.client_pointwise``:
     one launch per limb, the shift-add REDC of paper eq. 9-11.
     ``encrypt_limb_cuda`` / ``decrypt_limb_cuda`` launch
     ``csrc/client_pointwise.cu``'s K13a (K2's tiled encrypt body on the
-    one limb) / K13b (a one-row block per batch row),
+    one limb) / K13b (K3's tiled INTT stage on the one limb),
     ``encrypt_limb_plain`` / ``decrypt_limb_plain`` are the plain
     versions, and ``encrypt_limb`` /
     ``decrypt_limb`` pick one by the tensors' device. Their words equal
@@ -310,10 +310,13 @@ def decrypt_limb_cuda(c0_l, c1_l, s_mont_l, ctx, limb: int):
     _check_limb_batch(c0_l, "c0_l", kc.n, dev)
     common.check_tensor(c1_l, "c1_l", torch.int32, tuple(c0_l.shape), dev)
     common.check_tensor(s_mont_l, "s_mont_l", torch.int32, (kc.n,), dev)
+    batch = c0_l.shape[0]
     m = torch.empty_like(c0_l)
+    tw_heap = torch.empty((1, kc.n), dtype=torch.int32, device=dev)
     common.launch("decrypt_limb_launch", dev, c0_l.data_ptr(),
                   c1_l.data_ptr(), s_mont_l.data_ptr(), table.data_ptr(),
-                  sa.data_ptr(), m.data_ptr(), c0_l.shape[0], kc.logn)
+                  sa.data_ptr(), m.data_ptr(), tw_heap.data_ptr(), batch,
+                  kc.logn)
     LAUNCHES["decrypt_limb"] += 1
     return m
 

@@ -7,11 +7,8 @@
 // ntt_tiled.cuh), the u64 REDC of the server kernels, Philox-4x32-10, the
 // df32 error-free transforms, the exact Delta-scale digit split, the
 // two-limb CRT, the f64 datapath's df64 transforms (exact Delta-scale
-// round, fmod RNS, df64 CRT), the one-row NTT/INTT stage loops with
-// on-the-fly twiddle doubling from the (L, K) seed table (templated on the
-// REDC policy: K13b's loop under SaRedc, and under MontRedc the oracle the
-// host tests hold the tiled block against), the df32 SpecialIFFT's 1/n
-// scale, and the one-row decrypt block body of K13b.
+// round, fmod RNS, df64 CRT), the (L, K) seed-table layout the NTT
+// twiddles are made from, and the df32 SpecialIFFT's 1/n scale.
 //
 // Every function returns exactly the words / floats of its plain PyTorch
 // counterpart in repro_torch (and of the JAX reference): the float code is
@@ -22,12 +19,11 @@
 // round (which round half away from zero).
 //
 // Work layout: a block body walks its index ranges with a stride of the
-// block size and separates dependent phases with RT_SYNC(). In the
-// one-row loops (K13b's, the only kernel that still runs one) the NTT rows
-// (256 KB at N = 2^16) live in global memory (the output buffer itself,
-// L2-resident per block); only a stage's NTT twiddles (at most N/2 words =
-// 128 KB) sit in dynamic shared memory. The tiled transforms
-// (ntt_tiled.cuh) hold their tiles in shared memory instead.
+// block size and separates dependent phases with RT_SYNC(). The NTT and FFT
+// transforms (ntt_tiled.cuh) hold their tiles in shared memory; no kernel
+// runs a transform over a row in device memory. The one-row NTT stage
+// loops are only the host tests' oracle (ntt_limbs.cu:
+// ntt_limbs_loop_host).
 //
 // The same header compiles as plain C++ (no __CUDACC__): one thread per
 // block, RT_SYNC a no-op. Each phase is race-free by construction, so that
@@ -492,96 +488,6 @@ RT_FN df df_from(double x) {
 }
 
 // ---------------------------------------------------------------------------
-// NTT / INTT stage loops over npoly rows in global memory
-// ---------------------------------------------------------------------------
-
-// tw[0 .. 2^nfac) = [base * step^bitrev(i)] by nfac Montgomery doublings,
-// base and factors read from col[0 .. nfac] (gen_twiddles_t /
-// gen_twiddles).
-template <class Red>
-RT_FN void gen_twiddles(uint32_t *tw, const uint32_t *col, int nfac,
-                        const Red &red) {
-  if (RT_TID == 0) tw[0] = col[0];
-  RT_SYNC();
-  for (int k = 0; k < nfac; ++k) {
-    const int h = 1 << k;
-    const uint32_t f = col[1 + k];
-    for (int i = RT_TID; i < h; i += RT_NT) tw[i + h] = redc(red, tw[i], f);
-    RT_SYNC();
-  }
-}
-
-struct Rows {
-  uint32_t *p[4];
-};
-
-// forward negacyclic NTT, CT DIT, natural order in, bit-reversed out
-// (common.ntt_stages_t under MontRedc, common.ntt_stages under SaRedc);
-// trow: this limb's (K,) seed-table row.
-template <class Red>
-RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
-                   const Red &red, uint32_t *tw) {
-  const uint32_t q = red.q;
-  const int half = 1 << (logn - 1);
-  for (int s = 0; s < logn; ++s) {
-    const int logt = logn - 1 - s;  // t = N / 2^(s+1)
-    gen_twiddles(tw, trow + fwd_off(s), s, red);
-    for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
-      uint32_t *r = x.p[idx >> (logn - 1)];
-      const int k = idx & (half - 1);
-      const int j = k >> logt;
-      const int p0 = (j << (logt + 1)) + (k & ((1 << logt) - 1));
-      const int p1 = p0 + (1 << logt);
-      const uint32_t u = r[p0];
-      const uint32_t v = redc(red, r[p1], tw[j]);
-      r[p0] = addmod(u, v, q);
-      r[p1] = submod(u, v, q);
-    }
-    RT_SYNC();
-  }
-}
-
-RT_FN void ntt_fwd(Rows x, int npoly, int logn, const uint32_t *trow,
-                   uint32_t *tw) {
-  ntt_fwd(x, npoly, logn, trow, mont_redc(trow), tw);
-}
-
-// inverse negacyclic NTT, GS, bit-reversed in, natural order out, N^-1
-// folded in (common.intt_stages_t / intt_stages)
-template <class Red>
-RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
-                   const Red &red, uint32_t *tw) {
-  const uint32_t q = red.q;
-  const int half = 1 << (logn - 1);
-  for (int st = 0; st < logn; ++st) {  // h = N >> (st+1) groups, t = 2^st
-    gen_twiddles(tw, trow + inv_off(logn, st), logn - 1 - st, red);
-    for (int idx = RT_TID; idx < npoly * half; idx += RT_NT) {
-      uint32_t *r = x.p[idx >> (logn - 1)];
-      const int k = idx & (half - 1);
-      const int j = k >> st;
-      const int p0 = (j << (st + 1)) + (k & ((1 << st) - 1));
-      const int p1 = p0 + (1 << st);
-      const uint32_t u = r[p0], v = r[p1];
-      r[p0] = addmod(u, v, q);
-      r[p1] = redc(red, submod(u, v, q), tw[j]);
-    }
-    RT_SYNC();
-  }
-  const uint32_t ninv = trow[OFF_NINV];
-  for (int idx = RT_TID; idx < npoly << logn; idx += RT_NT) {
-    uint32_t *r = x.p[idx >> logn];
-    const int i = idx & ((1 << logn) - 1);
-    r[i] = redc(red, r[i], ninv);
-  }
-  RT_SYNC();
-}
-
-RT_FN void ntt_inv(Rows x, int npoly, int logn, const uint32_t *trow,
-                   uint32_t *tw) {
-  ntt_inv(x, npoly, logn, trow, mont_redc(trow), tw);
-}
-
-// ---------------------------------------------------------------------------
 // the 1/n scale of the df32 SpecialIFFT (fft_df.fft_stage_pipeline's last
 // step; the tiled stage loops are ntt_tiled.cuh's)
 // ---------------------------------------------------------------------------
@@ -628,26 +534,6 @@ RT_FN df crt2_to_df(uint32_t m0, uint32_t m1, Crt2 k, float inv_scale) {
   two_sum(w3, a, hi_f, e3);
   const float lo_f = (e3 + e2) + e1;
   return quick_two_sum(hi_f, lo_f);
-}
-
-// ---------------------------------------------------------------------------
-// the one-row block body of K13b
-// ---------------------------------------------------------------------------
-
-// One decrypt block (K13b, client_pointwise.cu): m = INTT(c0 + c1*s) of
-// one (limb, row), in place in the row m (client_pointwise.decrypt_limb_plain
-// under the REDC policy `red`).
-template <class Red>
-RT_FN void decrypt_limb_block(const uint32_t *x0, const uint32_t *x1,
-                              const uint32_t *s, uint32_t *m, int logn,
-                              const uint32_t *trow, const Red &red,
-                              uint32_t *tw) {
-  const int n = 1 << logn;
-  for (int i = RT_TID; i < n; i += RT_NT)
-    m[i] = addmod(x0[i], redc(red, x1[i], s[i]), red.q);
-  RT_SYNC();
-  Rows rows = {{m, m, m, m}};
-  ntt_inv(rows, 1, logn, trow, red, tw);
 }
 
 }  // namespace rt

@@ -47,18 +47,20 @@
 // prologue (the limb's forward heap (1, N), the noise (B, 3, N)), then on
 // rows above one tile the column pass, grid (1, 3 x tiles, B), and the
 // chunk pass, grid (B, tiles, 1); rows that fit one tile take one pass, a
-// block per row. K13b still runs the one-row block body
-// rt::decrypt_limb_block (grid (B,): the row in device memory, a barrier
-// per stage; client_common.cuh's stage loop under SaRedc).
+// block per row. K13b is K3's INTT stage on one limb under SaRedc (the
+// stage type DecRowSa on stage_tile): the prologue (heap_rows_kernel: the
+// limb's inverse heap (1, N)), then on rows above one tile the chunk pass,
+// whose load forms c0 + c1*s, and the column pass, whose store folds in
+// N^-1 (decrypt_limb_{chunks,cols}_kernel, a block per (row, tile)); rows
+// that fit one tile take one pass, a block per row. So three device
+// kernels a call at N = 2^16, two at N <= 2^11.
 //
 // What bounds them on an H100: K2 writes 8 bytes per (row, limb,
 // coefficient) but needs three 16-stage NTTs and five Philox-10 words per
-// coefficient; K3 one INTT per (row, limb): operations, not bytes. K2's,
-// K13a's and K3's tiled passes keep their butterflies in shared memory (two
+// coefficient; K3 one INTT per (row, limb): operations, not bytes. The
+// tiled passes of all four keep their butterflies in shared memory (two
 // stages per barrier, four points a thread in registers; a row crosses
-// device memory twice). K13b still streams its NTT rows (256 KB at
-// N = 2^16) through global memory with a barrier per stage; only a stage's
-// twiddles sit in shared memory. Times against the bounds: PERF.md §6.
+// device memory twice). Times against the bounds: PERF.md §6.
 #include "encrypt_tiled.cuh"
 
 namespace {
@@ -136,21 +138,34 @@ struct DecRows {
   }
 };
 
-// K13b: one limb of a (B, N) batch under the shift-add REDC
-struct DecOneArgs {
+// K13b's transform stage: row b of the (B, N) output m is INTT(c0 + c1*s)
+// of row b of one limb, under the shift-add REDC whose constants are the
+// prime's common.sa_table row; m also holds the transform between the
+// passes
+struct DecRowSa {
+  static constexpr bool kInverse = true;
+  using Red = rt::SaRedc;
   const uint32_t *c0, *c1;  // (B, N)
-  const uint32_t *s_mont;   // (N)
-  const uint32_t *trow;
-  const int32_t *sa;
+  const uint32_t *s_mont;   // (N,)
+  const int32_t *sa;        // (SA_COLS,) shift-add REDC row of the prime
   uint32_t *m;              // (B, N)
   int logn;
+  struct Row {
+    int prime;
+    uint32_t *mid;
+    const uint32_t *x0, *x1, *s;
+    rt::SaRedc red;
+    RT_MEMBER uint32_t load(int p) const {
+      return rt::addmod(x0[p], rt::redc(red, x1[p], s[p]), red.q);
+    }
+    RT_MEMBER void store(int p, uint32_t v) const { mid[p] = v; }
+  };
+  RT_MEMBER Row bind(long long row) const {
+    const size_t off = (size_t)row << logn;
+    return Row{0, m + off, c0 + off, c1 + off, s_mont, rt::sa_redc(sa)};
+  }
+  RT_MEMBER Red make_red(const uint32_t *) const { return rt::sa_redc(sa); }
 };
-
-RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
-  const size_t off = (size_t)b << a.logn;
-  rt::decrypt_limb_block(a.c0 + off, a.c1 + off, a.s_mont, a.m + off, a.logn,
-                         a.trow, rt::sa_redc(a.sa), tw);
-}
 
 }  // namespace
 
@@ -189,16 +204,21 @@ RT_BODY void decrypt_one_limb(const DecOneArgs &a, int b, uint32_t *tw) {
 #define DEC_ROWS                                                            \
   DecRows{c0, c1, row_stride, s_mont, table, m, n_limbs, logn, n_scalars}
 
+// K13b's entry arguments (the host entry adds the tile geometry): one limb's
+// (B, N) rows, its table row trow (its stride is never read: 0), its
+// shift-add REDC row sa and its (1, N) heap scratch
+#define DEC1_PARAMS                                                         \
+  const uint32_t *c0, const uint32_t *c1, const uint32_t *s_mont,           \
+      const uint32_t *trow, const int32_t *sa, uint32_t *m,                 \
+      uint32_t *tw_heap, int batch, int logn
+#define DEC1_ROWS DecRowSa{c0, c1, s_mont, sa, m, logn}
+
 #if defined(__CUDACC__)
 
 namespace {
 
 RT_STAGE_KERNELS(decrypt_limbs, DecRows)
-
-__global__ void __launch_bounds__(1024) decrypt_limb_kernel(DecOneArgs a) {
-  extern __shared__ uint32_t tw_smem[];
-  decrypt_one_limb(a, blockIdx.x, tw_smem);
-}
+RT_STAGE_KERNELS(decrypt_limb, DecRowSa)
 
 // K2's and K13a's launches: the prologue, then the NTT passes
 template <class Pt>
@@ -236,24 +256,21 @@ extern "C" int encrypt_limb_launch(ENC1_PARAMS, void *stream) {
   return encrypt(ENC1_NTT, ENC1_PT, (cudaStream_t)stream);
 }
 
-extern "C" int decrypt_limb_launch(const uint32_t *c0, const uint32_t *c1,
-                                   const uint32_t *s_mont,
-                                   const uint32_t *trow, const int32_t *sa,
-                                   uint32_t *m, int batch, int logn,
-                                   void *stream) {
-  DecOneArgs a = {c0, c1, s_mont, trow, sa, m, logn};
-  const size_t smem = sizeof(uint32_t) << (logn - 1);
-  static rt::SmemAllowance allowance;
-  cudaError_t err =
-      rt::allow_dynamic_smem(decrypt_limb_kernel, smem, allowance);
+extern "C" int decrypt_limb_launch(DEC1_PARAMS, void *stream) {
+  const rt::tiled::Tiling t = rt::tiled::rows_tiling(
+      trow, 0, tw_heap, batch, logn, -1, -1, -1, 0);
+  if (!rt::tiled::geo_valid(t.g)) return (int)cudaErrorInvalidValue;
+  if (!rt::tiled::stage_fits(t.g, batch))
+    return (int)cudaErrorInvalidConfiguration;  // a grid's x extent
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      rt::tiled::launch_heap_rows<true>(trow, 0, logn, tw_heap, 1, s);
   if (err != cudaSuccess) return (int)err;
-  decrypt_limb_kernel<<<batch, 1024, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const DecRowSa st = DEC1_ROWS;
+  return (int)rt::tiled::launch_stage(stage_kernels(st), st, t, batch, s);
 }
 
 #else  // host build of the same block bodies (one thread per block)
-
-#include <vector>
 
 namespace {
 
@@ -291,14 +308,15 @@ extern "C" int decrypt_limbs_host(DEC_PARAMS, int ga, int lc, int lr,
   return rt::tiled::run_stage_host(DEC_ROWS, t, rows) ? 0 : 1;
 }
 
-extern "C" int decrypt_limb_host(const uint32_t *c0, const uint32_t *c1,
-                                 const uint32_t *s_mont, const uint32_t *trow,
-                                 const int32_t *sa, uint32_t *m, int batch,
-                                 int logn) {
-  DecOneArgs a = {c0, c1, s_mont, trow, sa, m, logn};
-  std::vector<uint32_t> tw_smem((size_t)1 << (logn - 1));
-  for (int b = 0; b < batch; ++b) decrypt_one_limb(a, b, tw_smem.data());
-  return 0;
+// K13b's host entry takes the tile geometry and the chunk tiles' order too,
+// as K3's does.
+extern "C" int decrypt_limb_host(DEC1_PARAMS, int ga, int lc, int lr,
+                                 int brev) {
+  const rt::tiled::Tiling t = rt::tiled::rows_tiling(
+      trow, 0, tw_heap, batch, logn, ga, lc, lr, brev);
+  if (!rt::tiled::geo_valid(t.g)) return 1;
+  rt::tiled::heap_rows_host(trow, 0, logn, true, tw_heap, 1);
+  return rt::tiled::run_stage_host(DEC1_ROWS, t, batch) ? 0 : 1;
 }
 
 #endif

@@ -109,9 +109,71 @@ extern "C" int ntt_limbs_launch(const uint32_t *x, uint32_t *out,
 }
 
 #else  // host build: the passes' blocks in order, and the one-row stage
-       // loop the tiled block replaced
+       // loops the tests hold them against
 
 #include <vector>
+
+namespace {
+
+// The one-row stage loops, stage by stage over a row in memory with the
+// twiddles doubled on the fly from the seed table (common.ntt_stages_t /
+// intt_stages_t under MontRedc). No kernel runs them: they are the oracle
+// below, the schedule the tiled block must reproduce word for word.
+
+// tw[0 .. 2^nfac) = [base * step^bitrev(i)] by nfac Montgomery doublings,
+// base and factors read from col[0 .. nfac] (gen_twiddles_t)
+void gen_twiddles(uint32_t *tw, const uint32_t *col, int nfac,
+                  const rt::MontRedc &red) {
+  tw[0] = col[0];
+  for (int k = 0; k < nfac; ++k) {
+    const int h = 1 << k;
+    for (int i = 0; i < h; ++i) tw[i + h] = rt::redc(red, tw[i], col[1 + k]);
+  }
+}
+
+// forward negacyclic NTT, CT DIT, natural order in, bit-reversed out;
+// trow: the limb's (K,) seed-table row
+void ntt_fwd_loop(uint32_t *r, int logn, const uint32_t *trow,
+                  uint32_t *tw) {
+  const rt::MontRedc red = rt::mont_redc(trow);
+  const int half = 1 << (logn - 1);
+  for (int s = 0; s < logn; ++s) {
+    const int logt = logn - 1 - s;  // t = N / 2^(s+1)
+    gen_twiddles(tw, trow + rt::fwd_off(s), s, red);
+    for (int k = 0; k < half; ++k) {
+      const int j = k >> logt;
+      const int p0 = (j << (logt + 1)) + (k & ((1 << logt) - 1));
+      const int p1 = p0 + (1 << logt);
+      const uint32_t u = r[p0];
+      const uint32_t v = rt::redc(red, r[p1], tw[j]);
+      r[p0] = rt::addmod(u, v, red.q);
+      r[p1] = rt::submod(u, v, red.q);
+    }
+  }
+}
+
+// inverse negacyclic NTT, GS, bit-reversed in, natural order out, N^-1
+// folded in
+void ntt_inv_loop(uint32_t *r, int logn, const uint32_t *trow,
+                  uint32_t *tw) {
+  const rt::MontRedc red = rt::mont_redc(trow);
+  const int half = 1 << (logn - 1);
+  for (int st = 0; st < logn; ++st) {  // h = N >> (st+1) groups, t = 2^st
+    gen_twiddles(tw, trow + rt::inv_off(logn, st), logn - 1 - st, red);
+    for (int k = 0; k < half; ++k) {
+      const int j = k >> st;
+      const int p0 = (j << (st + 1)) + (k & ((1 << st) - 1));
+      const int p1 = p0 + (1 << st);
+      const uint32_t u = r[p0], v = r[p1];
+      r[p0] = rt::addmod(u, v, red.q);
+      r[p1] = rt::redc(red, rt::submod(u, v, red.q), tw[j]);
+    }
+  }
+  const uint32_t ninv = trow[rt::OFF_NINV];
+  for (int i = 0; i < (1 << logn); ++i) r[i] = rt::redc(red, r[i], ninv);
+}
+
+}  // namespace
 
 // The host entry takes the tile geometry too, so that tests can force
 // splits, tile sizes and the chunk tiles' order (a, lc, lr = -1: the CUDA
@@ -135,8 +197,7 @@ extern "C" int ntt_limbs_host(const uint32_t *x, uint32_t *out,
   return ok ? 0 : 1;
 }
 
-// The one-row stage loop of client_common.cuh (rt::ntt_fwd / ntt_inv, whose
-// inverse K13b still runs) on the same stack: what the tests hold the
+// The one-row stage loops above on the same stack: what the tests hold the
 // tiled schedule against.
 extern "C" int ntt_limbs_loop_host(const uint32_t *x, uint32_t *out,
                                    const uint32_t *table, int n_limbs,
@@ -150,11 +211,10 @@ extern "C" int ntt_limbs_loop_host(const uint32_t *x, uint32_t *out,
       uint32_t *y = out + off;
       for (int i = 0; i < n; ++i) y[i] = x[off + i];
       const uint32_t *trow = table + (size_t)l * n_scalars;
-      rt::Rows rw = {{y, y, y, y}};
       if (inverse)
-        rt::ntt_inv(rw, 1, logn, trow, tw.data());
+        ntt_inv_loop(y, logn, trow, tw.data());
       else
-        rt::ntt_fwd(rw, 1, logn, trow, tw.data());
+        ntt_fwd_loop(y, logn, trow, tw.data());
     }
   return 0;
 }

@@ -28,7 +28,8 @@
 // column stages and then the chunk stages run on one shared-memory row in
 // natural order, since both tile maps are then the identity.
 //
-// Each butterfly is the one of rt::ntt_fwd / ntt_inv (client_common.cuh)
+// Each butterfly is the one of the one-row stage loops (common.ntt_stages_t /
+// intt_stages_t; their host copy is ntt_limbs.cu's ntt_limbs_loop_host)
 // and of fft_df.fft_stage_pipeline, on the same words with the same
 // twiddle words: the schedule changes where data lives and which block
 // does which butterfly, never a butterfly's arithmetic. So a tiled
@@ -38,7 +39,8 @@
 // (heap_twiddle): stage s's table tw_s[0 .. 2^s) at tw[2^s + j] (forward)
 // and the inverse stage st's at tw[2^(logn-1-st) + j], each word the base
 // of the seed table REDC'd by the factors of j's set bits, ascending: the
-// very REDCs rt::gen_twiddles applies to reach index j.
+// very REDCs the stage loops' twiddle doubling (gen_twiddles_t) applies to
+// reach index j.
 //
 // A transform stage is an NTT or INTT of independent rows whose first load
 // and last store carry elementwise work: a stage type S gives, per row, its

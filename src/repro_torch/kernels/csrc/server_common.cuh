@@ -8,8 +8,8 @@
 // _to_digit, _digit_to_row, _ks_accumulate, _ks_moddown and _rescale2):
 // integer arithmetic only. The transforms are the tiled NTT / INTT of
 // ntt_tiled.cuh (ntt_fwd_lines / ntt_inv_lines on column and chunk tiles,
-// the words of the one-row stage loops of client_common.cuh under any
-// tiling, with the uint32 REDC of the reference's stage loops); the
+// the words of the one-row stage loops (ntt_limbs.cu's host oracle) under
+// any tiling, with the uint32 REDC of the reference's stage loops); the
 // pointwise REDC (the reference's _mm) is redc_u64, the reference's u64
 // REDC, on both datapaths: it gives the words of the df32 datapath's
 // uint32 REDC too, so one body serves both. Like those headers, this one

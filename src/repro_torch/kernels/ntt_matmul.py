@@ -13,13 +13,17 @@ Forward output is in natural order, out[k] = a(psi^(2k+1)), against the
 butterfly kernels' bit-reversed order; the inverse runs mirrored with the
 N1^-1 / N2^-1-carrying inverse tables. Each modular matmul splits both
 operands into four balanced base-256 digits and sums the 16 digit products
-(|partial| <= 256 * 128 * 128 = 2^22), recombined mod q with one Barrett
-multiply per digit weight (``common.recombine_digit_matmuls``).
+(each product's entries |.| <= K * 128 * 128 <= 2^22; the sum of a digit
+weight g = i + j, up to four products, reaches 2^24), recombined mod q with
+one Barrett multiply per digit weight
+(``common.recombine_digit_matmuls``).
 
   * ``tables(plan)``: F1, F2 and their inverses as (4, K, K) int8 digit
     planes, memoised by (q, N); ``packed`` lays a table out for the kernel
-    (four consecutive k of a digit in one int32);
-  * ``limb_rows_mm_cuda`` launches ``csrc/ntt_matmul.cu`` once for an
+    (per digit and column, four consecutive k in one int32: the word an
+    int8 mma fragment register holds);
+  * ``limb_rows_mm_cuda`` launches ``csrc/ntt_matmul.cu`` (K14: the digit
+    products on the tensor cores, int8 ``mma.sync``) once for an
     (L, rows, N) stack (the reference launches once per limb) and counts
     ``ntt_rows_mm`` / ``intt_rows_mm``;
   * ``rows_mm_plain`` / ``limb_rows_mm_plain`` follow the reference's order
@@ -111,20 +115,20 @@ def _tables(q: int, n: int, psi: int) -> FourStepTables:
 
 
 def packed(fd: np.ndarray) -> np.ndarray:
-    """(4, K, K) int8 digit planes -> (4, K/4, K) int32 whose word [j, kw,
-    n] holds fd[j, 4kw + t, n] in byte t: what the kernel's dp4a takes."""
+    """(4, K, Nc) int8 digit planes -> (4, Nc, K/4) int32 whose word [j, n,
+    kw] holds fd[j, 4kw + t, n] in byte t: a B fragment register of the
+    kernel's int8 mma (column n, four consecutive k)."""
     d, k, nc = fd.shape
-    return np.ascontiguousarray(
-        fd.reshape(d, k // 4, 4, nc).transpose(0, 1, 3, 2)
-    ).view(np.int32).reshape(d, k // 4, nc)
+    return np.ascontiguousarray(fd.transpose(0, 2, 1)).view(
+        np.int32).reshape(d, nc, k // 4)
 
 
 # per-limb constant rows of the kernel (csrc/ntt_matmul.cu: MM_*): the
-# shift-add REDC row, then Barrett's mu and p, R mod q, 2^(8g) mod q for the
-# seven digit weights, and mont(psi^(2^j)) for j = 0..logN
-MM_MU = common.SA_COLS
-MM_P = MM_MU + 1
-MM_R = MM_P + 1
+# shift-add REDC row, then -q^-1 mod 2^32, R mod q, 2^(8g+32) mod q for the
+# seven digit weights (the epilogue's one Montgomery reduction of their
+# 64-bit combination), and mont(psi^(2^j)) for j = 0..logN
+MM_QINV = common.SA_COLS
+MM_R = MM_QINV + 1
 MM_C = MM_R + 1
 MM_PW = MM_C + 2 * common.N_DIGITS - 1
 
@@ -137,10 +141,10 @@ def _mm_consts(primes, n: int) -> np.ndarray:
     for i, prime in enumerate(primes):
         pc = common.plan_consts(make_plan(prime, n))
         q = pc.q
-        t[i, MM_MU] = pc.mont.mu
-        t[i, MM_P] = q.bit_length()
+        t[i, MM_QINV] = -pow(q, -1, 1 << 32) % (1 << 32)
         t[i, MM_R] = pc.r_mod_q
-        t[i, MM_C:MM_PW] = [pow(2, 8 * g, q) for g in range(MM_PW - MM_C)]
+        t[i, MM_C:MM_PW] = [pow(2, 8 * g + 32, q)
+                            for g in range(MM_PW - MM_C)]
         t[i, MM_PW:] = [pow(pc.psi, 1 << j, q) * pc.r_mod_q % q
                         for j in range(logn + 1)]
     out = (t & modmul.MASK32).astype(np.uint32).view(np.int32)
@@ -152,7 +156,7 @@ def _mm_consts(primes, n: int) -> np.ndarray:
 def _device_tables(primes, n: int, inverse: bool, device: str):
     """(consts, stage-1 table, stage-2 table) on `device`, uploaded once:
     forward F2 then F1, inverse F1^-1 then F2^-1, stacked over limbs as
-    (L, 4, K/4, K) int32."""
+    (L, 4, K, K/4) int32."""
     ts = [tables(make_plan(p, n)) for p in primes]
     names = ("f1id", "f2id") if inverse else ("f2d", "f1d")
     fa, fb = (np.stack([packed(getattr(t, name)) for t in ts])
@@ -265,8 +269,8 @@ def limb_rows_mm_cuda(x: torch.Tensor, plans, inverse: bool) -> torch.Tensor:
         raise ValueError(f"x must be ({len(plans)}, rows >= 1, N), got "
                          f"{tuple(x.shape)}")
     L, rows, n = x.shape
-    if n < 16 or any(p.n != n for p in plans):
-        raise ValueError(f"N={n} must be the plans' N and at least 16")
+    if not 16 <= n <= 1 << 16 or any(p.n != n for p in plans):
+        raise ValueError(f"N={n} must be the plans' N, in [16, 2^16]")
     common.check_tensor(x, "x", torch.int32, (L, rows, n), dev)
     n1, n2 = split_n(n)
     primes = tuple(p.prime for p in plans)

@@ -10,10 +10,14 @@ K4 also under forced tile geometries of the tiled NTT / FFT block), the
 server op set ``server_eval.cu``, and the per-prime kernels
 ``ntt_rows.cu`` (K12, a stage of the tiled NTT block under the shift-add
 REDC), K13 in ``client_pointwise.cu`` (K13a, K2's tiled encrypt under the
-shift-add REDC, K12 / K13a also under forced geometries and against K1 /
-K2 on the same limb; K13b, the one-row loop) and the four-step
-``ntt_matmul.cu`` (K14: its dp4a digit-product tiles and Barrett
-recombination)), with
+shift-add REDC; K13b, K3's tiled INTT stage on one limb under the
+shift-add REDC; each also under forced geometries and against K1 / K2 /
+K3 on the same limb) and the four-step ``ntt_matmul.cu`` (K14: its A
+strips and table slices, each warp's int8 mma emulated from its lanes'
+fragment registers through the kernel's fragment maps, which are also
+held against the PTX ISA's tables, and the 64-bit weight combination;
+square, non-square and ragged tiles, forced k-slices, against K1 under
+bit reversal)), with
 ``-ffp-contract=off`` (the host twin of ``--fmad=false``), and each
 ``_host`` entry's results must equal the plain
 PyTorch version word for word, on both datapaths (K5 / K6's df32 and f64
@@ -77,9 +81,10 @@ _HOST_ENTRIES = {
     "ntt_rows_host": ("ntt_rows.cu", [_P] * 5 + [_I] * 7),
     "encrypt_limb_host": ("client_pointwise.cu", [_P] * 10 + [_I] * 2
                           + [_U] * 5 + [_I] * 3),
-    "decrypt_limb_host": ("client_pointwise.cu", [_P] * 6 + [_I] * 2),
+    "decrypt_limb_host": ("client_pointwise.cu", [_P] * 7 + [_I] * 6),
     "ntt_mm_pow_table_host": ("ntt_matmul.cu", [_P] * 2 + [_I] * 3),
-    "ntt_mm_host": ("ntt_matmul.cu", [_P] * 7 + [_I] * 6),
+    "ntt_mm_host": ("ntt_matmul.cu", [_P] * 7 + [_I] * 7),
+    "ntt_mm_frag_maps_host": ("ntt_matmul.cu", [_P]),
 }
 
 
@@ -881,6 +886,22 @@ def test_host_ntt_rows_match_plain(host_libs, profile, inverse):
         np.testing.assert_array_equal(out, k1[limb].numpy().view(np.uint32))
 
 
+def _k13b_host(host_libs, plan, c0, c1, s_mont, geo=(-1, -1, -1, 0)):
+    """The host build of K13b (client_pointwise.cu: K3's INTT stage on one
+    limb under the shift-add REDC) on (B, N) uint32 words of one prime and
+    its (N,) key row, under NTT geometry (a, lc, lr, brev)."""
+    kc = common.stacked_kernel_consts([plan])
+    batch, n = c0.shape
+    m, tw_heap = _zeros(batch, n), _zeros(1, n)
+    err = host_libs["decrypt_limb_host"](
+        *(_ptr(np.ascontiguousarray(a)) for a in (c0, c1, s_mont)),
+        _ptr(np.ascontiguousarray(kc.table)),
+        _ptr(np.ascontiguousarray(common.sa_table([plan]))), _ptr(m),
+        _ptr(tw_heap), batch, kc.logn, *geo)
+    assert err == 0
+    return m
+
+
 @pytest.mark.parametrize("profile,batch,nonce0", [
     ("tiny", 3, 0xFFFFFFFE), ("test", 2, 9)])
 def test_host_encrypt_decrypt_limb_match_plain(host_libs, profile, batch,
@@ -899,21 +920,13 @@ def test_host_encrypt_decrypt_limb_match_plain(host_libs, profile, batch,
         w0, w1 = client_pointwise.encrypt_limb_plain(
             _t(ptl), keys[0][limb], keys[1][limb], ctx, limb, client.seed,
             nonce0)
-        kc = common.stacked_kernel_consts([plan])
-        table = np.ascontiguousarray(kc.table)
-        sa = np.ascontiguousarray(common.sa_table([plan]))
         c0, c1 = _k13a_host(host_libs, ctx, limb, ptl, b_np[limb],
                             a_np[limb], client.seed, nonce0)
         np.testing.assert_array_equal(c0, w0.numpy().view(np.uint32))
         np.testing.assert_array_equal(c1, w1.numpy().view(np.uint32))
         want = client_pointwise.decrypt_limb_plain(w0, w1, keys[2][limb],
                                                    ctx, limb)
-        m = _zeros(batch, n)
-        sl = np.ascontiguousarray(s_np[limb])
-        err = host_libs["decrypt_limb_host"](
-            _ptr(c0), _ptr(c1), _ptr(sl), _ptr(table), _ptr(sa), _ptr(m),
-            batch, kc.logn)
-        assert err == 0
+        m = _k13b_host(host_libs, plan, c0, c1, s_np[limb])
         np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
 
 
@@ -989,20 +1002,34 @@ def test_host_encrypt_limb_forced_geometry_matches_plain(host_libs, case):
         np.testing.assert_array_equal(c1, k2[1][:, limb])
 
 
-@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("profile,n", [("tiny", 64), ("test", 1024),
-                                       ("test", 512)],
-                         ids=["tiny-8x8", "test-32x32", "test-n512-32x16"])
-def test_host_ntt_mm_matches_plain(host_libs, profile, n, inverse):
-    """K14 on an (L, 3, N) stack of the profile's primes: the pow table, the
-    digit split, the dp4a tiles and the Barrett recombination, square and
-    non-square (N = 512: 32 x 16) splits."""
+@pytest.mark.parametrize("case", list(_PER_PRIME_CASES))
+def test_host_decrypt_limb_forced_geometry_matches_plain(host_libs, case):
+    """K13b under forced geometries and its default plan (one pass at
+    `tiny`, two forced splits at `test`, two passes at `n15` B=1 and B=3)
+    on random words of each limb: the plain version's words and K3's
+    (decrypt_limbs_host) on that limb."""
+    profile, batch, geo = _PER_PRIME_CASES[case]
     ctx = get_context(profile)
-    plans = [make_plan(p.prime, n) for p in ctx.plans]
-    L, rows = len(plans), 3
-    rng = np.random.default_rng(n)
-    x = _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2).copy()
-    want = ntt_matmul.limb_rows_mm_plain(_t(x), plans, inverse)
+    L, n = ctx.params.n_limbs, ctx.n
+    rng = np.random.default_rng(17)
+    c0, c1 = (_rand_residues(ctx, (batch, L, n), rng) for _ in range(2))
+    s_mont = _rand_residues(ctx, (L, n), rng)
+    k3 = _k3_host(host_libs, ctx, c0, c1, s_mont)
+    for limb in _case_limbs(ctx):
+        c0l, c1l = (np.ascontiguousarray(c[:, limb]) for c in (c0, c1))
+        m = _k13b_host(host_libs, ctx.plans[limb], c0l, c1l, s_mont[limb],
+                       geo)
+        want = client_pointwise.decrypt_limb_plain(
+            _t(c0l), _t(c1l), _t(s_mont[limb]), ctx, limb)
+        np.testing.assert_array_equal(m, want.numpy().view(np.uint32))
+        np.testing.assert_array_equal(m, k3[:, limb])
+
+
+def _k14_host(host_libs, plans, x, inverse, ksw=0):
+    """The host build of K14 (ntt_matmul.cu) on an (L, rows, N) uint32 stack,
+    limb l of plans[l]'s prime; ksw forces the table slice's packed words
+    (8 or 16; 0: the CUDA entry's plan)."""
+    L, rows, n = x.shape
     consts, fa, fb = (t.numpy() for t in ntt_matmul._device_tables(
         tuple(p.prime for p in plans), n, inverse, "cpu"))
     n1, n2 = ntt_matmul.split_n(n)
@@ -1013,6 +1040,102 @@ def test_host_ntt_mm_matches_plain(host_libs, profile, n, inverse):
     err = host_libs["ntt_mm_host"](
         _ptr(x), _ptr(out), _ptr(y), _ptr(tab), _ptr(fa), _ptr(fb),
         _ptr(consts), L, rows, n1.bit_length() - 1, n2.bit_length() - 1,
-        consts.shape[1], int(inverse))
+        consts.shape[1], int(inverse), ksw)
     assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("profile,n", [("tiny", 64), ("test", 1024),
+                                       ("test", 512)],
+                         ids=["tiny-8x8", "test-32x32", "test-n512-32x16"])
+def test_host_ntt_mm_matches_plain(host_libs, profile, n, inverse):
+    """K14 on an (L, 3, N) stack of the profile's primes: the pow table, the
+    digit split, the mma tiles and the weight combination, square and
+    non-square (N = 512: 32 x 16) splits."""
+    ctx = get_context(profile)
+    plans = [make_plan(p.prime, n) for p in ctx.plans]
+    L, rows = len(plans), 3
+    rng = np.random.default_rng(n)
+    x = _rand_residues(ctx, (rows, L, n), rng).transpose(1, 0, 2).copy()
+    want = ntt_matmul.limb_rows_mm_plain(_t(x), plans, inverse)
+    out = _k14_host(host_libs, plans, x, inverse)
     np.testing.assert_array_equal(out, want.numpy().view(np.uint32))
+
+
+def _bitrev(n: int) -> np.ndarray:
+    logn = n.bit_length() - 1
+    return np.array([int(format(i, f"0{logn}b")[::-1], 2) for i in range(n)])
+
+
+# K14 by case: (profile, N, rows, forced table-slice words). K < 32 at
+# `tiny` (8 x 8: zero-padded k, a strip of 8 of a block's 64 rows, an
+# n-tile of 8 of 32 columns), 32 x 32 and 32 x 16 at `test`, one row of
+# `n15` (256 x 128: K = 128 then 256, several strips, n-tiles and
+# k-slices), also under the short slice
+_K14_CASES = {
+    "tiny-B3": ("tiny", 64, 3, 0),
+    "test-B2": ("test", 1024, 2, 0),
+    "test-n512-B2": ("test", 512, 2, 0),
+    "n15-B1": ("n15", 1 << 15, 1, 0),
+    "n15-B1-ksw8": ("n15", 1 << 15, 1, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(_K14_CASES))
+def test_host_ntt_mm_forced_geometry_matches_plain(host_libs, case):
+    """K14 both ways on ragged and forced tiles (every limb at `tiny` /
+    `test`, the first and the last at `n15`): the plain versions' words,
+    K1's (ntt_limbs_host) under bit reversal, and the round trip."""
+    profile, n, rows, ksw = _K14_CASES[case]
+    ctx = get_context(profile)
+    plans = [make_plan(ctx.plans[l].prime, n) for l in _case_limbs(ctx)]
+    rng = np.random.default_rng(18)
+    q = np.asarray([p.prime.q for p in plans], np.uint64)[:, None, None]
+    x = (rng.integers(0, 1 << 32, (len(plans), rows, n), dtype=np.uint64)
+         % q).astype(np.uint32)
+    kc = common.stacked_kernel_consts(plans)
+    k1, tw_heap = np.zeros_like(x), _zeros(len(plans), n)
+    assert host_libs["ntt_limbs_host"](
+        _ptr(x), _ptr(k1), _ptr(np.ascontiguousarray(kc.table)),
+        _ptr(tw_heap), len(plans), rows, kc.logn, kc.n_scalars, 0,
+        -1, -1, -1, 0) == 0
+    fwd = _k14_host(host_libs, plans, x, False, ksw)
+    want = ntt_matmul.limb_rows_mm_plain(_t(x), plans, False)
+    np.testing.assert_array_equal(fwd, want.numpy().view(np.uint32))
+    np.testing.assert_array_equal(fwd, k1[..., _bitrev(n)])
+    back = _k14_host(host_libs, plans, fwd, True, ksw)
+    want = ntt_matmul.limb_rows_mm_plain(_t(fwd), plans, True)
+    np.testing.assert_array_equal(back, want.numpy().view(np.uint32))
+    np.testing.assert_array_equal(back, x)
+
+
+def test_mma_fragment_maps_match_ptx_isa(host_libs):
+    """K14's fragment maps against the PTX ISA's element tables of
+    mma.m16n8k32 with .s8 operands (groupID g = lane >> 2, threadID t =
+    lane % 4): A element i of 16 (register i // 4, byte i % 4) at row g
+    for i < 4 or 8 <= i < 12, else g + 8, column 4t + (i & 3) + 16 (i >=
+    8); B element i of 8 at row 4t + (i & 3) + 16 (i >= 4), column g; C
+    element i of 4 at row g + 8 (i >= 2), column 2t + (i & 1)."""
+    maps = np.zeros((32, 20), np.int32)
+    assert host_libs["ntt_mm_frag_maps_host"](_ptr(maps)) == 0
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        a_rc = {}
+        for i in range(16):
+            row = g if i < 4 or 8 <= i < 12 else g + 8
+            col = 4 * t + (i & 3) + (16 if i >= 8 else 0)
+            assert col % 4 == i % 4
+            a_rc.setdefault(i // 4, set()).add((row, col // 4))
+        b_rc = {}
+        for i in range(8):
+            k = 4 * t + (i & 3) + (16 if i >= 4 else 0)
+            assert k % 4 == i % 4
+            b_rc.setdefault(i // 4, set()).add((g, k // 4))
+        m = maps[lane]
+        for r in range(4):
+            assert a_rc[r] == {(m[2 * r], m[2 * r + 1])}, (lane, r)
+            row = g + 8 if r >= 2 else g
+            assert (m[12 + 2 * r], m[13 + 2 * r]) == (row, 2 * t + (r & 1))
+        for r in range(2):
+            assert b_rc[r] == {(m[8 + 2 * r], m[9 + 2 * r])}, (lane, r)

@@ -140,6 +140,47 @@ def test_unported_configurations_raise(kwargs):
         assert client.decrypt_impl == getattr(client, dec)
 
 
+def _reference_params(cls: str, method: str) -> list[str]:
+    """The parameter names of the JAX package's ``cls.method``, read from
+    its source with ``ast`` (the rules file imports no JAX)."""
+    path = SRC / "repro" / "fhe_client" / "client.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef) and fn.name == method:
+                    return [a.arg for a in fn.args.posonlyargs + fn.args.args]
+    raise AssertionError(f"{cls}.{method} not found in {path}")
+
+
+@pytest.mark.parametrize("method", ["__init__", "make_evaluation_keys"])
+def test_client_positional_parameters_match_reference(method):
+    """The port's positional parameters are the reference's, in its order;
+    the port's ``device`` is keyword-only, after them."""
+    import inspect
+    params = inspect.signature(getattr(FHEClient, method)).parameters
+    positional = [n for n, p in params.items()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    assert positional == _reference_params("FHEClient", method)
+    if method == "__init__":
+        assert params["device"].kind == inspect.Parameter.KEYWORD_ONLY
+
+
+def test_client_binds_positional_arguments_as_reference():
+    """``FHEClient('tiny', 0, 'host')`` names the host oracle, as in the
+    reference: the third positional argument is ``fourier``."""
+    client = FHEClient("tiny", 0, "host", device="cpu")
+    assert (client.fourier, client.pipeline, client.datapath) == (
+        "host", "staged", "f64")
+    assert client.seed == 0
+    assert client.device == torch.device("cpu")
+    client = FHEClient("tiny", 5, "device", "staged", "f64", device="cpu")
+    assert (client.seed, client.fourier, client.pipeline,
+            client.datapath) == (5, "device", "staged", "f64")
+    with pytest.raises(TypeError):
+        FHEClient("tiny", 0, "host", "staged", "f64", "cpu")
+
+
 @pytest.mark.parametrize("kwargs,match", [
     ({"fourier": "host", "pipeline": "megakernel"}, "megakernel"),
     ({"fourier": "host", "datapath": "df32"}, "df32"),

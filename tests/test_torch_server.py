@@ -12,8 +12,9 @@ the staged f64 client of seed ``SEED``:
   * the encrypted linear + poly3 flow, d=4, level 6: its input and output
     ciphertexts, level, scale and the slots the client decodes from it;
   * evaluation keys for the flow's rotations (1, 2, 3), rotation 5 and
-    relinearization; a second fresh ciphertext and its f64 decrypt; two
-    encoded plaintexts;
+    relinearization; the key sets of ``KEY_OPTIONS`` (no relinearization
+    key, a seed other than the profile's) and their wire bytes; a second
+    fresh ciphertext and its f64 decrypt; two encoded plaintexts;
   * the outputs of add_ct, add_pt, mul_pt (raw and with its fused rescale),
     rescale, mul_ct and hoisted_rotations (1, 2, 5), each at the level
     ``OP_LEVEL`` names. The reference pins hoisted == fused rotation bit
@@ -58,6 +59,12 @@ OP_LEVEL = {"add_ct": LEVEL, "add_pt": LEVEL - 1, "mul_pt": LEVEL - 1,
             "mul_pt_rescale": LEVEL - 1, "rescale": LEVEL,
             "mul_ct": LEVEL - 2}
 PT_LEVEL = LEVEL - 1
+# make_evaluation_keys' options, each held against the reference's keys
+KEY_SEED = 0xBEEF
+KEY_OPTIONS = {
+    "norelin": {"rotations": (2,), "include_relin": False, "seed": KEY_SEED},
+    "seeded": {"rotations": (), "seed": KEY_SEED},
+}
 
 _REF = r"""
 import sys
@@ -70,6 +77,7 @@ seed, nonce, dim, level, pt_level = (int(a) for a in sys.argv[1:6])
 key_rots, rots, op_level = (eval(a) for a in sys.argv[6:9])
 poly = tuple(float(v) for v in sys.argv[9].split(","))
 out = sys.argv[10]
+key_options = eval(sys.argv[11])
 c = FHEClient("tinyboot", seed=seed, pipeline="staged", datapath="f64")
 ctx = c.ctx
 ns = ctx.params.n_slots
@@ -102,6 +110,17 @@ d = {"xv": xv, "w": w, "bias": bias, "zy": zy, "pa_z": pa_z, "pm_z": pm_z,
      "special_q": keys.special_q}
 for r in keys.rotations:
     d[f"rot{r}_b"], d[f"rot{r}_a"] = keys.rot[r].b_mont, keys.rot[r].a_mont
+from repro.fhe_client.service import wire
+for tag, kw in key_options.items():
+    kk = c.make_evaluation_keys(**kw)
+    d[tag + "_has_relin"] = kk.relin is not None
+    d[tag + "_rotations"] = np.asarray(kk.rotations, np.int64)
+    d[tag + "_wire"] = np.frombuffer(wire.serialize_evaluation_keys(kk),
+                                     np.uint8)
+    for name, ksk in [("relin", kk.relin)] + [(f"rot{r}", kk.rot[r])
+                                               for r in kk.rotations]:
+        if ksk is not None:
+            d[f"{tag}_{name}_b"], d[f"{tag}_{name}_a"] = ksk.b_mont, ksk.a_mont
 at = {n: (x.drop_to(l), y.drop_to(l)) for n, l in op_level.items()}
 outs = {"add_ct": ev.add_ct(*at["add_ct"]),
         "add_pt": ev.add_pt(at["add_pt"][0], pa),
@@ -126,7 +145,7 @@ def jax_server(tmp_path_factory):
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
     args = [str(SEED), str(NONCE), str(DIM), str(LEVEL), str(PT_LEVEL),
             repr(KEY_ROTATIONS), repr(ROTATIONS), repr(OP_LEVEL),
-            ",".join(repr(c) for c in POLY), str(out)]
+            ",".join(repr(c) for c in POLY), str(out), repr(KEY_OPTIONS)]
     proc = subprocess.run([sys.executable, "-c", _REF, *args], env=env,
                           text=True, capture_output=True, timeout=900)
     if proc.returncode != 0:
@@ -239,6 +258,34 @@ def test_evaluation_keys_bit_identical(boot, key):
     np.testing.assert_array_equal(_u32(ksk.b_mont), ref[key + "_b"])
     np.testing.assert_array_equal(_u32(ksk.a_mont), ref[key + "_a"])
     assert keys.special_q == int(ref["special_q"])
+
+
+@pytest.mark.parametrize("tag", list(KEY_OPTIONS))
+def test_evaluation_key_options_bit_identical(boot, tag):
+    """make_evaluation_keys(rotations, include_relin, seed) in the
+    reference's order: without a relinearization key, and under a seed
+    other than the profile's, the reference's keys word for word and its
+    wire bytes byte for byte."""
+    from repro_torch.fhe_client.service import wire
+    ref = boot["ref"]
+    client = boot["client"]
+    kw = KEY_OPTIONS[tag]
+    assert kw["seed"] != client.ctx.params.seed
+    keys = client.make_evaluation_keys(**kw)
+    assert (keys.relin is not None) == bool(ref[tag + "_has_relin"])
+    assert keys.relin is None or kw.get("include_relin", True)
+    assert keys.rotations == tuple(ref[tag + "_rotations"])
+    for name, ksk in [("relin", keys.relin)] + [(f"rot{r}", keys.rot[r])
+                                                 for r in keys.rotations]:
+        if ksk is None:
+            continue
+        np.testing.assert_array_equal(_u32(ksk.b_mont),
+                                      ref[f"{tag}_{name}_b"])
+        np.testing.assert_array_equal(_u32(ksk.a_mont),
+                                      ref[f"{tag}_{name}_a"])
+    assert wire.serialize_evaluation_keys(keys) == ref[tag + "_wire"].tobytes()
+    same = skeys.make_evaluation_keys(client.ctx, client.keys.sk, **kw)
+    assert wire.serialize_evaluation_keys(same) == ref[tag + "_wire"].tobytes()
 
 
 def test_encode_plaintext_bit_identical(boot):
