@@ -96,10 +96,36 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      kernels) == the df32 flow, its result through the f64 megakernel ==
      the staged f64 decode; then times of K5 / K6 f64 (queued ahead, as
      in 5) beside the plain versions and the bounds;
- 10. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 10. the client service at ``paper``: ``ClientService(FHEClient('paper'),
+     n_streams=2, oversubscribe=True)`` (two CUDA streams on the card,
+     ``DEFAULT_BUCKETS``, a tenant lane ``'t1'`` beside the default one),
+     every (kind, bucket) shape warmed first, the counters set to 0 just
+     after: (a) closed loop, 44 encrypts (jobs of 16, 16 and 16 with 12
+     real rows) and 4 of the results decrypted, the dispatch log's modes
+     == ``plan_rounds``; the same again without the profiler, timed: the
+     closed-loop rate; (b) always on, 64 encrypts and 6 decrypts arriving
+     as a seeded Poisson process (mean gap 1 ms, max wait 5 ms), then
+     ``stop(drain=True)``: the offered rate (requests over the arrival
+     span) beside the served requests/s (arrival-bound: the window is
+     mostly the arrivals' gaps), p50 / p99 latency, jobs and rounds by
+     mode; again under torch.profiler: the device busy share and
+     whether the two streams' K5 kernels overlapped (reported, not
+     asserted); (c) a launch fault on stream 0 (its job retried on stream
+     1 under the same lease; ``stream_failed``, ``degraded``, ``requeue``
+     logged), then a materialize fault (``retry_ok``); (d) 8 encrypts on the
+     tenant lane beside 8 on the default one, 2 tenant decrypts. Then the
+     counters must show one K5 launch per encrypt job launched (retries
+     included) and one K6 per decrypt job, nothing else; the table-cache
+     odometer must not have moved since warm-up; every encrypt row == the
+     direct ``encode_encrypt_batch`` of its job's rows from the job's nonce
+     base on a same-seed client of its lane (the tenant's: a solo client of
+     seed ``tenant_seed``), 0 differing words; every decrypt == the direct
+     ``decrypt_decode_batch``, >= 19.29 bits;
+ 11. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
-     also the device kernels per call), then, as the last line, ``{"ok": true,
-     "device": ...}``.
+     also the device kernels per call; K5 / K6's launches include the
+     service phase's), then, as the last line, ``{"ok": true, "device":
+     ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit code and no result line. Needs a CUDA device; without one it exits 2.
@@ -1886,6 +1912,429 @@ def _f64_server_phase(out, dev) -> None:
           f"megakernel == the staged f64 decode, bit for bit", flush=True)
 
 
+# --- phase 10: the client service (K5 / K6 on two CUDA streams) ------------
+# ``ClientService(FHEClient('paper'), n_streams=2, oversubscribe=True)``:
+# two CUDA streams on the one card, DEFAULT_BUCKETS, a tenant lane beside
+# the default one. The service's launches are counted first; then every
+# encrypt row is held against the direct ``encode_encrypt_batch`` of its
+# job's rows (padding included) from the job's nonce base on a same-seed
+# client of its lane (0 differing words), and every decrypt against the
+# direct ``decrypt_decode_batch`` of its rows, bit for bit.
+SERVICE_ENC_A, SERVICE_DEC_A = 44, 4          # (a) closed loop
+SERVICE_ENC_B, SERVICE_DEC_B = 64, 6          # (b) always on, Poisson
+SERVICE_GAP_S, SERVICE_MAX_WAIT_S = 0.001, 0.005
+SERVICE_ENC_C = 32                            # (c) a launch fault
+SERVICE_ENC_C2 = 16                           # (c) a materialize fault
+SERVICE_TENANT, SERVICE_ENC_D, SERVICE_DEC_D = "t1", 8, 2   # (d) per lane
+# K5's device kernels (encode_encrypt.cu, encrypt_tiled.cuh): enc_*_kernel
+K5_DEVICE_KERNEL = r"\benc_\w*kernel\b"
+
+
+class _ServiceRun:
+    """What the phase submitted and got back, by request id, for the
+    checks that follow the counted part."""
+
+    def __init__(self):
+        self.lane, self.msg, self.row = {}, {}, {}
+        self.dec_src, self.dec_out = {}, {}
+
+    def enc(self, svc, m, lane="default", **kw):
+        rid = svc.submit_encrypt(m, **kw)
+        self.lane[rid], self.msg[rid] = lane, m
+        return rid
+
+    def dec(self, svc, ct, lane="default", **kw):
+        rid = svc.submit_decrypt(ct, **kw)
+        self.lane[rid], self.dec_src[rid] = lane, ct
+        return rid
+
+    def collect(self, svc, rids, timeout=120.0):
+        for rid in rids:
+            out = svc.result(rid, timeout=timeout)
+            if rid in self.dec_src:
+                self.dec_out[rid] = out
+            else:
+                self.row[rid] = out
+
+
+def _service_differing_words(svc, run: _ServiceRun, twins) -> tuple:
+    """(differing words, jobs checked): each encrypt job of the dispatch
+    log against the direct path of its lane from its nonce base. A job's
+    launches (retries too) must all carry its one nonce base."""
+    import numpy as np
+    jobs = {}
+    for rec in svc.dispatch_log:
+        if rec.kind == "enc" and jobs.setdefault(
+                rec.rids, rec).nonce0 != rec.nonce0:
+            _fail(f"service job {rec.rids} launched under two nonce bases")
+    differ = 0
+    for rids, rec in jobs.items():
+        twin = twins[run.lane[rids[0]]]
+        msgs = np.stack([run.msg[r] for r in rids])
+        pad = np.zeros((rec.bucket - len(rids), msgs.shape[1]), complex)
+        twin.nonce = rec.nonce0
+        direct = twin.encode_encrypt_batch(np.concatenate([msgs, pad]))
+        for i, rid in enumerate(rids):
+            row = run.row[rid]
+            differ += int((row.c0 != direct.c0[i]).sum().item())
+            differ += int((row.c1 != direct.c1[i]).sum().item())
+    return differ, len(jobs)
+
+
+def _service_decrypts_match(run: _ServiceRun, twins) -> tuple:
+    """(rows that differ from the direct decode, precision bits of the
+    rows whose message is known)."""
+    import numpy as np
+    from repro_torch.core.encoder import boot_precision_bits
+    from repro_torch.core.encryptor import CiphertextBatch
+    bad, want, got = 0, [], []
+    for rid, ct in run.dec_src.items():
+        twin = twins[run.lane[rid]]
+        direct = twin.decrypt_decode_batch(
+            CiphertextBatch.from_cts([ct]).truncated(2))[0]
+        bad += int(not np.array_equal(direct, run.dec_out[rid]))
+        src = next((r for r, row in run.row.items() if row is ct), None)
+        if src is not None:
+            want.append(run.msg[src])
+            got.append(run.dec_out[rid])
+    bits = boot_precision_bits(np.stack(want), np.stack(got)) if want \
+        else float("nan")
+    return bad, bits
+
+
+def _intervals_union(iv) -> list:
+    out = []
+    for s, e in sorted(iv):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap(a, b) -> float:
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _trace_device_activity(path) -> dict:
+    """From a torch.profiler Chrome trace: the device's busy time (union of
+    kernels and copies) and K5's kernels by CUDA stream, with the time the
+    two streams' K5 kernels overlapped."""
+    import re
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    busy, k5 = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        iv = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        busy.append(iv)
+        if e["cat"] == "kernel" and re.search(K5_DEVICE_KERNEL, e["name"]):
+            k5.setdefault(e.get("args", {}).get("stream"), []).append(iv)
+    streams = sorted(k5, key=str)
+    unions = [_intervals_union(k5[s]) for s in streams]
+    overlap_us = sum(_overlap(unions[i], unions[j])
+                     for i in range(len(unions))
+                     for j in range(i + 1, len(unions)))
+    return {"busy_ms": sum(e - s for s, e in _intervals_union(busy)) / 1e3,
+            "k5_kernels_by_stream": {str(s): len(k5[s]) for s in streams},
+            "k5_overlap_ms": overlap_us / 1e3}
+
+
+def _service_phase(dev, card: str) -> dict:
+    """Phase 10: (a) closed loop, (b) always on under Poisson arrivals
+    (twice: once for the numbers, once under the profiler), (c) a launch
+    fault and a materialize fault, (d) a tenant lane beside the default
+    one; then the checks. Returns the service's K5 / K6 launches and the
+    numbers for the result lines."""
+    import tempfile
+    from collections import Counter
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import scheduler as policy
+    from repro_torch.core.context import PROFILES
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.fhe_client.service import (ClientService,
+                                                FaultInjector, FaultSpec,
+                                                tenant_seed)
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import table_cache_entries
+
+    params = PROFILES[MAIN_PROFILE]
+    ns = params.n_slots
+    t_seed = tenant_seed(params, SERVICE_TENANT)
+    client = FHEClient(MAIN_PROFILE, device=dev)
+    twins = {"default": FHEClient(MAIN_PROFILE, device=dev),
+             SERVICE_TENANT: FHEClient(params, seed=t_seed, device=dev)}
+    svc = ClientService(client, n_streams=2, oversubscribe=True,
+                        max_wait_s=SERVICE_MAX_WAIT_S)
+    svc.registry.get(SERVICE_TENANT, params)
+    t0 = time.perf_counter()
+    n_warm = svc.warm_up()
+    warm_s = time.perf_counter() - t0
+    warm_entries = table_cache_entries(svc.lane_clients())
+    print(f"service: {MAIN_PROFILE}, {svc.scheduler.n_streams} CUDA streams "
+          f"on one card, buckets {svc.batcher.buckets}, lanes default + "
+          f"tenant; warm-up {n_warm} launches in {warm_s:.2f} s, "
+          f"table-cache entries {warm_entries}  [{card}]", flush=True)
+    # host time of one encrypt job's launch on a stream, by part (before
+    # the counters are set to 0: not the service's path)
+    st = svc.scheduler.streams[0].streams[0]
+    m16 = _messages(ns, MAIN_BATCH, SEED + 9)
+    parts = {"operands": [], "launch": [], "device": []}
+    for _ in range(5):
+        nonce0 = svc._take_nonces(None, MAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(st):
+            ops_ = client.encrypt_operands(m16)
+            t1 = time.perf_counter()
+            client.encrypt_impl(*ops_, nonce0)
+            t2 = time.perf_counter()
+        (st.synchronize if st is not None else torch.cuda.synchronize)()
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v * 1e3)
+    host = {k: float(np.median(v)) for k, v in parts.items()}
+    print(f"service: one encrypt job B={MAIN_BATCH} on a stream, host "
+          f"clock (median of 5): operands (df split + 4 pageable H2D) "
+          f"{host['operands']:.3f} ms, K5 launch call "
+          f"{host['launch']:.3f} ms, then waiting for the stream "
+          f"{host['device']:.3f} ms  [{card}]", flush=True)
+    ops.reset_launches()
+    run = _ServiceRun()
+    out = {"encrypt_job_host_ms": host}
+
+    # (a) closed loop: 44 encrypts, flush; 4 of the results decrypted
+    msgs = _messages(ns, SERVICE_ENC_A, SEED + 10)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rids = [run.enc(svc, m) for m in msgs]
+            svc.flush()
+            run.collect(svc, rids)
+            n_enc_jobs = len(svc.dispatch_log)
+            drids = [run.dec(svc, run.row[r]) for r in rids[:SERVICE_DEC_A]]
+            svc.flush()
+            run.collect(svc, drids)
+            a_s = time.perf_counter() - t0
+        trace = Path(tmp) / "service_trace.json"
+        prof.export_chrome_trace(str(trace))
+        act_a = _trace_device_activity(trace)
+    executed = svc.scheduler.modes_executed()
+    want = policy.plan_rounds(n_enc_jobs, 0, 2) + policy.plan_rounds(
+        0, len(svc.dispatch_log) - n_enc_jobs, 2)
+    if executed != want:
+        _fail(f"service modes {executed} != plan_rounds {want}")
+    buckets = [r.bucket for r in svc.dispatch_log]
+    print(f"service (a) closed loop: {SERVICE_ENC_A} encrypts + "
+          f"{SERVICE_DEC_A} decrypts in {a_s * 1e3:.1f} ms host clock "
+          f"(under the profiler), jobs (bucket) {buckets}, modes "
+          f"{[m.value for m, _k in executed]} == plan_rounds; device busy "
+          f"{act_a['busy_ms']:.3f} ms, K5 kernels by stream "
+          f"{act_a['k5_kernels_by_stream']}, overlap of the two streams' "
+          f"K5 kernels {act_a['k5_overlap_ms']:.4f} ms  [{card}]",
+          flush=True)
+    out["a"] = {"buckets": buckets, "host_ms": a_s * 1e3,
+                "modes": [m.value for m, _k in executed], **act_a}
+
+    # (a) again without the profiler: the closed-loop rate, every request
+    # queued before the flush (the rate the service sustains when arrivals
+    # never leave it idle)
+    msgs = _messages(ns, SERVICE_ENC_A, SEED + 15)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids2 = [run.enc(svc, m) for m in msgs]
+    svc.flush()
+    run.collect(svc, rids2)
+    drids = [run.dec(svc, run.row[r]) for r in rids2[:SERVICE_DEC_A]]
+    svc.flush()
+    run.collect(svc, drids)
+    a2_s = time.perf_counter() - t0
+    n_a2 = SERVICE_ENC_A + SERVICE_DEC_A
+    out["a_closed_loop"] = {"requests": n_a2, "wall_ms": a2_s * 1e3,
+                            "requests_per_s": n_a2 / a2_s}
+    print(f"service (a) closed loop, no profiler: {n_a2} requests in "
+          f"{a2_s * 1e3:.1f} ms host clock: {n_a2 / a2_s:.1f} requests/s "
+          f"(closed-loop rate)  [{card}]", flush=True)
+
+    # (b) always on: Poisson arrivals (mean gap 1 ms), deadline 5 ms
+    rng = np.random.default_rng(SEED + 11)
+    kinds = ["enc"] * SERVICE_ENC_B + ["dec"] * SERVICE_DEC_B
+    rng.shuffle(kinds)
+    gaps = rng.exponential(SERVICE_GAP_S, len(kinds))
+    msgs_b = _messages(ns, SERVICE_ENC_B, SEED + 12)
+    dec_src = [run.row[r] for r in rids[SERVICE_DEC_A:SERVICE_DEC_A
+                                        + SERVICE_DEC_B]]
+
+    def always_on():
+        start = len(svc.dispatch_log)
+        svc.telemetry.reset()           # the stage histograms of this run
+        svc.start()
+        sub, ie, idd = [], 0, 0
+        t_start = time.perf_counter()
+        for kind, gap in zip(kinds, gaps):
+            time.sleep(float(gap))
+            if kind == "enc":
+                sub.append(run.enc(svc, msgs_b[ie]))
+                ie += 1
+            else:
+                sub.append(run.dec(svc, dec_src[idd]))
+                idd += 1
+        span = time.perf_counter() - t_start
+        svc.stop(drain=True)
+        wall = time.perf_counter() - t_start
+        run.collect(svc, sub)
+        lat = np.array([svc.latency(r) for r in sub]) * 1e3
+        log = svc.dispatch_log[start:]
+        return {"requests": len(sub), "wall_ms": wall * 1e3,
+                "arrival_span_ms": span * 1e3,
+                "offered_per_s": len(sub) / span,
+                "requests_per_s": len(sub) / wall,
+                "latency_p50_ms": float(np.percentile(lat, 50)),
+                "latency_p99_ms": float(np.percentile(lat, 99)),
+                "jobs_by_kind": dict(Counter(r.kind for r in log)),
+                "jobs_by_stream": dict(Counter(r.stream for r in log)),
+                "job_buckets": dict(Counter(r.bucket for r in log)),
+                "rounds_by_mode": dict(Counter(
+                    m.value for m, _k in svc.scheduler.modes_executed(
+                        start))),
+                "stages": svc.telemetry.stage_summaries()}
+
+    b = always_on()
+    print(f"service (b) always on: {b['requests']} requests (Poisson, mean "
+          f"gap {SERVICE_GAP_S * 1e3:g} ms, max wait "
+          f"{SERVICE_MAX_WAIT_S * 1e3:g} ms) offered at "
+          f"{b['offered_per_s']:.1f} requests/s over "
+          f"{b['arrival_span_ms']:.1f} ms, served in {b['wall_ms']:.1f} ms: "
+          f"{b['requests_per_s']:.1f} requests/s (arrival-bound), latency "
+          f"p50 "
+          f"{b['latency_p50_ms']:.2f} ms p99 {b['latency_p99_ms']:.2f} ms; "
+          f"jobs {b['jobs_by_kind']} by stream {b['jobs_by_stream']} "
+          f"buckets {b['job_buckets']}, rounds by mode "
+          f"{b['rounds_by_mode']}; stages (p50 / p99 ms) "
+          + ", ".join(f"{k} {v['p50_s'] * 1e3:.2f} / {v['p99_s'] * 1e3:.2f}"
+                      for k, v in b["stages"].items())
+          + f"  [{card}]", flush=True)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bp = always_on()
+        trace = Path(tmp) / "service_trace.json"
+        prof.export_chrome_trace(str(trace))
+        act = _trace_device_activity(trace)
+    bp.update(act)
+    bp["busy_share"] = act["busy_ms"] / bp["wall_ms"]
+    overlapped = act["k5_overlap_ms"] > 0
+    print(f"service (b) under the profiler: offered "
+          f"{bp['offered_per_s']:.1f}, served {bp['requests_per_s']:.1f} "
+          f"requests/s (arrival-bound), p50 {bp['latency_p50_ms']:.2f} ms p99 "
+          f"{bp['latency_p99_ms']:.2f} ms; device busy "
+          f"{act['busy_ms']:.3f} ms of {bp['wall_ms']:.1f} ms "
+          f"({100 * bp['busy_share']:.1f}%); K5 kernels by stream "
+          f"{act['k5_kernels_by_stream']}, the two streams' K5 kernels "
+          f"{'overlapped' if overlapped else 'did not overlap'} "
+          f"({act['k5_overlap_ms']:.4f} ms)  [{card}]", flush=True)
+    out["b"], out["b_profiled"] = b, bp
+
+    # (c) a launch fault on stream 0, then a materialize fault
+    svc.scheduler.faults = FaultInjector([FaultSpec(stream=0, kind="error",
+                                                    after=0, count=1)])
+    msgs_c = _messages(ns, SERVICE_ENC_C + SERVICE_ENC_C2, SEED + 13)
+    ev0 = len(svc.events)
+    crids = [run.enc(svc, m) for m in msgs_c[:SERVICE_ENC_C]]
+    svc.flush()
+    run.collect(svc, crids)
+    kinds_c = [e.kind for e in svc.events.replay()[ev0:]]
+    if not {"stream_failed", "degraded", "requeue"} <= set(kinds_c):
+        _fail(f"launch fault: events {kinds_c}")
+    if svc.scheduler.alive_streams != [1]:
+        _fail(f"launch fault: alive streams {svc.scheduler.alive_streams}")
+    svc.scheduler.revive_all()
+    svc.scheduler.faults = FaultInjector([FaultSpec(
+        stream=0, kind="result_error", after=0, count=1)])
+    ev0 = len(svc.events)
+    crids = [run.enc(svc, m) for m in msgs_c[SERVICE_ENC_C:]]
+    svc.flush()
+    run.collect(svc, crids)
+    kinds_c2 = [e.kind for e in svc.events.replay()[ev0:]]
+    retried = [r for r in svc.dispatch_log if r.attempt > 0]
+    if "retry_ok" not in kinds_c2 or not retried:
+        _fail(f"materialize fault: events {kinds_c2}")
+    svc.scheduler.revive_all()
+    svc.scheduler.faults = None
+    print(f"service (c) faults: launch fault events {kinds_c}; materialize "
+          f"fault events {kinds_c2}, retry on stream {retried[-1].stream} "
+          f"attempt {retried[-1].attempt}  [{card}]", flush=True)
+
+    # (d) a tenant lane beside the default one
+    msgs_d = _messages(ns, 2 * SERVICE_ENC_D, SEED + 14)
+    drids = []
+    for i in range(SERVICE_ENC_D):
+        drids.append(run.enc(svc, msgs_d[2 * i], SERVICE_TENANT,
+                             tenant=SERVICE_TENANT, params=params))
+        drids.append(run.enc(svc, msgs_d[2 * i + 1]))
+    svc.flush()
+    run.collect(svc, drids)
+    trids = [run.dec(svc, run.row[r], SERVICE_TENANT, tenant=SERVICE_TENANT,
+                     params=params) for r in drids[:2 * SERVICE_DEC_D:2]]
+    svc.flush()
+    run.collect(svc, trids)
+
+    # the service's launches: one K5 per encrypt job launched (retries
+    # included), one K6 per decrypt job, nothing else
+    counts = ops.launches()
+    n_enc = sum(r.kind == "enc" for r in svc.dispatch_log)
+    n_dec = sum(r.kind == "dec" for r in svc.dispatch_log)
+    other = {k: v for k, v in counts.items() if v and k not in (
+        "encode_encrypt_stream", "decrypt_decode_stream")}
+    if (counts["encode_encrypt_stream"], counts["decrypt_decode_stream"]) \
+            != (n_enc, n_dec) or other:
+        _fail(f"service launches {counts} != {n_enc} encrypt / {n_dec} "
+              f"decrypt jobs")
+    entries = table_cache_entries(svc.lane_clients())
+    if entries != warm_entries:
+        _fail(f"table-cache entries moved on the warm path: {warm_entries} "
+              f"-> {entries}")
+
+    # the checks (direct calls launch K5 / K6 too: after the counts)
+    differ, n_jobs = _service_differing_words(svc, run, twins)
+    bad, bits = _service_decrypts_match(run, twins)
+    torch.cuda.synchronize()
+    print(f"service checks: {len(run.row)} encrypt rows in {n_jobs} jobs == "
+          f"the direct path from each job's nonce base ({differ} differing "
+          f"words, tenant lane against a solo client of seed "
+          f"tenant_seed({MAIN_PROFILE}, {SERVICE_TENANT!r})); "
+          f"{len(run.dec_out)} "
+          f"decrypts == direct decode ({bad} differ), {bits:.2f} bits (bar "
+          f"{BOOT_PREC_BITS}); launches K5 {n_enc} K6 {n_dec} == jobs; "
+          f"table-cache entries {entries} unchanged  [{card}]", flush=True)
+    if differ or bad:
+        _fail(f"service results differ from the direct path: {differ} "
+              f"words, {bad} decrypts")
+    if not bits >= BOOT_PREC_BITS:
+        _fail(f"service round-trip precision {bits} < {BOOT_PREC_BITS}")
+    out.update({"encode_encrypt_stream": n_enc,
+                "decrypt_decode_stream": n_dec, "differing_words": differ,
+                "precision_bits": bits, "jobs": n_jobs})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2050,6 +2499,10 @@ def main() -> int:
         into[name] = max(into[name], e)
     _f64_server_phase(server_out, dev)
 
+    # --- 10. the client service: K5 / K6 on two CUDA streams ---------------
+    service = _service_phase(dev, card)
+    print(json.dumps({"service": service}), flush=True)
+
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
     ctx = mc.ctx
@@ -2171,12 +2624,16 @@ def main() -> int:
 
     kernels = [
         entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
-              "client_stream.py:96", mega_launches["encode_encrypt_stream"]),
+              "client_stream.py:96", mega_launches["encode_encrypt_stream"]
+              + service["encode_encrypt_stream"]),
         entry("decrypt_decode_stream", "K6", "decrypt_decode.cu",
-              "client_stream.py:200", mega_launches["decrypt_decode_stream"]),
+              "client_stream.py:200", mega_launches["decrypt_decode_stream"]
+              + service["decrypt_decode_stream"]),
     ]
     for k in kernels:
         k.update(_device_kernel_fields(dkernels[k["name"], MAIN_BATCH]))
+        k["launches_by_path"] = {"megakernel": mega_launches[k["name"]],
+                                 "service": service[k["name"]]}
         at_batch_1(k)
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),

@@ -87,6 +87,15 @@ HEADERS = ("client_common.cuh", "server_common.cuh", "ntt_tiled.cuh",
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[str, dict] = {}
+# sources compiled by this process (the service's warm-path odometer,
+# ``telemetry.probe.table_cache_entries``, counts them)
+_BUILT = {"sources": 0}
+
+
+def builds() -> int:
+    """nvcc compiles this process has run (a source whose library was
+    already built is loaded, not counted)."""
+    return _BUILT["sources"]
 
 
 def _nvcc() -> str:
@@ -134,6 +143,7 @@ def build(build_dir: Path = BUILD_DIR) -> dict:
             failed.append(f"{src}:\n{logs[src]}")
         else:
             os.replace(tmp, out)
+            _BUILT["sources"] += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs

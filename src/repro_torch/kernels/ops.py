@@ -15,6 +15,10 @@ kernel cannot be built or launched raises.
     decrypt (K3);
   * ``encode_encrypt_stream`` / ``decrypt_decode_stream``: the megakernels
     (K5, K6), on either datapath;
+  * ``encrypt_fused_sharded`` / ``decrypt_fused_sharded``: K2 / K3 with
+    the batch axis split in equal row slices over a device list (one
+    launch per device, on that device's current stream); row r keeps
+    nonce ``nonce0 + r`` (``shard_nonce_base``);
   * ``server_*``: the server-side CKKS op set (K7-K11, ``server_eval``);
     ``datapath`` picks the plain versions' REDC engine.
 
@@ -25,9 +29,11 @@ counters and ``reset_launches()`` sets them to 0.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import fft as fftmod
 from repro_torch.core.context import CKKSContext
+from repro_torch.core.modmul import MASK32
 from repro_torch.kernels import (client_pointwise, client_stream, common,
                                  fft_df, ntt_butterfly, ntt_matmul,
                                  server_eval)
@@ -158,6 +164,96 @@ def decrypt_fused(c0, c1, s_mont, ctx: CKKSContext, n_limbs: int = 2):
          else client_pointwise.decrypt_limbs_plain)
     out = f(c0b[:, :n_limbs], c1b[:, :n_limbs], s_mont, ctx)
     return out[0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# Sharded entry points: the batch axis split over a device list
+# ---------------------------------------------------------------------------
+#
+# Each shard runs the SAME limb-folded kernel on its row slice of the batch
+# axis (one launch per device, on that device's current stream), so a
+# b-device group issues b launches for one batch. Nonce bases are offset
+# per shard so row r of the batch always encrypts under ``nonce0 + r`` —
+# bit-identical to the single-device launch.
+
+
+def shard_rows(batch: int, n_shards: int) -> int:
+    """Rows per device when a ``batch``-row stack splits over ``n_shards``
+    devices; raises unless it divides."""
+    if batch % n_shards:
+        raise ValueError(
+            f"batch axis {batch} does not divide the {n_shards}-device "
+            f"'batch' mesh axis; pad to a multiple (the service batcher's "
+            f"buckets are forced to multiples of the shard count)")
+    return batch // n_shards
+
+
+def shard_nonce_base(nonce0: int, shard: int, shard_rows: int) -> int:
+    """Nonce base of shard ``shard`` (holding rows [shard*shard_rows,
+    (shard+1)*shard_rows) of the batch): ``nonce0 + shard*shard_rows``,
+    wrapped mod 2^32 as the kernels' uint32 nonces are. The ONE place the
+    sharded row<->nonce convention lives — both the sharded kernel entries
+    below and the service's stream executors use it (nonce reuse across
+    shards would break RLWE security)."""
+    return (int(nonce0) + int(shard) * int(shard_rows)) & MASK32
+
+
+def _to(t, device):
+    return t if t.device == device else t.to(device)
+
+
+def gather_rows(parts, device):
+    """Shard outputs -> one stack on ``device`` (rows in shard order)."""
+    return torch.cat([_to(p, device) for p in parts])
+
+
+def split_rows(batch: int, devices, launch, streams=None) -> list:
+    """The one row split of a batch over a device group: calls
+    ``launch(shard, device, rows_slice, shard_rows)`` for each device's row
+    slice, inside ``streams[shard]``'s context when a stream is given (on
+    the device's current stream otherwise), and returns the per-shard
+    outputs in shard order. Raises unless ``batch`` divides."""
+    rows = shard_rows(batch, len(devices))
+    outs = []
+    for s, dev in enumerate(devices):
+        sl = slice(s * rows, (s + 1) * rows)
+        st = streams[s] if streams is not None else None
+        if st is None:
+            outs.append(launch(s, dev, sl, rows))
+            continue
+        with torch.cuda.stream(st):
+            outs.append(launch(s, dev, sl, rows))
+    return outs
+
+
+def encrypt_fused_sharded(pt_data, pk_b_mont, pk_a_mont, ctx: CKKSContext,
+                          devices, seed: int | None = None, nonce0: int = 0):
+    """``encrypt_fused`` with the (B, L, N) batch axis split over
+    ``devices`` (the reference's mesh), one launch per device; keys are
+    copied to each device. Returns (c0, c1) on ``devices[0]``."""
+    devices = [torch.device(d) for d in devices]
+
+    def launch(s, dev, sl, rows):
+        return encrypt_fused(
+            _to(pt_data[sl], dev), _to(pk_b_mont, dev), _to(pk_a_mont, dev),
+            ctx, seed=seed, nonce0=shard_nonce_base(nonce0, s, rows))
+
+    c0s, c1s = zip(*split_rows(pt_data.shape[0], devices, launch))
+    return gather_rows(c0s, devices[0]), gather_rows(c1s, devices[0])
+
+
+def decrypt_fused_sharded(c0, c1, s_mont, ctx: CKKSContext, devices,
+                          n_limbs: int = 2):
+    """``decrypt_fused`` with the (B, L, N) batch axis split over
+    ``devices`` (secret key copied to each); returns the (B, n_limbs, N)
+    residues on ``devices[0]``."""
+    devices = [torch.device(d) for d in devices]
+
+    def launch(s, dev, sl, rows):
+        return decrypt_fused(_to(c0[sl], dev), _to(c1[sl], dev),
+                             _to(s_mont, dev), ctx, n_limbs=n_limbs)
+
+    return gather_rows(split_rows(c0.shape[0], devices, launch), devices[0])
 
 
 # ---------------------------------------------------------------------------

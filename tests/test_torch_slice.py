@@ -11,11 +11,16 @@ as .npz under the session's tmp dir. The reference is
 ``repro.fhe_client.client.FHEClient`` on its default megakernel path in
 interpret mode, as the JAX tests run it.
 
-Cases: ``tiny`` at B=3 (odd batch, nonce base wrapping past 2^32) and B=1,
-a toy ring at the paper's Delta = 2^55 (the third digit d2 is only non-zero
-at such Delta) at B=2, and ``test`` at B=2. Ciphertexts and the four
-decoded planes must be identical words; the port decodes the reference's
-own ciphertexts, so each direction is held on its own. Tolerance: 0.
+Cases: ``tiny`` at B=3 (odd batch, nonce base wrapping past 2^32), B=1
+and B=16 (a full bucket of the client service, its nonce base 8 below the
+wrap), a toy ring at the paper's Delta = 2^55 (the third digit d2 is only
+non-zero at such Delta) at B=2, and ``test`` at B=2. Ciphertexts and the
+four decoded planes must be identical words; the port decodes the
+reference's own ciphertexts, so each direction is held on its own. The
+port's ``ClientService`` (a CPU client, two logical streams) encrypts the
+B=16 case's messages from its nonce base to the JAX client's words too,
+and a request sequence (a closed loop, then an always-on run) to the JAX
+``ClientService``'s words on the same sequence. Tolerance: 0.
 """
 
 import json
@@ -44,7 +49,11 @@ CASES = [
     ("tiny_b1", "tiny", 1, None, 7, 12),
     ("toy55_b2", "toy55", 2, SEED_B, 5, 13),
     ("test_b2", "test", 2, SEED_B, 40, 14),
+    ("tiny_b16", "tiny", 16, None, 0xFFFFFFF8, 15),
 ]
+# the service sequence: (profile, nonce base, message seed, encrypts per
+# mode, decrypts), in 16-row buckets (the shapes the B=16 case compiled)
+SERVICE = ("tiny", 1000, 16, 16, 3)
 
 _REFERENCE = r'''
 import json, sys
@@ -76,6 +85,33 @@ for cid, profile, batch, seed, nonce0, mseed in cases:
              b_mont=np.asarray(keys.pk.b_mont),
              a_mont=np.asarray(keys.pk.a_mont))
     print(cid, "done", flush=True)
+
+# the reference service on one request sequence: a closed loop (encrypts,
+# flush, then decrypts of its first rows), then an always-on run (the
+# encrypts queued before start, drained by stop)
+from repro.fhe_client.service import ClientService
+profile, nonce0, mseed, n_enc, n_dec = json.loads(sys.argv[4])
+client = clients[(profile, None)]
+client.nonce = nonce0
+ns = client.ctx.params.n_slots
+rng = np.random.default_rng(mseed)
+msgs = (rng.standard_normal((2 * n_enc, ns))
+        + 1j * rng.standard_normal((2 * n_enc, ns))) * 0.5
+svc = ClientService(client, buckets=(16,), n_streams=2, oversubscribe=True)
+rids = [svc.submit_encrypt(m) for m in msgs[:n_enc]]
+svc.flush()
+cts = [svc.result(r) for r in rids]
+drids = [svc.submit_decrypt(ct) for ct in cts[:n_dec]]
+svc.flush()
+dec = np.stack([svc.result(r) for r in drids])
+rids = [svc.submit_encrypt(m) for m in msgs[n_enc:]]
+svc.start()
+svc.stop(drain=True)
+cts += [svc.result(r) for r in rids]
+np.savez(f"{out_dir}/service.npz", msgs=msgs, dec=dec,
+         c0=np.stack([np.asarray(ct.c0) for ct in cts]),
+         c1=np.stack([np.asarray(ct.c1) for ct in cts]))
+print("service done", flush=True)
 '''
 
 
@@ -87,12 +123,15 @@ def jax_reference(tmp_path_factory):
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE,
-         json.dumps([list(c) for c in CASES]), json.dumps(TOY55), str(out)],
+         json.dumps([list(c) for c in CASES]), json.dumps(TOY55), str(out),
+         json.dumps(SERVICE)],
         env=env, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"JAX reference failed:\n{proc.stdout}\n"
                            f"{proc.stderr[-4000:]}")
-    return {c[0]: np.load(out / f"{c[0]}.npz") for c in CASES}
+    ref = {c[0]: np.load(out / f"{c[0]}.npz") for c in CASES}
+    ref["service"] = np.load(out / "service.npz")
+    return ref
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +211,63 @@ def test_round_trip_precision(jax_reference, port_client, cid):
     out = client.decrypt_decode_batch(
         client.encode_encrypt_batch(ref["msgs"]).truncated(2))
     assert boot_precision_bits(ref["msgs"], out) >= 19.29
+
+
+def test_service_full_bucket_matches_reference(jax_reference):
+    """The B=16 case through the port's client service: one 16-row bucket
+    (``DEFAULT_BUCKETS``' largest) on two logical CPU streams, leased from
+    the case's nonce base (8 below 2^32), == the JAX client's words; the
+    service then decodes its own ciphertexts to the JAX planes' values."""
+    from repro_torch.fhe_client.service import ClientService
+    _, profile, batch, seed, nonce0, _ = _case("tiny_b16")
+    ref = jax_reference["tiny_b16"]
+    client = FHEClient(profile, seed=seed, device="cpu")
+    client.nonce = nonce0
+    svc = ClientService(client, n_streams=2, oversubscribe=True)
+    cts = svc.encrypt_many(ref["msgs"])
+    assert [(r.bucket, r.nonce0) for r in svc.dispatch_log] == [
+        (batch, nonce0)]
+    np.testing.assert_array_equal(_u32(cts.c0), ref["c0"])
+    np.testing.assert_array_equal(_u32(cts.c1), ref["c1"])
+    out = svc.decrypt_many(cts.truncated(2))
+    planes = ref["planes"].astype(np.float64)
+    np.testing.assert_array_equal(out, (planes[0] + planes[1])
+                                  + 1j * (planes[2] + planes[3]))
+
+
+@pytest.mark.parametrize("always_on", [False, True],
+                         ids=["closed_loop", "always_on"])
+def test_service_sequence_matches_reference_service(jax_reference,
+                                                    always_on):
+    """One request sequence through the port's ``ClientService`` and the
+    JAX ``ClientService`` (same seed, same nonce base, two streams on one
+    device, 16-row buckets): a closed loop of 16 encrypts and 3 decrypts,
+    then 16 encrypts queued before ``start()`` and drained by
+    ``stop()``. Every ciphertext is the reference service's words, and
+    every decrypt its values: ``start()`` takes no nonce of its own."""
+    from repro_torch.fhe_client.service import ClientService
+    profile, nonce0, _, n_enc, n_dec = SERVICE
+    ref = jax_reference["service"]
+    client = FHEClient(profile, device="cpu")
+    client.nonce = nonce0
+    svc = ClientService(client, buckets=(16,), n_streams=2,
+                        oversubscribe=True)
+    rids = [svc.submit_encrypt(m) for m in ref["msgs"][:n_enc]]
+    svc.flush()
+    cts = [svc.result(r) for r in rids]
+    drids = [svc.submit_decrypt(ct) for ct in cts[:n_dec]]
+    svc.flush()
+    np.testing.assert_array_equal(np.stack([svc.result(r) for r in drids]),
+                                  ref["dec"])
+    if always_on:
+        rids = [svc.submit_encrypt(m) for m in ref["msgs"][n_enc:]]
+        svc.start()
+        svc.stop(drain=True)
+        cts += [svc.result(r) for r in rids]
+    assert [r.nonce0 for r in svc.dispatch_log if r.kind == "enc"] == [
+        nonce0, nonce0 + 16][:1 + always_on]
+    n = len(cts)
+    np.testing.assert_array_equal(
+        np.stack([_u32(ct.c0) for ct in cts]), ref["c0"][:n])
+    np.testing.assert_array_equal(
+        np.stack([_u32(ct.c1) for ct in cts]), ref["c1"][:n])
