@@ -121,7 +121,27 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      base on a same-seed client of its lane (the tenant's: a solo client of
      seed ``tenant_seed``), 0 differing words; every decrypt == the direct
      ``decrypt_decode_batch``, >= 19.29 bits;
- 11. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 11. the service mesh at ``paper``: ``MeshRouter(n_workers=2,
+     profile='paper')`` with ``DEFAULT_BUCKETS``, both worker processes on
+     the card (each a ``ClientService`` over ``FHEClient('paper')``,
+     loading the kernels phase 2 built): (a) 40 encrypts on the default
+     lane and 8 on tenant ``'t1'``, one flush, twice (the first pays the
+     workers' client builds; the second gives the router's requests/s);
+     (b) 4 of the results decrypted as 2-limb views (wire kind 1) and 2
+     ``encrypt_symmetric_seeded`` ciphertexts (kind 2, half the submit
+     bytes), each == the direct ``decrypt_decode_batch``, >= 19.29 bits,
+     with the wire bytes per request by kind; (c) the relin key broadcast
+     (the router requires byte-identical replies) == this process's
+     ``make_evaluation_keys``; then no worker may have died; (d) 48
+     encrypts dispatched, the worker with chunks outstanding killed, the
+     flush re-sends them to the survivor under their leases (``requeues``
+     >= 1, one ``worker_failed`` event). Every encrypt row == the port's
+     solo ``ClientService`` in this process from the lane's lease base (the
+     tenant's on a client of seed ``tenant_seed``), 0 differing words. The
+     workers' launches are in their own processes, which this process's
+     counters do not see: the phase prints its own JSON line, with each
+     worker's time from spawn to HELLO and to its first result;
+ 12. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
      service phase's), then, as the last line, ``{"ok": true, "device":
@@ -2335,6 +2355,336 @@ def _service_phase(dev, card: str) -> dict:
     return out
 
 
+# --- phase 11: the service mesh (K5 / K6 in two worker processes) ---------
+# ``MeshRouter(n_workers=2, profile='paper')`` with DEFAULT_BUCKETS, both
+# workers on the one card (each a fresh interpreter running a full
+# ``ClientService``, loading the kernels phase 2 built). The workers'
+# launches are in their own processes: this process's counters cannot see
+# them, so the phase prints its own line. Every encrypt row is held
+# against the port's solo ``ClientService`` in this process from the same
+# lease base (0 differing words), every decrypt against the direct call.
+MESH_WORKERS = 2
+MESH_ENC, MESH_ENC_TENANT = 40, 8         # (a) default lane, tenant lane
+MESH_DEC_FULL, MESH_DEC_SEEDED = 4, 2     # (b) kind 1, kind 2
+MESH_ENC_KILL = 48                        # (d) three chunks of 16
+MESH_TENANT = "t1"
+MESH_TIMEOUT_S = 120.0                    # start-up, and each flush
+
+
+def _mesh_rows_differ(rows, solo) -> int:
+    """Words in which mesh result rows differ from a solo batch's rows."""
+    return sum(int((r.c0 != solo.c0[i]).sum().item())
+               + int((r.c1 != solo.c1[i]).sum().item())
+               for i, r in enumerate(rows))
+
+
+def _mesh_transport_ms(rows, mesh, dev) -> dict:
+    """Host milliseconds of each step one enc chunk's results take between
+    a worker's service and the router's ``Ciphertext`` rows, each step
+    timed alone on its real input (median of 3): the worker's stack and
+    serialize (D2H included), its tenant envelope and frame, the frame
+    over a localhost TCP socket (``send_frame`` / ``recv_frame``), and on
+    the router the envelope parse and the deserialize onto the card (H2D
+    included)."""
+    import socket
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.encryptor import CiphertextBatch
+    from repro_torch.fhe_client.service import lane_wire_identity, wire
+    from repro_torch.fhe_client.service.mesh import (OP_RESULT, recv_frame,
+                                                     send_frame)
+    tid, p = lane_wire_identity(None, mesh.params)
+    state = {}
+
+    def stack_serialize():
+        state["inner"] = wire.serialize_ciphertext_batch(CiphertextBatch(
+            c0=torch.stack([r.c0 for r in rows]),
+            c1=torch.stack([r.c1 for r in rows]),
+            n_limbs=rows[0].n_limbs, scale=rows[0].scale))
+
+    def envelope():
+        state["env"] = wire.serialize_tenant_envelope(tid, p, state["inner"])
+
+    def tcp():
+        got = []
+        reader = threading.Thread(target=lambda: got.append(
+            recv_frame(state["b"])))
+        reader.start()
+        send_frame(state["a"], OP_RESULT, state["env"])
+        reader.join()
+        state["payload"] = got[0][4]
+
+    def parse():
+        state["parsed"] = wire.deserialize_tenant_envelope(
+            state["payload"])[2]
+
+    def deserialize():
+        wire.deserialize_ciphertext_batch(state["parsed"], device=dev)
+        torch.cuda.synchronize()
+
+    lst = socket.create_server(("127.0.0.1", 0))
+    state["a"] = socket.create_connection(lst.getsockname())
+    state["b"], _ = lst.accept()
+    out = {}
+    try:
+        for name, fn in (("stack_serialize", stack_serialize),
+                         ("envelope", envelope),
+                         ("frame_over_localhost_tcp", tcp),
+                         ("envelope_parse", parse),
+                         ("deserialize_h2d", deserialize)):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = float(np.median(times))
+    finally:
+        for sock in (state["a"], state["b"], lst):
+            sock.close()
+    out["frame_bytes"] = len(state["env"])
+    return out
+
+
+def _mesh_phase(dev, card: str) -> dict:
+    """Phase 11: (a) 40 encrypts on the default lane and 8 on a tenant
+    lane, twice (the first round pays the workers' client builds); (b)
+    kind-1 and seeded kind-2 decrypts; (c) the evaluation-key broadcast;
+    (d) a worker killed with chunks outstanding. Returns the numbers for
+    the phase's result line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import encoder, encryptor
+    from repro_torch.core.context import PROFILES
+    from repro_torch.core.encryptor import CiphertextBatch
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.fhe_client.service import (DEFAULT_BUCKETS,
+                                                ClientService, MeshRouter,
+                                                tenant_seed, wire)
+
+    params = PROFILES[MAIN_PROFILE]
+    ns = params.n_slots
+    t_seed = tenant_seed(params, MESH_TENANT)
+    solo = {lane: ClientService(c, buckets=DEFAULT_BUCKETS, devices=[dev],
+                                n_streams=1)
+            for lane, c in (
+                ("default", FHEClient(MAIN_PROFILE, device=dev)),
+                (MESH_TENANT, FHEClient(params, seed=t_seed, device=dev)))}
+    seeds = {"default": params.seed, MESH_TENANT: t_seed}
+    out = {"workers": MESH_WORKERS, "profile": MAIN_PROFILE,
+           "buckets": list(DEFAULT_BUCKETS)}
+    differ = 0
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = MeshRouter(n_workers=MESH_WORKERS, profile=MAIN_PROFILE,
+                      buckets=DEFAULT_BUCKETS, device=dev,
+                      startup_timeout_s=MESH_TIMEOUT_S,
+                      flush_timeout_s=MESH_TIMEOUT_S)
+    with mesh:
+        out["hello_all_s"] = time.perf_counter() - t0
+
+        def enc_round(seed):
+            """One round: MESH_ENC default + MESH_ENC_TENANT tenant
+            encrypts, one flush; rows held against the solo services from
+            each lane's lease base. Returns (seconds, differing words,
+            rows by lane, messages by lane)."""
+            msgs = {"default": _messages(ns, MESH_ENC, seed),
+                    MESH_TENANT: _messages(ns, MESH_ENC_TENANT, seed + 1)}
+            base = {lane: mesh.ledger.watermark(s)
+                    for lane, s in seeds.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = {"default": [mesh.submit_encrypt(m)
+                                for m in msgs["default"]],
+                    MESH_TENANT: [mesh.submit_encrypt(
+                        m, tenant=MESH_TENANT, params=params)
+                        for m in msgs[MESH_TENANT]]}
+            mesh.flush()
+            rows = {lane: [mesh.result(r) for r in rs]
+                    for lane, rs in rids.items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            bad = 0
+            for lane, svc in solo.items():
+                svc.client.nonce = base[lane]
+                bad += _mesh_rows_differ(rows[lane],
+                                         svc.encrypt_many(msgs[lane]))
+            return dt, bad, rows, msgs
+
+        # (a) twice: the first flush waits for each worker's client build
+        first_s, bad, _, _ = enc_round(SEED + 20)
+        differ += bad
+        a_s, bad, rows, msgs = enc_round(SEED + 22)
+        differ += bad
+        n_a = MESH_ENC + MESH_ENC_TENANT
+        out["a"] = {"requests": n_a, "first_flush_s": first_s,
+                    "flush_s": a_s, "requests_per_s": n_a / a_s,
+                    "differing_words": differ}
+        print(f"mesh (a): {MESH_WORKERS} workers on one card, {MESH_ENC} "
+              f"encrypts default lane + {MESH_ENC_TENANT} tenant "
+              f"{MESH_TENANT!r}: first flush {first_s:.2f} s (the workers' "
+              f"client builds), then {a_s * 1e3:.1f} ms host clock: "
+              f"{n_a / a_s:.1f} requests/s; {differ} differing words against "
+              f"the solo service from each lane's lease base  [{card}]",
+              flush=True)
+        if differ:
+            _fail(f"mesh encrypts differ from the solo service: {differ} "
+                  f"words")
+
+        # where the round's time goes: one chunk of 16 results through the
+        # transport's host steps, each timed alone (host clock, median of 3)
+        out["a"]["chunk16_host_ms"] = _mesh_transport_ms(
+            rows["default"][:16], mesh, dev)
+        print(f"mesh (a): one chunk of 16 results, host clock by step (ms): "
+              f"{out['a']['chunk16_host_ms']}  [{card}]", flush=True)
+
+        # (b) kind-1 decrypts of 2-limb views, kind-2 seeded decrypts
+        client = solo["default"].client
+        ctx = client.ctx
+        wb = mesh.telemetry.wire_bytes
+
+        def sent(kind):
+            return sum(wb.value(worker=w, kind=kind, dir="send")
+                       for w in mesh.workers)
+
+        sent0 = {k: sent(k) for k in (wire.KIND_CT_BATCH,
+                                      wire.KIND_CT_SEEDED)}
+        full = [rows["default"][i] for i in range(MESH_DEC_FULL)]
+        z_s = _messages(ns, MESH_DEC_SEEDED, SEED + 24)
+        seeded = [encryptor.encrypt_symmetric_seeded(
+            encoder.encode(z, ctx, n_limbs=2, device=dev), client.keys.sk,
+            ctx, seed=client.seed, nonce=SEEDED_NONCE + 1 + i)
+            for i, z in enumerate(z_s)]
+        rids = [mesh.submit_decrypt((ct.c0[:2], ct.c1[:2], ct.scale))
+                for ct in full] + [mesh.submit_decrypt(s) for s in seeded]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.flush()
+        b_s = time.perf_counter() - t0
+        got = [mesh.result(r) for r in rids]
+        direct = [client.decrypt_decode_batch(
+            CiphertextBatch.from_cts([ct]).truncated(2))[0] for ct in full]
+        direct += [client.decrypt_decode_batch(CiphertextBatch.from_cts(
+            [encryptor.expand_seeded(s, ctx, seed=client.seed)]))[0]
+            for s in seeded]
+        bad_dec = sum(not np.array_equal(g, d) for g, d in zip(got, direct))
+        want = np.concatenate([msgs["default"][:MESH_DEC_FULL], z_s])
+        bits = encoder.boot_precision_bits(want, np.stack(got))
+        per = {"kind1": (sent(wire.KIND_CT_BATCH)
+                         - sent0[wire.KIND_CT_BATCH]) / MESH_DEC_FULL,
+               "kind2": (sent(wire.KIND_CT_SEEDED)
+                         - sent0[wire.KIND_CT_SEEDED]) / MESH_DEC_SEEDED}
+        ratio = per["kind2"] / per["kind1"]
+        recv_enc = sum(wb.value(worker=w, kind=wire.KIND_CT_BATCH,
+                                dir="recv") for w in mesh.workers)
+        sent_enc = sum(wb.value(worker=w, kind=wire.KIND_RESULT, dir="send")
+                       for w in mesh.workers)
+        n_enc_total = 2 * n_a
+        out["b"] = {"decrypts": len(rids), "flush_s": b_s,
+                    "differ_from_direct": bad_dec, "precision_bits": bits,
+                    "submit_bytes_per_request": {
+                        "enc_kind3": sent_enc / n_enc_total,
+                        "dec_kind1": per["kind1"],
+                        "dec_kind2": per["kind2"]},
+                    "enc_result_bytes_per_request": recv_enc / n_enc_total,
+                    "kind2_over_kind1": ratio,
+                    "wire": mesh.stats()["wire"]}
+        print(f"mesh (b): {MESH_DEC_FULL} kind-1 decrypts (truncated(2)) + "
+              f"{MESH_DEC_SEEDED} seeded kind-2 in {b_s * 1e3:.1f} ms: "
+              f"{bad_dec} differ from the direct decrypt_decode_batch, "
+              f"{bits:.2f} bits (bar {BOOT_PREC_BITS}); submit bytes per "
+              f"request: encrypt (kind 3) {sent_enc / n_enc_total:.0f}, "
+              f"decrypt kind 1 {per['kind1']:.0f}, kind 2 "
+              f"{per['kind2']:.0f} ({ratio:.4f} of kind 1); encrypt result "
+              f"(kind 1) {recv_enc / n_enc_total:.0f} B/request; wire "
+              f"totals {out['b']['wire']}  [{card}]", flush=True)
+        if bad_dec:
+            _fail(f"mesh decrypts differ from the direct path: {bad_dec}")
+        if not bits >= BOOT_PREC_BITS:
+            _fail(f"mesh round-trip precision {bits} < {BOOT_PREC_BITS}")
+        if not 0.49 <= ratio <= 0.51:
+            _fail(f"a kind-2 submit is {ratio:.4f} of a kind-1 submit, not "
+                  f"half")
+
+        # (c) the evaluation-key broadcast: the router byte-compares the
+        # workers' replies; they must equal this process's own keys
+        recv0 = sum(wb.value(worker=w, kind=wire.KIND_EVAL_KEYS,
+                             dir="recv") for w in mesh.workers)
+        t0 = time.perf_counter()
+        keys = mesh.evaluation_keys(rotations=(), include_relin=True)
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        key_bytes = (sum(wb.value(worker=w, kind=wire.KIND_EVAL_KEYS,
+                                  dir="recv") for w in mesh.workers)
+                     - recv0) / MESH_WORKERS
+        t0 = time.perf_counter()
+        ours = client.make_evaluation_keys((), include_relin=True,
+                                           seed=client.seed)
+        torch.cuda.synchronize()
+        local_s = time.perf_counter() - t0
+        same = wire.serialize_evaluation_keys(keys) == \
+            wire.serialize_evaluation_keys(ours)
+        del keys, ours
+        out["c"] = {"broadcast_s": c_s,
+                    "local_keygen_s": local_s,
+                    "reply_bytes_per_worker": key_bytes,
+                    "equal_to_local": same}
+        print(f"mesh (c): evaluation keys (relin only) from "
+              f"{MESH_WORKERS} workers byte-identical (checked by the "
+              f"router), == this process's make_evaluation_keys: {same}; "
+              f"broadcast {c_s:.2f} s host clock ({key_bytes:.0f} B a "
+              f"worker), local keygen {local_s:.2f} s  [{card}]",
+              flush=True)
+        if not same:
+            _fail("mesh evaluation keys differ from the local client's")
+
+        # no worker may have died on its own: a worker that failed to build
+        # its client on the card must fail the run, not be recovered from
+        if mesh.alive_workers != list(range(MESH_WORKERS)) or \
+                mesh.events.replay(kind="worker_failed"):
+            _fail(f"a mesh worker died before the deliberate kill: alive "
+                  f"{mesh.alive_workers}, events "
+                  f"{[e.detail for e in mesh.events.replay()]}")
+
+        # (d) a worker killed with chunks outstanding
+        msgs_d = _messages(ns, MESH_ENC_KILL, SEED + 25)
+        base = mesh.ledger.watermark(params.seed)
+        rids = [mesh.submit_encrypt(m) for m in msgs_d]
+        mesh._pump()
+        victim = max((w for w in mesh.workers.values() if w.alive),
+                     key=lambda w: (w.outstanding, w.id))
+        outstanding = victim.outstanding
+        mesh.kill_worker(victim.id)
+        mesh.flush()
+        rows_d = [mesh.result(r) for r in rids]
+        solo["default"].client.nonce = base
+        bad_d = _mesh_rows_differ(rows_d,
+                                  solo["default"].encrypt_many(msgs_d))
+        st = mesh.stats()
+        failed = mesh.events.replay(kind="worker_failed")
+        out["d"] = {"victim": victim.id, "outstanding": outstanding,
+                    "requeues": st["requeues"], "worker_failed": len(failed),
+                    "differing_words": bad_d}
+        print(f"mesh (d): worker {victim.id} killed with {outstanding} "
+              f"chunks outstanding: {st['requeues']} requeued under their "
+              f"leases, {len(failed)} worker_failed event, alive "
+              f"{st['alive_workers']}; {bad_d} differing words against the "
+              f"solo service  [{card}]", flush=True)
+        if bad_d or st["requeues"] < 1 or len(failed) != 1 \
+                or st["failed_requests"]:
+            _fail(f"mesh recovery: {bad_d} differing words, "
+                  f"{st['requeues']} requeues, {len(failed)} worker "
+                  f"failures, {st['failed_requests']} failed requests")
+        out["startup_s"] = {str(k): v for k, v in st["startup_s"].items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh: workers from spawn to HELLO / to their first result "
+          + ", ".join(f"{k}: {v['hello']:.2f} / {v['first_reply']:.2f} s"
+                      for k, v in out["startup_s"].items())
+          + f"; phase {out['phase_s']:.1f} s  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2502,6 +2852,9 @@ def main() -> int:
     # --- 10. the client service: K5 / K6 on two CUDA streams ---------------
     service = _service_phase(dev, card)
     print(json.dumps({"service": service}), flush=True)
+
+    # --- 11. the service mesh: K5 / K6 in two worker processes -------------
+    print(json.dumps({"mesh": _mesh_phase(dev, card)}), flush=True)
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params

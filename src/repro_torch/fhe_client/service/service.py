@@ -120,6 +120,9 @@ class ClientService:
     ``devices``          — the devices the streams run on (default: every
                            CUDA device, or the client's own device when the
                            client is on the CPU).
+    ``nonce_authority``  — ``(lane, count) -> base``: every nonce lease
+                           comes from it, not from the lane's client (a
+                           mesh worker's router-granted ranges).
     """
 
     def __init__(self, client: FHEClient | None = None, profile="test",
@@ -134,7 +137,8 @@ class ClientService:
                  registry: KeyContextRegistry | None = None,
                  tenant_capacity: int = 4,
                  telemetry: ServiceTelemetry | bool | None = None,
-                 trace_capacity: int = 4096, trace_sample_every: int = 1):
+                 trace_capacity: int = 4096, trace_sample_every: int = 1,
+                 nonce_authority=None):
         if backpressure not in ("block", "reject"):
             raise ValueError(f"backpressure must be 'block' or 'reject', "
                              f"got {backpressure!r}")
@@ -180,6 +184,12 @@ class ClientService:
             heartbeat_timeout=(job_timeout_s or 3600.0) * 8,
             straggler_factor=straggler_factor,
             patience=straggler_patience, clock=now)
+        # External nonce authority seam: ``(lane, count) -> base``. When
+        # set, ``_take_nonces`` delegates every lease to it instead of
+        # advancing the lane client's counter / local ledger — the mesh
+        # worker path, where nonce ranges are granted centrally by the
+        # router so retries across workers stay under ONE lease.
+        self.nonce_authority = nonce_authority
         self.max_retries = int(max_retries)
         self.queue_capacity = queue_capacity
         self.backpressure = backpressure
@@ -285,7 +295,15 @@ class ClientService:
 
     def _take_nonces(self, lane, count: int) -> int:
         """The single nonce authority: advance the lane client's counter
-        and record the lease in the shared ledger (overlap => raise)."""
+        and record the lease in the shared ledger (overlap => raise).
+
+        Under an external ``nonce_authority`` (a mesh worker: the ROUTER
+        owns the ledger and grants ranges per dispatched chunk) the local
+        counter and ledger are bypassed entirely — a chunk retried on a
+        different worker must reuse its original base without a local
+        ledger calling that reuse a rewind."""
+        if self.nonce_authority is not None:
+            return int(self.nonce_authority(lane, count))
         if lane is None:
             base = self.client.take_nonces(count)
             self.registry.ledger.lease(self.client.seed, base, count)

@@ -22,9 +22,15 @@
     ``fhe_client/service/{scheduler,runtime,service}.py`` (a launch that
     raises marks its stream dead and re-queues the job; a crashed loop
     thread is recorded; a failed materialize retries on a surviving
-    stream), none of which calls a plain version or names the CPU;
-  * the client service has no hidden device: ``stream_groups()`` and
-    ``ClientService()`` raise without CUDA.
+    stream), and the mesh's, in ``fhe_client/service/{mesh,worker}.py``
+    (a worker's socket that fails marks it dead and re-sends its chunks to
+    a survivor; a failed start-up kills the workers it started; a worker
+    answers a failed chunk with an error frame), none of which calls a
+    plain version or names the CPU;
+  * the client service has no hidden device: ``stream_groups()``,
+    ``ClientService()`` and ``MeshRouter()`` raise without CUDA, and a
+    router given no device starts its workers on the card;
+  * the port's ``fhe_client.service`` exports the reference's names.
 """
 
 import ast
@@ -87,17 +93,36 @@ def test_scans_cover_server_modules():
             "repro_torch.fhe_client.service.batcher",
             "repro_torch.fhe_client.service.scheduler",
             "repro_torch.fhe_client.service.runtime",
-            "repro_torch.fhe_client.service.service"} <= names
+            "repro_torch.fhe_client.service.service",
+            "repro_torch.fhe_client.service.mesh",
+            "repro_torch.fhe_client.service.worker"} <= names
 
 
-# The only ``try`` statements of the port: the client service's failure
-# story, (file, enclosing function) -> handlers allowed there. A handler
-# may re-queue, mark a stream failed, record or re-raise.
+# The only ``try`` statements of the port: the client service's and the
+# mesh's failure story, (file, enclosing function) -> handlers allowed
+# there. A handler may re-queue, mark a stream or a worker failed, record,
+# clean up or re-raise.
 SERVICE_TRY = {
     ("fhe_client/service/scheduler.py", "dispatch"): 1,
     ("fhe_client/service/scheduler.py", "relaunch"): 1,
     ("fhe_client/service/runtime.py", "run"): 1,
     ("fhe_client/service/service.py", "_run_job"): 2,
+    # a HELLO that never comes; a failed start-up kills its workers
+    ("fhe_client/service/mesh.py", "_spawn_workers"): 2,
+    # a dead worker's socket; a worker that will not exit is killed
+    ("fhe_client/service/mesh.py", "close"): 2,
+    # no survivor; a send that fails marks its worker dead
+    ("fhe_client/service/mesh.py", "_send_chunk"): 3,
+    ("fhe_client/service/mesh.py", "_pump"): 1,
+    ("fhe_client/service/mesh.py", "_worker_died"): 1,
+    # a malformed reply fails its chunk's requests
+    ("fhe_client/service/mesh.py", "_handle_reply"): 1,
+    ("fhe_client/service/mesh.py", "_service_conn"): 1,
+    # a failed chunk is answered with an error frame
+    ("fhe_client/service/worker.py", "serve"): 1,
+    # the reader marks the end of the stream, however it ends
+    ("fhe_client/service/worker.py", "_read_frames"): 1,
+    ("fhe_client/service/worker.py", "main"): 1,
 }
 SERVICE_TRY_FILES = sorted({f for f, _fn in SERVICE_TRY})
 
@@ -122,8 +147,8 @@ def _tries_by_function(path: Path) -> dict:
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: _module_name(p))
 def test_no_try_statement_in_source(path):
-    """No ``try`` anywhere in the port but the service's five handlers, each
-    in the function the failure story puts it in."""
+    """No ``try`` anywhere in the port but the service's five handlers and
+    the mesh's, each in the function the failure story puts it in."""
     rel = path.relative_to(PORT).as_posix()
     for fn, tries in _tries_by_function(path).items():
         allowed = SERVICE_TRY.get((rel, fn), 0)
@@ -133,10 +158,10 @@ def test_no_try_statement_in_source(path):
 
 @pytest.mark.parametrize("rel", SERVICE_TRY_FILES)
 def test_service_try_handlers_never_fall_back(rel):
-    """The service's handlers are the five named ones and no handler body
-    calls a ``*_plain`` function or mentions the CPU: a failure marks a
-    stream dead, re-queues, records or re-raises — it never moves work to
-    a plain version or to the host."""
+    """The service's and the mesh's handlers are the named ones and no
+    handler body calls a ``*_plain`` function or mentions the CPU: a
+    failure marks a stream or a worker dead, re-queues, records or
+    re-raises — it never moves work to a plain version or to the host."""
     path = PORT / rel
     tries = _tries_by_function(path)
     assert {fn: len(t) for fn, t in tries.items()} == {
@@ -153,7 +178,8 @@ def test_service_try_handlers_never_fall_back(rel):
             text = ast.get_source_segment(path.read_text(), handler)
             assert "cpu" not in text.lower(), \
                 f"{path}:{handler.lineno} mentions the CPU in a handler"
-    assert sum(len(t) for t in tries.values()) <= 5
+    assert sum(len(t) for t in tries.values()) <= sum(
+        n for (f, _fn), n in SERVICE_TRY.items() if f == rel)
 
 
 def test_service_entry_points_raise_without_cuda():
@@ -176,6 +202,60 @@ def test_service_entry_points_raise_without_cuda():
                         oversubscribe=True)
     assert [ex.devices for ex in svc.scheduler.streams] == [(cpu,), (cpu,)]
     assert all(ex.streams == (None,) for ex in svc.scheduler.streams)
+    from repro_torch.fhe_client.service import MeshRouter
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshRouter(n_workers=1, profile="tiny")
+
+
+def test_mesh_router_without_device_starts_workers_on_the_card(monkeypatch):
+    """``MeshRouter()`` with no device passes ``--device cuda`` to every
+    worker (never ``--device cpu``) and deserializes results onto the
+    card; ``device='cpu'`` is the caller's explicit request. No worker is
+    started here: the spawn is recorded, not run."""
+    from repro_torch.fhe_client.service import MeshRouter
+    cmds = []
+
+    def spawn(self, n, faults, registry_capacity, timeout_s):
+        cmds.extend(self._worker_cmd(wid, 1234, registry_capacity,
+                                     faults.get(wid)) for wid in range(n))
+
+    monkeypatch.setattr(MeshRouter, "_spawn_workers", spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    router = MeshRouter(n_workers=2, profile="tiny")
+    assert router.device == torch.device("cuda")
+    assert len(cmds) == 2
+    for wid, cmd in enumerate(cmds):
+        assert cmd[1:3] == ["-m", "repro_torch.fhe_client.service.worker"]
+        assert cmd[cmd.index("--worker-id") + 1] == str(wid)
+        assert cmd[cmd.index("--device") + 1] == "cuda"
+        assert "cpu" not in cmd
+    cmds.clear()
+    router = MeshRouter(n_workers=1, profile="tiny", device="cpu")
+    assert cmds[0][cmds[0].index("--device") + 1] == "cpu"
+
+
+def _reference_all(path: Path) -> list:
+    """The ``__all__`` list of a source file, read with ``ast`` (no import
+    of the module, so no JAX)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in {path}")
+
+
+def test_service_exports_match_reference():
+    """The port's ``fhe_client.service.__all__`` is the reference's, name
+    for name, and every name resolves."""
+    import repro_torch.fhe_client.service as port
+    ref = _reference_all(SRC / "repro" / "fhe_client" / "service"
+                         / "__init__.py")
+    assert sorted(port.__all__) == sorted(ref)
+    assert port.__all__ == _reference_all(
+        PORT / "fhe_client" / "service" / "__init__.py")
+    for name in port.__all__:
+        assert getattr(port, name) is not None
 
 
 def test_import_with_jax_poisoned():
