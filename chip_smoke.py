@@ -141,11 +141,30 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      workers' launches are in their own processes, which this process's
      counters do not see: the phase prints its own JSON line, with each
      worker's time from spawn to HELLO and to its first result;
- 12. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 12. the LM substrate's serving path (``repro_torch.models``, the serving
+     engine, the serve launcher, the private-inference loop), random
+     weights from a CUDA generator: (a) the private-inference loop
+     (``fhe_client.private_inference.run``) at qwen2-vl-2b's full width
+     and depth (28 layers, d_model 1536, 1.78 B params), x (2, 24,576) at
+     ``paper`` through ``ClientService(buckets=(1, 2, 4, 8))``, counters
+     set to 0 just before and read just after: K5 launches == encrypt
+     jobs, K6 == decrypt jobs, nothing else, round trip < 1e-4 (the
+     reference's assert); the stand-in server's prefill ms, the loop's
+     seconds and the wire bytes up and down; (b) ``launch.serve.serve``
+     on the same model, B=4, prompt 64, 16 tokens: prefill ms and decode
+     tokens/s; (c) ``ServingEngine`` at hymba-1.5b's full size (32 layers,
+     1.64 B params), 4 slots, cache 256, 6 requests of 32-96 tokens, 16
+     new each: all finish, and one request through a 1-slot engine ==
+     a direct prefill + ``decode_step`` loop on the card; (d) each of the
+     10 archs at ``reduced_config``, the same params on the card and on
+     the CPU: prefill logits and 3 decode steps within 3e-2 of the CPU
+     logits' scale (the CPU tests' tolerance), greedy tokens equal where
+     the CPU's top-2 margin exceeds it; prints the phase's JSON line;
+ 13. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
-     service phase's), then, as the last line, ``{"ok": true, "device":
-     ...}``.
+     service phase's and the private-inference loop's), then, as the last
+     line, ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit code and no result line. Needs a CUDA device; without one it exits 2.
@@ -2685,6 +2704,266 @@ def _mesh_phase(dev, card: str) -> dict:
     return out
 
 
+# --- phase 12: the LM substrate's serving path (K5 / K6 in the private-
+# inference loop) -------------------------------------------------------------
+# Full width and depth: qwen2-vl-2b (28 layers, d_model 1536, 12 / 2 heads,
+# vocab 151,936, M-RoPE: 1.78 B params, 7.1 GB in f32) for the loop and the
+# serve launcher, hymba-1.5b (32 layers, attention + SSM heads, SWA 1024 with
+# global layers: 1.64 B params) for the engine. Random weights from a CUDA
+# generator seeded with SEED. The 10 reduced archs hold the card against the
+# CPU at tests/test_torch_models.py's logit tolerance.
+
+LM_VL = "qwen2-vl-2b"
+LM_ENGINE = "hymba-1.5b"
+LM_LOOP = (2, 16)                      # (a) batch, seq: x is (2, 24,576)
+LM_SERVE = (4, 64, 16)                 # (b) batch, prompt, gen
+LM_PROMPTS = (32, 48, 64, 80, 96, 40)  # (c) six requests, 4 slots
+LM_SLOTS, LM_CACHE, LM_NEW = 4, 256, 16
+LM_CHECK = (2, 32, 3)                  # (d) batch, prompt, decode steps
+LM_LOGIT_TOL = 3e-2                    # of max |CPU logits|
+
+
+def _free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_card_vs_cpu(dev, card: str) -> dict:
+    """(d) each reduced arch's prefill logits and LM_CHECK[2] decode steps
+    on the card == on the CPU, same params (drawn on the CPU, copied)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.archs import ARCHS, get_arch, reduced_config
+
+    batch, prompt, steps = LM_CHECK
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    for name in sorted(ARCHS):
+        cfg = reduced_config(get_arch(name))
+        params = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               device=cpu)
+        on_card = M.tree_map(lambda t: t.to(dev), params)
+        data = synth_batch(cfg, 0, batch, prompt + steps, SEED)
+        key = "embeds" if cfg.frontend else "tokens"
+        sides = {"cpu": (cpu, params), "card": (dev, on_card)}
+        logits = {side: [] for side in sides}
+        caches = {}
+        for side, (where, p) in sides.items():
+            pre = {k: torch.as_tensor(v[:, :prompt], device=where)
+                   for k, v in data.items() if k != "labels"}
+            lg, caches[side] = M.prefill(p, pre, cfg,
+                                         cache_len=prompt + steps,
+                                         q_chunk=32, kv_chunk=32)
+            logits[side].append(lg)
+        for i in range(steps):
+            if cfg.frontend:
+                step = data["embeds"][:, prompt + i: prompt + i + 1]
+            else:    # both sides take the CPU's greedy token
+                step = logits["cpu"][-1][:, -1, : cfg.vocab].argmax(
+                    -1, keepdim=True).numpy()
+            for side, (where, p) in sides.items():
+                lg, caches[side] = M.decode_step(
+                    p, caches[side], {key: torch.as_tensor(step,
+                                                           device=where)},
+                    prompt + i, cfg)
+                logits[side].append(lg)
+        worst, checked = 0.0, 0
+        for a, b in zip(logits["cpu"], logits["card"]):
+            a = a[:, -1, : cfg.vocab].float().numpy()
+            b = b[:, -1, : cfg.vocab].float().cpu().numpy()
+            if not (np.isfinite(b).all() and b.shape == a.shape):
+                _fail(f"card logits of {name} not finite or of shape "
+                      f"{b.shape}")
+            rel = float(np.abs(a - b).max() / np.abs(a).max())
+            worst = max(worst, rel)
+            top = np.sort(a, -1)
+            clear = top[:, -1] - top[:, -2] > LM_LOGIT_TOL * np.abs(a).max()
+            if (a.argmax(-1) != b.argmax(-1))[clear].any():
+                _fail(f"{name}: greedy tokens differ between card and CPU "
+                      f"where the CPU's margin is clear")
+            checked += int(clear.sum())
+        if worst > LM_LOGIT_TOL:
+            _fail(f"{name}: card logits {worst:.3g} of max |CPU| away "
+                  f"(tolerance {LM_LOGIT_TOL})")
+        out[name] = {"max_rel_diff": worst, "greedy_checked": checked}
+        del params, on_card, sides, logits, caches
+    torch.set_num_threads(threads)
+    print("lm (d) card vs CPU, reduced archs (max |card - cpu| / max |cpu| "
+          "over prefill and 3 decodes; tolerance "
+          f"{LM_LOGIT_TOL}): " + ", ".join(
+              f"{n} {v['max_rel_diff']:.4f}" for n, v in out.items())
+          + f"  [{card}]", flush=True)
+    return out
+
+
+def _lm_phase(dev, card: str) -> dict:
+    """Phase 12: (a) the private-inference loop through the client service
+    at qwen2-vl-2b's full size, counters set to 0 just before and read just
+    after; (b) ``launch.serve.serve`` on the same model; (c) the serving
+    engine at hymba-1.5b's full size; (d) the card against the CPU on the
+    10 reduced archs. Returns (K5 / K6 launches of (a), the numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.fhe_client import private_inference as pi
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.archs import get_arch
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the private-inference loop
+    cfg = get_arch(LM_VL)
+    batch, seq = LM_LOOP
+    client = FHEClient(MAIN_PROFILE, seed=SEED, device=dev)
+    # a first run pays the card's one-time costs (lazy kernel loading,
+    # cuBLAS handles); the second is the one counted and checked
+    _, cold = pi.run(cfg, MAIN_PROFILE, batch=batch, seq=seq, seed=SEED,
+                     device=dev, client=client)
+    _free_card()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    y, st = pi.run(cfg, MAIN_PROFILE, batch=batch, seq=seq, seed=SEED,
+                   device=dev, client=client)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    k5, k6 = (launches["encode_encrypt_stream"],
+              launches["decrypt_decode_stream"])
+    others = {k: v for k, v in launches.items() if v and k not in (
+        "encode_encrypt_stream", "decrypt_decode_stream")}
+    if k5 != st["jobs"]["enc"] or k6 != st["jobs"]["dec"] or others:
+        _fail(f"private-inference launches {launches} != jobs {st['jobs']}")
+    if not k5 or not k6:
+        _fail("the private-inference loop launched no K5 or no K6")
+    if not st["roundtrip_err"] < pi.ROUNDTRIP_BOUND:
+        _fail(f"private-inference round trip {st['roundtrip_err']} >= "
+              f"{pi.ROUNDTRIP_BOUND}")
+    if y.shape != (batch, cfg.d_model) or not np.isfinite(y).all():
+        _fail(f"served output of shape {y.shape} or not finite")
+    out["private_inference"] = {
+        "arch": LM_VL, "params": cfg.param_count(), "x": [batch,
+                                                          seq * cfg.d_model],
+        "profile": MAIN_PROFILE, "roundtrip_err": st["roundtrip_err"],
+        "server_prefill_ms": st["serve_s"][0] * 1e3, "loop_s": st["loop_s"],
+        "first_run": {"server_prefill_ms": cold["serve_s"][0] * 1e3,
+                      "loop_s": cold["loop_s"]},
+        "jobs": st["jobs"], "launches": {"encode_encrypt_stream": k5,
+                                         "decrypt_decode_stream": k6},
+        "upload_bytes": st["upload_bytes"],
+        "download_bytes": st["download_bytes"]}
+    print(f"lm (a) private inference, {LM_VL} full ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params), "
+          f"x ({batch}, {seq * cfg.d_model}), {MAIN_PROFILE} via the "
+          f"service: round trip {st['roundtrip_err']:.3e} (bound "
+          f"{pi.ROUNDTRIP_BOUND}); server prefill {st['serve_s'][0] * 1e3:.2f}"
+          f" ms (host clock, with its H2D / D2H); loop {st['loop_s']:.3f} s "
+          f"(first run: {cold['serve_s'][0] * 1e3:.2f} ms, "
+          f"{cold['loop_s']:.3f} s); "
+          f"K5 {k5} / K6 {k6} launches == jobs {st['jobs']}; wire "
+          f"{st['upload_bytes']} B up, {st['download_bytes']} B down  "
+          f"[{card}]", flush=True)
+    del y, st, cold, client
+    _free_card()
+
+    # (b) the serve launcher on the same model
+    b, prompt, gen = LM_SERVE
+    toks, sst = serve.serve(cfg, b, prompt, gen, seed=SEED, device=dev)
+    if toks.shape != (b, gen) or not ((0 <= toks) & (toks < cfg.vocab)).all():
+        _fail(f"serve returned tokens of shape {toks.shape} or out of range")
+    out["serve"] = {"arch": LM_VL, "batch": b, "prompt_len": prompt,
+                    "gen": gen, "prefill_ms": sst["prefill_s"] * 1e3,
+                    "decode_s": sst["decode_s"],
+                    "decode_tok_per_s": sst["tok_per_s"]}
+    print(f"lm (b) serve {LM_VL} full, batch {b}, prompt {prompt}, gen "
+          f"{gen}: prefill {sst['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{sst['tok_per_s']:.1f} tokens/s ({gen - 1} steps in "
+          f"{sst['decode_s']:.3f} s; host clock, synchronized)  [{card}]",
+          flush=True)
+    _free_card()
+
+    # (c) the serving engine at hymba-1.5b's full size
+    hcfg = get_arch(LM_ENGINE)
+    params = M.init_params(hcfg, torch.Generator(device=dev)
+                           .manual_seed(SEED), device=dev)
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, hcfg.vocab, n, dtype=np.int32)
+               for n in LM_PROMPTS]
+    eng = ServingEngine(hcfg, params, slots=LM_SLOTS, cache_len=LM_CACHE,
+                        device=dev)
+    reqs = [Request(rid=i, tokens=p, max_new=LM_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while steps < 8 * LM_NEW and (eng.step() or eng.queue):
+        steps += 1
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+        _fail(f"engine: {sum(not r.done for r in reqs)} of {len(reqs)} "
+              f"requests unfinished after {steps} steps")
+    new_tokens = sum(len(r.out) for r in reqs)
+    # one request through a 1-slot engine == a direct prefill + decode loop
+    one = Request(rid=0, tokens=prompts[0], max_new=LM_NEW)
+    solo = ServingEngine(hcfg, params, slots=1, cache_len=LM_CACHE,
+                         device=dev)
+    solo.submit(one)
+    solo.run(max_steps=4 * LM_NEW)
+    lg, cache = M.prefill(params, {"tokens": torch.as_tensor(
+        prompts[0], device=dev)[None]}, hcfg, cache_len=LM_CACHE,
+        q_chunk=64, kv_chunk=64)
+    direct = [int(torch.argmax(lg[0, -1, : hcfg.vocab]))]
+    for i in range(LM_NEW - 1):
+        lg, cache = M.decode_step(params, cache, {"tokens": torch.tensor(
+            [[direct[-1]]], device=dev)}, len(prompts[0]) + i, hcfg)
+        direct.append(int(torch.argmax(lg[0, -1, : hcfg.vocab])))
+    if one.out != direct:
+        _fail(f"engine tokens {one.out} != direct decode {direct}")
+    # where a step's time goes: device busy share and top device kernels
+    rows = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+    cache = M.zeros_cache(M.cache_spec(hcfg, LM_SLOTS, LM_CACHE, 1), dev)
+    _profile(lambda: M.decode_step(params, cache, {"tokens": rows},
+                                   LM_PROMPTS[2], hcfg), 3,
+             f"{LM_ENGINE} decode_step, {LM_SLOTS} rows  [{card}]")
+    prompt = torch.as_tensor(prompts[2], device=dev)[None]
+    _profile(lambda: M.prefill(params, {"tokens": prompt}, hcfg,
+                               cache_len=LM_CACHE, q_chunk=64, kv_chunk=64),
+             2, f"{LM_ENGINE} prefill, {len(prompts[2])} tokens  [{card}]")
+    out["engine"] = {"arch": LM_ENGINE, "params": n_params,
+                     "slots": LM_SLOTS, "cache_len": LM_CACHE,
+                     "prompts": list(LM_PROMPTS), "max_new": LM_NEW,
+                     "steps": steps, "engine_s": engine_s,
+                     "new_tokens_per_s": new_tokens / engine_s,
+                     "solo_equals_direct": True}
+    print(f"lm (c) engine {LM_ENGINE} full ({hcfg.n_layers} layers, "
+          f"{n_params / 1e9:.2f} B params), {LM_SLOTS} slots, cache "
+          f"{LM_CACHE}, {len(prompts)} requests (prompts "
+          f"{'/'.join(map(str, LM_PROMPTS))}, {LM_NEW} new each): all "
+          f"finished in {steps} steps, {engine_s:.3f} s, "
+          f"{new_tokens / engine_s:.1f} new tokens/s (host clock, "
+          f"synchronized); a request through one slot == direct decode, "
+          f"{LM_NEW} tokens  [{card}]", flush=True)
+    del params, eng, solo, cache, lg
+    _free_card()
+
+    # (d) card against CPU, the 10 reduced archs
+    out["card_vs_cpu"] = _lm_card_vs_cpu(dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm phase {out['phase_s']:.1f} s  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2856,6 +3135,11 @@ def main() -> int:
     # --- 11. the service mesh: K5 / K6 in two worker processes -------------
     print(json.dumps({"mesh": _mesh_phase(dev, card)}), flush=True)
 
+    # --- 12. the LM substrate: the private-inference loop (K5 / K6) --------
+    lm = _lm_phase(dev, card)
+    print(json.dumps({"lm": lm}), flush=True)
+    lm_launches = lm["private_inference"]["launches"]
+
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
     ctx = mc.ctx
@@ -2978,15 +3262,18 @@ def main() -> int:
     kernels = [
         entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
               "client_stream.py:96", mega_launches["encode_encrypt_stream"]
-              + service["encode_encrypt_stream"]),
+              + service["encode_encrypt_stream"]
+              + lm_launches["encode_encrypt_stream"]),
         entry("decrypt_decode_stream", "K6", "decrypt_decode.cu",
               "client_stream.py:200", mega_launches["decrypt_decode_stream"]
-              + service["decrypt_decode_stream"]),
+              + service["decrypt_decode_stream"]
+              + lm_launches["decrypt_decode_stream"]),
     ]
     for k in kernels:
         k.update(_device_kernel_fields(dkernels[k["name"], MAIN_BATCH]))
         k["launches_by_path"] = {"megakernel": mega_launches[k["name"]],
-                                 "service": service[k["name"]]}
+                                 "service": service[k["name"]],
+                                 "private_inference": lm_launches[k["name"]]}
         at_batch_1(k)
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),

@@ -1,0 +1,13 @@
+"""Config for ``codeqwen1.5-7b`` (--arch codeqwen1.5-7b). Exact public numbers; see
+repro_torch.models.archs for the registry entry and source citation."""
+
+from repro_torch.models.archs import CODEQWEN_7B as _CFG
+from repro_torch.models.archs import reduced_config
+
+
+def config():
+    return _CFG
+
+
+def smoke_config():
+    return reduced_config(_CFG)

@@ -1,0 +1,13 @@
+"""Config for ``musicgen-medium`` (--arch musicgen-medium). Exact public numbers; see
+repro_torch.models.archs for the registry entry and source citation."""
+
+from repro_torch.models.archs import MUSICGEN_MEDIUM as _CFG
+from repro_torch.models.archs import reduced_config
+
+
+def config():
+    return _CFG
+
+
+def smoke_config():
+    return reduced_config(_CFG)

@@ -29,7 +29,10 @@
     plain version or names the CPU;
   * the client service has no hidden device: ``stream_groups()``,
     ``ClientService()`` and ``MeshRouter()`` raise without CUDA, and a
-    router given no device starts its workers on the card;
+    router given no device starts its workers on the card; nor has the LM
+    substrate: ``init_params``, ``params_from_numpy``, ``ServingEngine``,
+    ``serve``, ``private_inference.run`` and the two CLIs raise without
+    CUDA unless given ``device='cpu'``;
   * the port's ``fhe_client.service`` exports the reference's names.
 """
 
@@ -96,6 +99,19 @@ def test_scans_cover_server_modules():
             "repro_torch.fhe_client.service.service",
             "repro_torch.fhe_client.service.mesh",
             "repro_torch.fhe_client.service.worker"} <= names
+
+
+def test_scans_cover_lm_modules():
+    """The LM substrate's modules are in the no-jax / no-try scans."""
+    names = {_module_name(p) for p in MODULES}
+    lm = {f"repro_torch.models.{m}" for m in (
+        "config", "archs", "tuning", "layers", "mla", "moe", "ssm", "model")}
+    lm |= {"repro_torch.configs.shapes", "repro_torch.data.pipeline",
+           "repro_torch.serving.engine", "repro_torch.launch.serve",
+           "repro_torch.fhe_client.private_inference"}
+    lm |= {f"repro_torch.configs.{p.stem}"
+           for p in (SRC / "repro" / "configs").glob("*.py")}
+    assert lm <= names
 
 
 # The only ``try`` statements of the port: the client service's and the
@@ -291,6 +307,37 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         FHEClient("tiny")
+
+
+def test_lm_entry_points_raise_without_cuda():
+    """The LM substrate's entry points run on the card unless the caller
+    passes device='cpu': without CUDA each raises, the two CLIs too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.fhe_client import private_inference
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.archs import get_arch, reduced_config
+    from repro_torch.serving.engine import ServingEngine
+    cfg = reduced_config(get_arch("h2o-danube-3-4b"))
+    gen = torch.Generator()
+    params = M.init_params(cfg, gen, device="cpu")
+    calls = {
+        "init_params": lambda: M.init_params(cfg, gen),
+        "params_from_numpy": lambda: M.params_from_numpy(
+            {"w": np.zeros(2, np.float32)}),
+        "ServingEngine": lambda: ServingEngine(cfg, params),
+        "serve": lambda: serve.serve(cfg, 1, 4, 2),
+        "private_inference.run": lambda: private_inference.run(
+            reduced_config(get_arch("qwen2-vl-2b")), "tiny"),
+        "serve CLI": lambda: serve.main(["--smoke"]),
+        "private_inference CLI": lambda: private_inference.main([]),
+    }
+    for what, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="generator"):
+        M.init_params(cfg, gen, device="meta")
 
 
 _CORES = {
