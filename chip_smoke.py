@@ -160,7 +160,25 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      the CPU: prefill logits and 3 decode steps within 3e-2 of the CPU
      logits' scale (the CPU tests' tolerance), greedy tokens equal where
      the CPU's top-2 margin exceeds it; prints the phase's JSON line;
- 13. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 13. the LM substrate's training path (``repro_torch.training``,
+     ``launch.train``, ``distributed.checkpoint``; it reaches no kernel of
+     the port: every launch counter, set to 0 just before, must read 0
+     just after): (a) ``launch.train`` as ``launch.train_lm`` drives it,
+     mamba2-130m full (24 layers, d_model 768), batch 8 x 512, micro 2,
+     ``--compress``, 8-bit AdamW, 20 steps: step ms and tokens/s; then 10
+     steps without ``--compress``, ``--resume`` to 19, against 19 straight
+     in another directory: the losses of steps 10-18 and the final
+     checkpoints, bit-identical or their largest difference (loss within
+     1e-3 of its scale); (b) qwen2-vl-2b full (1.78 B params), batch 4 x
+     512, micro 2, remat, 8-bit AdamW lr 1e-3 warmup 5, 10 steps on one
+     batch: the loss must fall by > 0.1; step ms, tokens/s, peak memory,
+     a profile of one step; (c) each of the 10 archs at
+     ``reduced_config``, the same params on the card and on the CPU:
+     ``train_fwd`` gradients within 3e-2 of each leaf's CPU scale, every
+     one finite, and one train step (8-bit, micro 2, compress) within
+     2.01 lr of the CPU's, at most 2 % of the entries stepping otherwise;
+     prints the phase's JSON line;
+ 14. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
      service phase's and the private-inference loop's), then, as the last
@@ -2964,6 +2982,256 @@ def _lm_phase(dev, card: str) -> dict:
     return out
 
 
+# --- phase 13: the LM substrate's training path ------------------------------
+# (a) the training launcher as examples/train_lm.py drives it: mamba2-130m
+# full (24 layers, d_model 768), batch 8 x 512, --micro 2 --compress, 8-bit
+# AdamW; then resume without --compress (the reference checkpoints no
+# compression residual): 10 steps, --resume to 19, against 19 straight (the
+# launcher's warmup is steps // 10 + 1: 10 and 19 give 2, 20 would give 3).
+# (b) qwen2-vl-2b full (phase 12's model) on one fixed batch, the system
+# test's settings. (c) the 10 reduced archs' gradients and one train step on
+# the card against the CPU. The path reaches no kernel of the port.
+
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_RUN = (8, 512, 2, 20)            # (a) batch, seq, micro, steps
+TRAIN_RESUME = (10, 19)                # (a) first leg, resumed end
+TRAIN_RESUME_LOSS_TOL = 1e-3           # (a) of the loss, if not bit-equal
+TRAIN_BIG = (4, 512, 2, 10)            # (b) batch, seq, micro, steps
+TRAIN_BIG_ADAM = dict(lr=1e-3, warmup=5)
+TRAIN_CHECK = ((2, 64), (4, 64))       # (c) gradient batch, step batch
+TRAIN_GRAD_TOL = 3e-2                  # (c) of each leaf's max |CPU grad|
+TRAIN_FLIP_SHARE = 2e-2                # (c) entries whose step differs
+
+
+def _host_npz(directory, step: int) -> dict:
+    import numpy as np
+    with np.load(Path(directory) / f"step_{step:08d}" / "host0.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _train_card_vs_cpu(dev, card: str) -> dict:
+    """(c) each reduced arch's ``train_fwd`` gradients and one train step
+    (8-bit, micro 2, compress) on the card == on the CPU, same params."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.archs import ARCHS, get_arch, reduced_config
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    from repro_torch.training import tree as T
+
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    adam = opt.AdamWConfig(**TRAIN_BIG_ADAM)
+    out = {}
+    for name in sorted(ARCHS):
+        cfg = reduced_config(get_arch(name))
+        params = M.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               device=cpu)
+        sides = {"cpu": (cpu, params),
+                 "card": (dev, M.tree_map(lambda t: t.to(dev), params))}
+        grads, news, lrs = {}, {}, {}
+        (gb, gs), (sb, ss) = TRAIN_CHECK
+        for side, (where, p) in sides.items():
+            def on(batch, where=where):
+                return {k: torch.as_tensor(v, device=where)
+                        for k, v in batch.items()}
+            _, g = ts.value_and_grad(p, on(synth_batch(cfg, 0, gb, gs, SEED)),
+                                     cfg, q_chunk=32, kv_chunk=32)
+            grads[side] = [t.cpu().numpy() for t in T.leaves(g)]
+            step = ts.build_train_step(cfg, adam, n_micro=2, compress=True,
+                                       q_chunk=32, kv_chunk=32)
+            p2, _, m, _ = step(p, opt.adamw_init(p, adam),
+                               on(synth_batch(cfg, 0, sb, ss, SEED)),
+                               opt.compress_init(p))
+            news[side] = [t.cpu().numpy() for t in T.leaves(p2)]
+            lrs[side] = float(m["lr"])
+        worst = 0.0
+        for (path, _), a, b in zip(T.flatten_with_path(params), grads["cpu"],
+                                   grads["card"]):
+            where = "/".join(map(str, path))
+            if not np.isfinite(b).all():
+                _fail(f"{name}: card gradient {where} not finite")
+            scale = float(np.abs(a).max())
+            if scale == 0:
+                if np.any(b):
+                    _fail(f"{name}: card gradient {where} not 0 where the "
+                          f"CPU's is")
+                continue
+            worst = max(worst, float(np.abs(a - b).max()) / scale)
+        if worst > TRAIN_GRAD_TOL:
+            _fail(f"{name}: card gradients {worst:.3g} of max |CPU| away "
+                  f"(tolerance {TRAIN_GRAD_TOL})")
+        lr = lrs["cpu"]
+        moved = entries = 0
+        for a, b in zip(news["cpu"], news["card"]):
+            d = np.abs(a.astype(np.float64) - b)
+            if not np.isfinite(b).all() or d.max() > 2.01 * lr:
+                _fail(f"{name}: a card train step's params {d.max() / lr:.3g}"
+                      f" lr from the CPU's (bound 2.01 lr)")
+            moved += int((d > lr / 2).sum())
+            entries += a.size
+        if moved > TRAIN_FLIP_SHARE * entries or lrs["card"] != lr:
+            _fail(f"{name}: {moved} of {entries} entries stepped otherwise "
+                  f"on the card")
+        out[name] = {"grad_max_rel_diff": worst,
+                     "step_entries_moved_otherwise": moved,
+                     "step_entries": entries}
+        del params, sides, grads, news
+    torch.set_num_threads(threads)
+    print("train (c) card vs CPU, reduced archs (gradients: max |card - cpu| "
+          f"/ max |cpu| per leaf, tolerance {TRAIN_GRAD_TOL}; one 8-bit "
+          "compressed step: entries whose step differs > lr/2): " + ", ".join(
+              f"{n} {v['grad_max_rel_diff']:.4f} / "
+              f"{v['step_entries_moved_otherwise']}" for n, v in out.items())
+          + f"  [{card}]", flush=True)
+    return out
+
+
+def _train_phase(dev, card: str) -> dict:
+    """Phase 13: (a) ``launch.train`` at mamba2-130m's full size with
+    train_lm's settings, then a resume against a straight run; (b) 10 train
+    steps of qwen2-vl-2b at full size on one batch: the loss must fall by
+    > 0.1; (c) the card against the CPU on the 10 reduced archs. Every
+    launch counter stays 0: the training path reaches no kernel."""
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.archs import get_arch
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    out = {}
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    _free_card()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+
+    # (a) the launcher, train_lm's flags
+    b, s, micro, n_steps = TRAIN_RUN
+    common = ["--arch", TRAIN_ARCH, "--batch", str(b), "--seq", str(s),
+              "--micro", str(micro), "--ckpt-every", "100",
+              "--log-every", "10", "--device", str(dev)]
+    t0 = time.perf_counter()
+    losses, st = train_cli.run(common + ["--steps", str(n_steps),
+                                         "--compress", "--ckpt-dir",
+                                         str(root / "example")])
+    run_s = time.perf_counter() - t0
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        _fail(f"train (a): losses {losses}")
+    warm = st["step_s"][1:]
+    step_ms = statistics.median(warm) * 1e3
+    out["example"] = {
+        "arch": TRAIN_ARCH, "batch": b, "seq": s, "micro": micro,
+        "compress": True, "steps": n_steps, "first_loss": losses[0],
+        "last_loss": losses[-1], "first_step_ms": st["step_s"][0] * 1e3,
+        "step_ms_median": step_ms, "step_ms_min": min(warm) * 1e3,
+        "tokens_per_s": b * s / (step_ms / 1e3), "run_s": run_s}
+    print(f"train (a) launch.train {TRAIN_ARCH} full, batch {b} x {s}, micro "
+          f"{micro}, --compress, 8-bit AdamW, {n_steps} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.1f} ms "
+          f"(median of steps 1-{n_steps - 1}, min {min(warm) * 1e3:.1f}; "
+          f"first {st['step_s'][0] * 1e3:.1f}), {b * s / (step_ms / 1e3):.0f}"
+          f" tokens/s; run {run_s:.1f} s with init and checkpoint  [{card}]",
+          flush=True)
+    first, end = TRAIN_RESUME
+    r1 = train_cli.main(common + ["--steps", str(first), "--ckpt-dir",
+                                 str(root / "resumed")])
+    r2, st2 = train_cli.run(common + ["--steps", str(end), "--resume",
+                                     "--ckpt-dir", str(root / "resumed")])
+    whole = train_cli.main(common + ["--steps", str(end), "--ckpt-dir",
+                                    str(root / "straight")])
+    if st2["start"] != first or len(r1) + len(r2) != end:
+        _fail(f"train (a): resumed at {st2['start']}, {len(r1)} + {len(r2)}"
+              f" steps")
+    a_ck, b_ck = (_host_npz(root / d, end) for d in ("resumed", "straight"))
+    if list(a_ck) != list(b_ck):
+        _fail("train (a): the two checkpoints name different leaves")
+    same_params = all(a_ck[k].tobytes() == b_ck[k].tobytes() for k in a_ck)
+    loss_diff = max(abs(x - y) for x, y in zip(r2, whole[first:]))
+    param_diff = max(float(np.abs(a_ck[k].astype(np.float64)
+                                  - b_ck[k]).max()) for k in a_ck)
+    bit_equal = same_params and r2 == whole[first:]
+    if not bit_equal and not loss_diff <= TRAIN_RESUME_LOSS_TOL * max(
+            abs(x) for x in whole):
+        _fail(f"train (a): resumed losses {r2} != straight {whole[first:]}")
+    out["resume"] = {"first_leg": first, "end": end, "bit_identical":
+                     bit_equal, "max_loss_diff": loss_diff,
+                     "max_param_or_state_diff": param_diff,
+                     "loss_tol_if_not_bit_equal": TRAIN_RESUME_LOSS_TOL}
+    print(f"train (a) resume, no --compress: {first} steps, --resume to "
+          f"{end}, against {end} straight: losses of steps {first}-{end - 1} "
+          f"and the final params and state "
+          f"{'bit-identical' if bit_equal else 'differ'} (max |loss diff| "
+          f"{loss_diff:.3g}, max |param / state diff| {param_diff:.3g})  "
+          f"[{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    _free_card()
+
+    # (b) qwen2-vl-2b at full size, one fixed batch
+    cfg = get_arch(LM_VL)
+    b, s, micro, n_steps = TRAIN_BIG
+    adam = opt.AdamWConfig(**TRAIN_BIG_ADAM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state, _ = ts.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), adam, device=dev)
+    state_bytes = torch.cuda.memory_allocated(dev)
+    step = ts.build_train_step(cfg, adam, n_micro=micro, q_chunk=s,
+                               kv_chunk=s)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synth_batch(cfg, 0, b, s, SEED).items()}
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        params, state, m, _ = step(params, state, batch, None)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0] - 0.1:
+        _fail(f"train (b): {LM_VL} loss {losses[0]} -> {losses[-1]}, not "
+              f"down by > 0.1")
+    step_ms = statistics.median(times[1:]) * 1e3
+    out["big"] = {
+        "arch": LM_VL, "params": cfg.param_count(), "batch": b, "seq": s,
+        "micro": micro, "remat": True, "steps": n_steps, "losses": losses,
+        "first_step_ms": times[0] * 1e3, "step_ms_median": step_ms,
+        "tokens_per_s": b * s / (step_ms / 1e3),
+        "state_bytes": state_bytes, "peak_bytes": peak}
+    print(f"train (b) {LM_VL} full ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params), batch "
+          f"{b} x {s}, micro {micro}, remat, 8-bit AdamW lr "
+          f"{adam.lr} warmup {adam.warmup}, {n_steps} steps on one batch: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.1f} ms "
+          f"(median of steps 1-{n_steps - 1}; first {times[0] * 1e3:.1f}), "
+          f"{b * s / (step_ms / 1e3):.0f} tokens/s; params + state "
+          f"{state_bytes / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated)  [{card}]", flush=True)
+    _profile(lambda: step(params, state, batch, None), 1,
+             f"{LM_VL} train step, batch {b} x {s}, micro {micro}  [{card}]")
+    del params, state, batch, m
+    _free_card()
+
+    # (c) card against CPU, the 10 reduced archs
+    out["card_vs_cpu"] = _train_card_vs_cpu(dev, card)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in ops.launches().items() if v}
+    if used:
+        _fail(f"the training path launched port kernels: {used}")
+    out["port_kernel_launches"] = 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train phase {out['phase_s']:.1f} s, port kernel launches 0 (the "
+          f"path reaches no pallas_call)  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3139,6 +3407,9 @@ def main() -> int:
     lm = _lm_phase(dev, card)
     print(json.dumps({"lm": lm}), flush=True)
     lm_launches = lm["private_inference"]["launches"]
+
+    # --- 13. the LM substrate's training path (no port kernel) ---------------
+    print(json.dumps({"train": _train_phase(dev, card)}), flush=True)
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params

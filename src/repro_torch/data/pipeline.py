@@ -5,11 +5,19 @@ stream tokenised shards; here the source is a seeded counter-based
 generator (same philosophy as the paper's PRNG: state is a seed + step
 counter, so any host can regenerate any batch — which is also what makes
 checkpoint-resume and elastic re-sharding exact: the pipeline state IS the
-step number). The reference's background ``Prefetcher`` comes with the
-training part of the port, its only user.
+step number).
+
+``Prefetcher`` overlaps host batch synthesis with device compute via a
+background thread and a bounded queue (the host-side half of
+compute/comm overlap). The queue holds the futures of the next ``depth``
+batches of a one-thread executor, so an exception raised while making a
+batch is raised again by the ``next()`` that asks for it.
 """
 
 from __future__ import annotations
+
+import collections
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,3 +51,35 @@ def host_slice(global_batch: int, host_id: int, n_hosts: int):
     """[start, stop) rows of the global batch owned by this host."""
     per = global_batch // n_hosts
     return host_id * per, (host_id + 1) * per
+
+
+class Prefetcher:
+    """Background-thread batch prefetch with a bounded queue: batches of
+    steps ``start_step``, ``start_step + 1``, ... in order."""
+
+    def __init__(self, cfg: ArchConfig, batch: int, seq: int,
+                 start_step: int = 0, seed: int = 0, depth: int = 2):
+        self._make = lambda step: synth_batch(cfg, step, batch, seq, seed)
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="prefetch")
+        self._q: collections.deque = collections.deque()
+        self._step = start_step
+        self._next = start_step
+        for _ in range(max(depth, 1)):
+            self._submit()
+
+    def _submit(self) -> None:
+        self._q.append((self._next, self._pool.submit(self._make,
+                                                      self._next)))
+        self._next += 1
+
+    def next(self):
+        step, fut = self._q.popleft()
+        self._submit()
+        b = fut.result()            # re-raises the worker's exception
+        self._step = step
+        return b
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._q.clear()

@@ -4,12 +4,16 @@ Port of ``repro.models.model``. Params are the reference's nested dict:
 layers stacked along a leading L dim, the same keys, plain tensors on one
 device. The layer loop is a Python loop over that dim (the reference's
 ``lax.scan``; its ``unroll`` mode is the same loop, so ``unroll`` is
-accepted and gives the same result). Heterogeneous per-layer attention
+accepted and gives the same result); each stacked leaf is unbound once a
+call, so a backward stacks the layers' gradients once rather than writing
+a stack-sized zero gradient per layer. Heterogeneous per-layer attention
 windows (hymba's global/SWA mix) are a per-layer int.
 
 Three entry points per architecture:
-  * ``train_fwd``   — full-sequence forward -> scalar loss (chunked CE);
-                      the forward only: training is not ported yet.
+  * ``train_fwd``   — full-sequence forward -> scalar loss (chunked CE),
+                      differentiable with ``torch.autograd``; ``remat``
+                      recomputes each layer in the backward (the
+                      reference's ``jax.checkpoint`` of the layer body).
   * ``prefill``     — full-sequence forward -> (last_logits, Cache).
   * ``decode_step`` — one token with a pre-filled cache (the serve_step).
 
@@ -28,6 +32,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
@@ -259,18 +264,32 @@ def _layer(params, i: int):
     return tree_map(lambda a: a[i], params["layers"])
 
 
+def _layers(params, n_layers: int) -> list:
+    """Each layer's params: every stacked leaf unbound once."""
+    unbound = tree_map(torch.unbind, params["layers"])
+    return [tree_map(lambda t: t[i], unbound) for i in range(n_layers)]
+
+
 def _run_layers(cfg: ArchConfig, tp: int, params, x, mrope_pos,
                 q_chunk, kv_chunk, collect_cache: bool, remat: bool,
                 unroll: bool = False):
-    """The layer loop. ``remat`` (the reference's rematerialisation of the
-    backward) changes nothing in a forward pass."""
+    """The layer loop. With ``remat`` and autograd on, each layer body
+    runs under ``torch.utils.checkpoint``: its activations are recomputed
+    in the backward instead of kept (the reference's ``jax.checkpoint``);
+    the values are the same either way."""
     windows = _layer_windows(cfg)
     aux = torch.zeros((), dtype=F32, device=x.device)
     pieces_list = []
-    for i in range(cfg.n_layers):
-        x, aux_i, pieces = _block_fwd(
-            cfg, tp, _layer(params, i), x, _window(windows[i]), mrope_pos,
-            q_chunk, kv_chunk, collect_cache, unroll=unroll)
+    remat = remat and torch.is_grad_enabled()
+    for i, lp in enumerate(_layers(params, cfg.n_layers)):
+        args = (cfg, tp, lp, x, _window(windows[i]), mrope_pos,
+                q_chunk, kv_chunk, collect_cache, unroll)
+        if remat:
+            x, aux_i, pieces = checkpoint(_block_fwd, *args,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+        else:
+            x, aux_i, pieces = _block_fwd(*args)
         aux = aux + aux_i
         pieces_list.append(pieces)
     stacked = (tree_map(lambda *xs: torch.stack(xs), *pieces_list)
@@ -311,7 +330,7 @@ def train_fwd(params, batch, cfg: ArchConfig, tp: int = 1,
               q_chunk: int = 1024, kv_chunk: int = 1024,
               remat: bool = True, unroll: bool = False):
     """batch: tokens/labels (B, S) int; audio/vlm: embeds (B, S, d).
-    Returns the scalar loss (CE + MoE aux [+ MTP CE]); forward only."""
+    Returns the scalar loss (CE + MoE aux [+ MTP CE])."""
     x = _inputs(params, batch, cfg)
     mrope_pos = batch.get("mrope_pos") if cfg.mrope else None
     x, aux, _ = _run_layers(cfg, tp, params, x, mrope_pos,
@@ -379,8 +398,7 @@ def decode_step(params, cache: Cache, batch, pos: int, cfg: ArchConfig,
     windows = _layer_windows(cfg)
     d = cfg.d_model
     new = {name: [] for name in FIELDS}
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params, cfg.n_layers)):
         c = {name: None if getattr(cache, name) is None
              else getattr(cache, name)[i] for name in FIELDS}
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)

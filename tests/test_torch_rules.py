@@ -114,6 +114,26 @@ def test_scans_cover_lm_modules():
     assert lm <= names
 
 
+def test_scans_cover_training_modules():
+    """The training path's modules (every one of the reference's
+    ``training/``, ``launch/train.py``, ``distributed/checkpoint.py``, the
+    example ``train_lm`` and ``data/pipeline.py``) are in the no-jax /
+    no-try scans; none of them holds a ``try``: the prefetcher and the
+    async checkpointer hand their worker's error to the caller through a
+    future, the launcher closes its prefetcher with ``with``."""
+    names = {_module_name(p) for p in MODULES}
+    training = {f"repro_torch.training.{p.stem}"
+                for p in (SRC / "repro" / "training").glob("*.py")}
+    assert training
+    training |= {"repro_torch.launch.train", "repro_torch.launch.train_lm",
+                 "repro_torch.distributed.checkpoint",
+                 "repro_torch.data.pipeline"}
+    assert training <= names
+    for name in training:
+        path = SRC.joinpath(*name.split(".")).with_suffix(".py")
+        assert not _tries_by_function(path), name
+
+
 # The only ``try`` statements of the port: the client service's and the
 # mesh's failure story, (file, enclosing function) -> handlers allowed
 # there. A handler may re-queue, mark a stream or a worker failed, record,
@@ -338,6 +358,30 @@ def test_lm_entry_points_raise_without_cuda():
             call()
     with pytest.raises(ValueError, match="generator"):
         M.init_params(cfg, gen, device="meta")
+
+
+def test_training_entry_points_raise_without_cuda():
+    """The training path runs on the card unless told otherwise:
+    ``init_train_state``, ``checkpoint.restore`` and both training CLIs
+    raise without CUDA when given no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.distributed import checkpoint
+    from repro_torch.launch import train, train_lm
+    from repro_torch.models.archs import get_arch, reduced_config
+    from repro_torch.training import train_step
+    cfg = reduced_config(get_arch("mamba2-130m"))
+    tree = {"w": torch.zeros(3)}
+    calls = {
+        "init_train_state": lambda: train_step.init_train_state(
+            cfg, torch.Generator()),
+        "restore": lambda: checkpoint.restore(tree, "no-such-directory"),
+        "train CLI": lambda: train.main(["--smoke", "--steps", "1"]),
+        "train_lm CLI": lambda: train_lm.main(["--steps", "1"]),
+    }
+    for what, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 _CORES = {
