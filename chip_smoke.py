@@ -178,11 +178,26 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      one finite, and one train step (8-bit, micro 2, compress) within
      2.01 lr of the CPU's, at most 2 % of the entries stepping otherwise;
      prints the phase's JSON line;
- 14. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 14. the port's launchers that the earlier phases leave out: (a)
+     ``launch.quickstart --profile paper`` on the card, every launch
+     counter set to 0 just before and read just after: K2 and K3 (the
+     per-ciphertext half: ``ops.encrypt_fused`` / ``decrypt_fused``) and
+     K5 and K6 (``FHEClient`` at B=4) must each have launched, both halves
+     >= 19.29 bits, the host ms of each half printed; (b) ``launch.dryrun``
+     over the train_4k cell of each of the 10 archs on both production
+     meshes (20 records into ``build/dryrun/``, no device); (c) the
+     dry-run's per-device bytes of the params and the 8-bit AdamW state of
+     the qwen2-vl-2b train cell on a one-device (1, 1) mesh == the summed
+     ``nbytes`` of the params and state phase 13 (b) allocated on the card
+     (the batch left out: its size is the cell's own); the dry-run reaches
+     no kernel (the counters read 0 after (b) and (c)); prints the phase's
+     JSON line;
+ 15. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
-     service phase's and the private-inference loop's), then, as the last
-     line, ``{"ok": true, "device": ...}``.
+     service phase's, the private-inference loop's and the quickstart's,
+     K1 - K3's the quickstart's), then, as the last line,
+     ``{"ok": true, "device": ...}``.
 
 Any mismatch, failed build or failed launch ends the run with a non-zero
 exit code and no result line. Needs a CUDA device; without one it exits 2.
@@ -3106,6 +3121,7 @@ def _train_phase(dev, card: str) -> dict:
     from repro_torch.models.archs import get_arch
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
+    from repro_torch.training import tree as T
 
     t_phase = time.perf_counter()
     out = {}
@@ -3184,6 +3200,8 @@ def _train_phase(dev, card: str) -> dict:
     params, state, _ = ts.init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(SEED), adam, device=dev)
     state_bytes = torch.cuda.memory_allocated(dev)
+    nbytes = {"params": sum(t.nbytes for t in T.leaves(params)),
+              "opt_state": sum(t.nbytes for t in T.leaves(state))}
     step = ts.build_train_step(cfg, adam, n_micro=micro, q_chunk=s,
                                kv_chunk=s)
     batch = {k: torch.as_tensor(v, device=dev)
@@ -3204,7 +3222,8 @@ def _train_phase(dev, card: str) -> dict:
         "micro": micro, "remat": True, "steps": n_steps, "losses": losses,
         "first_step_ms": times[0] * 1e3, "step_ms_median": step_ms,
         "tokens_per_s": b * s / (step_ms / 1e3),
-        "state_bytes": state_bytes, "peak_bytes": peak}
+        "state_bytes": state_bytes, "peak_bytes": peak,
+        "nbytes": nbytes}
     print(f"train (b) {LM_VL} full ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params), batch "
           f"{b} x {s}, micro {micro}, remat, 8-bit AdamW lr "
@@ -3229,6 +3248,108 @@ def _train_phase(dev, card: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"train phase {out['phase_s']:.1f} s, port kernel launches 0 (the "
           f"path reaches no pallas_call)  [{card}]", flush=True)
+    return out
+
+
+# --- phase 14: the quickstart on the card, the dry-run ------------------------
+# (a) launch.quickstart at paper (K2 / K3, then K5 / K6 at B=4); (b) the
+# dry-run's train_4k cell of every arch on the single- and the multi-pod
+# mesh; (c) its per-device bytes on a one-device mesh against the params
+# and state phase 13 (b) allocated.
+
+QUICKSTART_KERNELS = ("encrypt_limbs", "decrypt_limbs",
+                      "encode_encrypt_stream", "decrypt_decode_stream")
+DRYRUN_SHAPE = "train_4k"
+
+
+def _launch_phase(dev, card: str, train_big: dict) -> dict:
+    """Phase 14: (a) ``launch.quickstart --profile paper`` on the card with
+    K2, K3, K5 and K6 launched, both halves >= 19.29 bits; (b)
+    ``launch.dryrun`` over DRYRUN_SHAPE for every arch on both production
+    meshes; (c) the dry-run's params + state bytes of the qwen2-vl-2b
+    train cell on a (1, 1) mesh == phase 13's real allocation."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, quickstart
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.archs import ARCHS
+
+    t_phase = time.perf_counter()
+    out = {}
+    _free_card()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r = quickstart.main(["--profile", MAIN_PROFILE, "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    missing = [k for k in QUICKSTART_KERNELS if not launches[k]]
+    if missing:
+        _fail(f"quickstart: {missing} never launched ({launches})")
+    for what, bits in (("per-ciphertext", r["prec"]),
+                       ("batched", r["prec_batch"])):
+        if not bits >= BOOT_PREC_BITS:
+            _fail(f"quickstart {what} half: {bits} bits < {BOOT_PREC_BITS}")
+    if not (np.all(np.isfinite(r["z_got"])) and np.all(np.isfinite(
+            r["z_batch"])) and r["z_batch"].shape == r["msgs"].shape):
+        _fail("quickstart: decoded slots not finite or of the wrong shape")
+    used = {k: v for k, v in launches.items() if v}
+    out["quickstart"] = {
+        "profile": MAIN_PROFILE, "launches": used,
+        "bits": r["prec"], "bits_batch": r["prec_batch"],
+        "single_ms": r["single_s"] * 1e3, "batch_ms": r["batch_s"] * 1e3}
+    print(f"quickstart {MAIN_PROFILE} on the card: per-ciphertext half "
+          f"(encode, K2, 2 limbs, K3, decode) {r['single_s'] * 1e3:.1f} ms "
+          f"host, {r['prec']:.2f} bits; FHEClient B=4 round trip (K5, K6) "
+          f"{r['batch_s'] * 1e3:.1f} ms host, {r['prec_batch']:.2f} bits "
+          f"(first calls, incl. table uploads); launches {used}  [{card}]",
+          flush=True)
+    del r
+    _free_card()
+
+    # (b) the dry-run: no device
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(arch, DRYRUN_SHAPE, mk)
+            for arch in sorted(ARCHS) for mk in ("single", "multi")]
+    dry_s = time.perf_counter() - t0
+    if any(not (x["flops"] > 0 and x["memory"]["argument_size_in_bytes"]
+                > 0) for x in recs):
+        _fail("dryrun: a record without flops or bytes")
+    out["dryrun"] = {"cells": len(recs), "shape": DRYRUN_SHAPE,
+                     "seconds": dry_s,
+                     "records": {f"{x['arch']} {x['mesh']}": {
+                         "flops": x["flops"],
+                         "argument_bytes":
+                             x["memory"]["argument_size_in_bytes"],
+                         "collective_bytes":
+                             x["collectives"]["total_bytes"]}
+                         for x in recs}}
+    print(f"dryrun: {len(recs)} records ({DRYRUN_SHAPE}, 10 archs x single "
+          f"/ multi) in {dry_s:.1f} s on the host, e.g. {LM_VL} single "
+          f"{recs[2 * sorted(ARCHS).index(LM_VL)]['flops']:.4g} FLOPs a "
+          f"device", flush=True)
+
+    # (c) exact bytes against phase 13's allocation
+    one = dryrun.run_cell(LM_VL, DRYRUN_SHAPE, "one", save=False,
+                          mesh=make_mesh((1, 1), ("data", "model")))
+    by_part = one["memory"]["argument_bytes_by_part"]
+    real = train_big["nbytes"]
+    if (by_part["params"], by_part["opt_state"]) != (real["params"],
+                                                      real["opt_state"]):
+        _fail(f"dryrun bytes {by_part} != the card's {real}")
+    torch.cuda.synchronize()
+    used = {k: v for k, v in ops.launches().items() if v}
+    if used:
+        _fail(f"the dry-run launched port kernels: {used}")
+    out["bytes_check"] = {"arch": LM_VL, "mesh": "(1, 1)",
+                          "dryrun": {k: by_part[k] for k in real},
+                          "card_nbytes": real}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dryrun bytes on a (1, 1) mesh, {LM_VL} {DRYRUN_SHAPE}: params "
+          f"{by_part['params']} + 8-bit AdamW state {by_part['opt_state']} "
+          f"B == phase 13's nbytes on the card, exactly; phase "
+          f"{out['phase_s']:.1f} s  [{card}]", flush=True)
     return out
 
 
@@ -3409,7 +3530,13 @@ def main() -> int:
     lm_launches = lm["private_inference"]["launches"]
 
     # --- 13. the LM substrate's training path (no port kernel) ---------------
-    print(json.dumps({"train": _train_phase(dev, card)}), flush=True)
+    train = _train_phase(dev, card)
+    print(json.dumps({"train": train}), flush=True)
+
+    # --- 14. the quickstart on the card (K2, K3, K5, K6), the dry-run -------
+    launch = _launch_phase(dev, card, train["big"])
+    print(json.dumps({"launch": launch}), flush=True)
+    qs_launches = launch["quickstart"]["launches"]
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params
@@ -3534,28 +3661,37 @@ def main() -> int:
         entry("encode_encrypt_stream", "K5", "encode_encrypt.cu",
               "client_stream.py:96", mega_launches["encode_encrypt_stream"]
               + service["encode_encrypt_stream"]
-              + lm_launches["encode_encrypt_stream"]),
+              + lm_launches["encode_encrypt_stream"]
+              + qs_launches.get("encode_encrypt_stream", 0)),
         entry("decrypt_decode_stream", "K6", "decrypt_decode.cu",
               "client_stream.py:200", mega_launches["decrypt_decode_stream"]
               + service["decrypt_decode_stream"]
-              + lm_launches["decrypt_decode_stream"]),
+              + lm_launches["decrypt_decode_stream"]
+              + qs_launches.get("decrypt_decode_stream", 0)),
     ]
     for k in kernels:
         k.update(_device_kernel_fields(dkernels[k["name"], MAIN_BATCH]))
         k["launches_by_path"] = {"megakernel": mega_launches[k["name"]],
                                  "service": service[k["name"]],
-                                 "private_inference": lm_launches[k["name"]]}
+                                 "private_inference": lm_launches[k["name"]],
+                                 "quickstart": qs_launches.get(k["name"], 0)}
         at_batch_1(k)
     for fwd, inv in (("ntt_limbs", "intt_limbs"),
                      ("encrypt_limbs", None), ("decrypt_limbs", None),
                      ("special_fft", "special_ifft")):
         id_, source, replaces = STAGED[fwd]
+        qs = qs_launches.get(fwd, 0) + (qs_launches.get(inv, 0) if inv
+                                        else 0)
         k = entry(fwd, id_, source, replaces, staged_launches[fwd]
-                  + (staged_launches[inv] if inv else 0))
+                  + (staged_launches[inv] if inv else 0) + qs)
+        k["launches_by_path"] = {"staged": k["launches"] - qs,
+                                 "quickstart": qs}
         if inv:
             # the top-level numbers are the forward direction's
-            k["launches_by_direction"] = {fwd: staged_launches[fwd],
-                                          inv: staged_launches[inv]}
+            k["launches_by_direction"] = {fwd: staged_launches[fwd]
+                                          + qs_launches.get(fwd, 0),
+                                          inv: staged_launches[inv]
+                                          + qs_launches.get(inv, 0)}
             k["inverse"] = entry(inv, *STAGED[inv], staged_launches[inv])
             del k["inverse"]["launches"]
         for e in (k, k.get("inverse")):

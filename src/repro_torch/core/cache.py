@@ -8,7 +8,9 @@ keyed by content: primes, ring degree, profile parameters and the device
 name, never by ``id``), so ``cache_stats`` reports those next to the named
 ``LRUCache`` memos, under the reference's names where a memo has a
 counterpart (``plan_consts``, ``stacked_kernel_consts``, ``server_consts``,
-``stacked_plans``, ``contexts``, ``ntt_plans``, ``ntt_primes``).
+``stacked_plans``, ``ntt_plans``, ``ntt_primes``; ``contexts`` is an
+``LRUCache``, as in the reference). ``plan_key`` / ``plans_key`` are the
+reference's content keys of a plan and of a plan stack.
 """
 
 from __future__ import annotations
@@ -16,6 +18,17 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import Callable
+
+
+def plan_key(plan) -> tuple[int, int]:
+    """Content key of an NTTPlan: ``(q, N)`` determines every derived
+    constant."""
+    return (int(plan.prime.q), int(plan.n))
+
+
+def plans_key(plans) -> tuple[tuple[int, int], ...]:
+    """Content key of an ordered plan stack."""
+    return tuple(plan_key(p) for p in plans)
 
 
 # named caches register here so the telemetry layer can walk every
@@ -133,14 +146,14 @@ class LRUCache:
 
 
 # functools.lru_cache memos of the port: name -> (module, attribute). The
-# first seven carry the reference's names; the rest are the port's device
+# first six carry the reference's names (``contexts`` is a named
+# ``LRUCache``, as in the reference); the rest are the port's device
 # tables (uploaded once per device) and host tables of the kernels.
 LRU_MEMOS = {
     "plan_consts": ("repro_torch.kernels.common", "_plan_consts"),
     "stacked_kernel_consts": ("repro_torch.kernels.common", "_stacked_kc"),
     "server_consts": ("repro_torch.kernels.server_eval", "server_consts"),
     "stacked_plans": ("repro_torch.core.context", "_stacked"),
-    "contexts": ("repro_torch.core.context", "context_for"),
     "ntt_plans": ("repro_torch.core.ntt", "make_plan"),
     "ntt_primes": ("repro_torch.core.primes", "find_ntt_friendly_primes"),
     "device_seed_tables": ("repro_torch.kernels.common",

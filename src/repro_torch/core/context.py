@@ -3,14 +3,18 @@
 Port of ``repro.core.context``. Parameters and profiles are the
 reference's, value for value: a port client and a JAX client built from the
 same profile draw the same primes, plans and seeds, and ``special_plan``
-the same key-switching prime P.
+the same key-switching prime P. Contexts are memoised in a bounded LRU
+(``set_context_cache_capacity``, ``context_cache_len``,
+``context_cache_evictions``), as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
+from repro_torch.core import cache
 from repro_torch.core import ntt as nttmod
 from repro_torch.core.primes import NTTPrime, find_ntt_friendly_primes
 
@@ -96,16 +100,42 @@ class CKKSContext:
         n_limbs = n_limbs if n_limbs is not None else self.params.n_limbs
         return _stacked(self, n_limbs)
 
+    def q_product(self, n_limbs: int) -> int:
+        return math.prod(self.q_list[:n_limbs])
+
+    def modulus_bits(self, n_limbs: int | None = None) -> float:
+        n_limbs = n_limbs if n_limbs is not None else self.params.n_limbs
+        return sum(math.log2(q) for q in self.q_list[:n_limbs])
+
 
 @functools.lru_cache(maxsize=16)
 def _stacked(ctx: CKKSContext, n_limbs: int) -> nttmod.StackedPlans:
     return nttmod.stack_plans(ctx.plans[:n_limbs])
 
 
-@functools.lru_cache(maxsize=16)
+_CONTEXT_CACHE = cache.LRUCache(capacity=16, name="contexts")
+
+
 def context_for(params: CKKSParams) -> CKKSContext:
-    """Context memo keyed by the frozen parameter set (LRU-bounded)."""
-    return CKKSContext(params)
+    """Context memo keyed by the frozen parameter set (LRU-bounded; see
+    ``set_context_cache_capacity``)."""
+    return _CONTEXT_CACHE.get_or_build(params, lambda: CKKSContext(params))
+
+
+def set_context_cache_capacity(capacity: int) -> int:
+    """Bound the context cache (evicting LRU entries down to ``capacity``
+    at once); returns the previous capacity."""
+    return _CONTEXT_CACHE.set_capacity(capacity)
+
+
+def context_cache_len() -> int:
+    """Number of contexts the cache holds."""
+    return len(_CONTEXT_CACHE)
+
+
+def context_cache_evictions() -> int:
+    """Contexts evicted since the process started (monotonic)."""
+    return _CONTEXT_CACHE.evictions
 
 
 def get_context(profile: str | CKKSParams = "paper") -> CKKSContext:

@@ -33,6 +33,10 @@ class DF(NamedTuple):
     hi: torch.Tensor
     lo: torch.Tensor
 
+    @property
+    def dtype(self):
+        return self.hi.dtype
+
 
 class DFComplex(NamedTuple):
     re: DF
@@ -80,6 +84,10 @@ def df_mul(x: DF, y: DF) -> DF:
     return DF(*quick_two_sum(p, e))
 
 
+def df_neg(x: DF) -> DF:
+    return DF(-x.hi, -x.lo)
+
+
 def df_const(value: float, device=None, dtype=F32) -> DF:
     """A Python float split into a pair of 0-d `dtype` tensors."""
     hi = torch.tensor(value, dtype=dtype, device=device)
@@ -110,6 +118,13 @@ def df_round(x: DF) -> DF:
     return DF(*quick_two_sum(rh, rl))
 
 
+def dfc_from(z, dtype=F32) -> DFComplex:
+    """Complex array or tensor -> DFComplex (each part split by
+    ``df_from``)."""
+    z = torch.as_tensor(z)
+    return DFComplex(df_from(z.real, dtype), df_from(z.imag, dtype))
+
+
 def dfc_from_parts(re: torch.Tensor, im: torch.Tensor,
                    dtype=F32) -> DFComplex:
     """Real / imaginary float64 parts -> a complex pair of `dtype`."""
@@ -123,6 +138,11 @@ def dfc_from_planes(planes) -> DFComplex:
 
 def dfc_to_planes(z: DFComplex):
     return z.re.hi, z.re.lo, z.im.hi, z.im.lo
+
+
+def dfc_to_complex(a: DFComplex) -> torch.Tensor:
+    """Collapse to one complex128 tensor."""
+    return torch.complex(df_to_float(a.re), df_to_float(a.im))
 
 
 def dfc_add(a: DFComplex, b: DFComplex) -> DFComplex:

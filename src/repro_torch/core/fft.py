@@ -1,12 +1,14 @@
 """Host tables of the CKKS canonical-embedding SpecialFFT, and its
 complex128 numpy oracle.
 
-Port of ``repro.core.fft`` without the df32 and quantized variants: the 5^j
+Port of ``repro.core.fft`` without the quantized variant: the 5^j
 rotation group, the unit roots and the forward stage indices
 (``kernels.fft_df.packed_twiddles`` packs them into the df32 planes both
-FFT directions read), and ``special_fft`` / ``special_ifft``, the host
+FFT directions read); ``special_fft`` / ``special_ifft``, the host
 transforms the server's plaintext encoder runs
-(``fhe_server.encoding.encode_plaintext``).
+(``fhe_server.encoding.encode_plaintext``); and ``special_fft_df`` /
+``special_ifft_df``, the double-float reference of the df32 datapath on
+``DFComplex`` tensors, in the reference's operation order.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
+from repro_torch.core import dfloat as dfl
 from repro_torch.core.ntt import bitrev_indices
 
 
@@ -75,3 +79,72 @@ def special_ifft(vals: np.ndarray, m: int) -> np.ndarray:
         x = np.stack([u + v, (u - v) * w], axis=-2).reshape(shp + (n,))
         length //= 2
     return x[..., bitrev_indices(n)] / n
+
+
+# ---------------------------------------------------------------------------
+# double-float datapath (df32; also runs as df64)
+# ---------------------------------------------------------------------------
+
+
+def _dfc_roots(idx: np.ndarray, m: int, dtype, device) -> dfl.DFComplex:
+    """Unit roots at ``idx``, each part split into a (hi, lo) pair."""
+    r = unit_roots(m)[idx]
+    npt = np.float32 if dtype == dfl.F32 else np.float64
+    parts = []
+    for x in (r.real, r.imag):
+        hi = x.astype(npt)
+        lo = (x - hi).astype(npt)
+        parts.append(dfl.DF(torch.as_tensor(hi, device=device),
+                            torch.as_tensor(lo, device=device)))
+    return dfl.DFComplex(*parts)
+
+
+def _dfc_map(f, *zs: dfl.DFComplex) -> dfl.DFComplex:
+    return dfl.DFComplex(
+        dfl.DF(f(*(z.re.hi for z in zs)), f(*(z.re.lo for z in zs))),
+        dfl.DF(f(*(z.im.hi for z in zs)), f(*(z.im.lo for z in zs))))
+
+
+def special_fft_df(z: dfl.DFComplex, m: int, dtype=dfl.F32) -> dfl.DFComplex:
+    """Decode direction on a df pair of (..., n) tensors."""
+    n = z.re.hi.shape[-1]
+    dev = z.re.hi.device
+    x = _dfc_map(lambda a: a[..., torch.as_tensor(bitrev_indices(n),
+                                                  device=dev)], z)
+    length = 2
+    while length <= n:
+        lenh = length // 2
+        w = _dfc_roots(_stage_indices(n, m, length), m, dtype, dev)
+        shp = tuple(x.re.hi.shape[:-1])
+        x = _dfc_map(lambda a: a.reshape(shp + (n // length, 2, lenh)), x)
+        u = _dfc_map(lambda a: a[..., 0, :], x)
+        v = dfl.dfc_mul(_dfc_map(lambda a: a[..., 1, :], x), w)
+        x = _dfc_map(lambda a, b: torch.stack([a, b], dim=-2),
+                     dfl.dfc_add(u, v), dfl.dfc_sub(u, v))
+        x = _dfc_map(lambda a: a.reshape(shp + (n,)), x)
+        length *= 2
+    return x
+
+
+def special_ifft_df(z: dfl.DFComplex, m: int, dtype=dfl.F32) -> dfl.DFComplex:
+    """Encode direction on a df pair of (..., n) tensors (1/n included)."""
+    n = z.re.hi.shape[-1]
+    dev = z.re.hi.device
+    x = z
+    length = n
+    while length >= 2:
+        lenh, lenq = length // 2, length * 4
+        rg = rot_group(n, m)[:lenh]
+        w = _dfc_roots((lenq - (rg % lenq)) * (m // lenq), m, dtype, dev)
+        shp = tuple(x.re.hi.shape[:-1])
+        x = _dfc_map(lambda a: a.reshape(shp + (n // length, 2, lenh)), x)
+        u = _dfc_map(lambda a: a[..., 0, :], x)
+        v = _dfc_map(lambda a: a[..., 1, :], x)
+        x = _dfc_map(lambda a, b: torch.stack([a, b], dim=-2),
+                     dfl.dfc_add(u, v), dfl.dfc_mul(dfl.dfc_sub(u, v), w))
+        x = _dfc_map(lambda a: a.reshape(shp + (n,)), x)
+        length //= 2
+    x = _dfc_map(lambda a: a[..., torch.as_tensor(bitrev_indices(n),
+                                                  device=dev)], x)
+    inv_n = dfl.df_const(1.0 / n, device=dev, dtype=dtype)
+    return dfl.DFComplex(dfl.df_mul(x.re, inv_n), dfl.df_mul(x.im, inv_n))

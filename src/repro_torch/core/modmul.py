@@ -6,7 +6,9 @@ per-limb constants, ``mulmod_montgomery_limb`` with static ones, and the
 NTT-friendly shift-add ``mulmod_montgomery_sa_limb`` of paper eq. 9-11),
 Barrett on limbs, ``addmod``/``submod``, the u32 word-pair helpers, and the
 u64 oracles (``mulmod_naive_u64``, ``mulmod_montgomery_u64``,
-``to_mont_u64``, ``from_mont_u64``). The reference computes in uint32 and
+``to_mont_u64``, ``from_mont_u64``) with their stacked-limb forms
+(``mulmod_montgomery_u64_stacked``, ``mulmod_montgomery_stacked``). The
+reference computes in uint32 and
 wraps modulo 2^32; here every value is a non-negative int64 below 2^32 and
 each wrapping step masks with ``MASK32``. No limb product exceeds 2^48, so
 nothing depends on int64 overflow. The u64 oracles take residues below
@@ -234,6 +236,20 @@ def mulmod_montgomery_u64_t(a, b_mont, q, qinv_neg):
     m = mul32x32_lo(t_lo, qinv_neg)
     u = (t >> 32) + ((m * q) >> 32) + (t_lo != 0).to(torch.int64)
     return torch.where(u >= q, u - q, u)
+
+
+def mulmod_montgomery_u64_stacked(a, b_mont, q, qinv_neg):
+    """REDC on stacked limbs: per-limb constants as broadcastable int64
+    tensors (L, 1, ..., 1) against (L, ..., N) operands. Bit-identical per
+    limb to ``mulmod_montgomery_u64`` with that limb's constants."""
+    return mulmod_montgomery_u64_t(a, b_mont, q, qinv_neg)
+
+
+def mulmod_montgomery_stacked(a, b_mont, q, qinv_neg):
+    """Stacked-limb REDC on the 16-bit-limb engine, which the reference
+    runs without x64; the same words as ``mulmod_montgomery_u64_stacked``.
+    """
+    return mulmod_montgomery_limb_t(a, b_mont, q, qinv_neg)
 
 
 def to_mont_u64(a, c: MontgomeryConstants):

@@ -4,8 +4,10 @@ Port of ``repro.core.ntt``: ``bitrev_indices``, ``TwiddleSeeds``,
 ``NTTPlan``/``make_plan`` (the per-stage OTF seed+step scalars and the
 Montgomery-form psi / psi^-1 tables), the exact transforms ``ntt`` /
 ``intt`` (table twiddles, the u64 REDC oracle carried as int64),
-``negacyclic_polymul_schoolbook`` (the O(N^2) oracle) and ``ntt_stacked``,
-the table-twiddle forward transform keygen runs. The reference's u64 REDC
+``negacyclic_polymul`` through the transform domain and
+``negacyclic_polymul_schoolbook`` (the O(N^2) oracle), ``stage_twiddles_np``
+(the OTF doubling generator), and ``ntt_stacked`` / ``intt_stacked``, the
+table-twiddle transforms of a whole limb stack (keygen runs the forward). The reference's u64 REDC
 and the 16-bit-limb REDC used in ``ntt_stacked`` return the same words (the
 reference itself switches to the limb engine without x64), so keys are
 bit-identical.
@@ -55,6 +57,11 @@ class TwiddleSeeds:
     inv_step: tuple[int, ...]
     n_inv: int
 
+    def nbytes(self) -> int:
+        """Bytes of the seed state as uint32 words."""
+        return 4 * (len(self.fwd_base) + len(self.fwd_step)
+                    + len(self.inv_base) + len(self.inv_step) + 1)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class NTTPlan:
@@ -102,6 +109,21 @@ def make_plan(prime: NTTPrime, n: int) -> NTTPlan:
                    psi=psi, seeds=seeds, psi_brv_mont=to_mont(psi_brv),
                    psi_inv_brv_mont=to_mont(psi_inv_brv),
                    n_inv_mont=(seeds.n_inv * r) % q)
+
+
+def stage_twiddles_np(base: int, step: int, m: int, q: int) -> np.ndarray:
+    """OTF generation of [base * step^{bitrev_m(i)}]_{i<m} via doubling."""
+    a = np.array([base % q], dtype=np.uint64)
+    w = step % q
+    # A_{k+1} = [A_k, A_k * W^{m/2^{k+1}}]: precompute W^{m/2}, W^{m/4}, ...
+    exps = []
+    e = m // 2
+    while e >= 1:
+        exps.append(pow(w, e, q))
+        e //= 2
+    for f in exps:
+        a = np.concatenate([a, (a * np.uint64(f)) % np.uint64(q)])
+    return a[:m]
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +175,15 @@ def intt(a: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
     return modmul.mulmod_montgomery_u64(x, plan.n_inv_mont, c)
 
 
+def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
+                       plan: NTTPlan) -> torch.Tensor:
+    """(a * b) mod (X^N + 1, q) through the transform domain."""
+    c = plan.mont
+    ah, bh = ntt(a, plan), ntt(b, plan)
+    bh_mont = modmul.mulmod_montgomery_u64(bh, c.r2, c)
+    return intt(modmul.mulmod_montgomery_u64(ah, bh_mont, c), plan)
+
+
 def negacyclic_polymul_schoolbook(a: np.ndarray, b: np.ndarray, q: int):
     """O(N^2) oracle: c_k = sum_{i+j=k} a_i b_j - sum_{i+j=k+N} a_i b_j."""
     n = a.shape[-1]
@@ -174,6 +205,12 @@ class StackedPlans:
     qinv_neg: np.ndarray            # (L,) int64
     r2: np.ndarray                  # (L,) int64
     psi_brv_mont: np.ndarray        # (L, N) int64
+    psi_inv_brv_mont: np.ndarray    # (L, N) int64
+    n_inv_mont: np.ndarray          # (L,) int64
+
+    def bcast(self, arr_1d: np.ndarray, ndim: int) -> np.ndarray:
+        """(L,) -> (L, 1, ..., 1) for broadcasting against (L, ..., N)."""
+        return arr_1d.reshape((self.n_limbs,) + (1,) * (ndim - 1))
 
     def rows(self, arr: np.ndarray, ndim: int, device) -> torch.Tensor:
         """(L,) -> (L, 1, ..., 1) int64 tensor broadcasting against an
@@ -192,7 +229,10 @@ def stack_plans(plans) -> StackedPlans:
         qinv_neg=np.array([p.mont.qinv_neg for p in plans], np.int64),
         r2=np.array([p.mont.r2 for p in plans], np.int64),
         psi_brv_mont=np.stack([p.psi_brv_mont for p in plans]).astype(
-            np.int64))
+            np.int64),
+        psi_inv_brv_mont=np.stack(
+            [p.psi_inv_brv_mont for p in plans]).astype(np.int64),
+        n_inv_mont=np.array([p.n_inv_mont for p in plans], np.int64))
 
 
 def ntt_stacked(a: torch.Tensor, sp: StackedPlans) -> torch.Tensor:
@@ -220,3 +260,34 @@ def ntt_stacked(a: torch.Tensor, sp: StackedPlans) -> torch.Tensor:
         x = x.reshape((L,) + batch + (2 * m, t))
         m *= 2
     return x.reshape((L,) + batch + (n,))
+
+
+def intt_stacked(a: torch.Tensor, sp: StackedPlans) -> torch.Tensor:
+    """Inverse negacyclic NTT of all limbs at once (bit-reversed input,
+    in-order output, N^-1 folded in): the schedule of the reference
+    ``intt_stacked``; bit-identical per limb to ``intt``."""
+    n = sp.n
+    batch = tuple(a.shape[1:-1])
+    L = sp.n_limbs
+    dev = a.device
+    psi_inv = torch.as_tensor(sp.psi_inv_brv_mont, device=dev)
+    bshape = (L,) + (1,) * (len(batch) + 2)
+    q = torch.as_tensor(sp.q, device=dev).reshape(bshape)
+    qinv = torch.as_tensor(sp.qinv_neg, device=dev).reshape(bshape)
+    x = a.reshape((L,) + batch + (n, 1))
+    h, t = n // 2, 1
+    while h >= 1:
+        x = x.reshape((L,) + batch + (h, 2, t))
+        s = psi_inv[:, h:2 * h].reshape((L,) + (1,) * len(batch) + (h, 1))
+        u, v = x[..., 0, :], x[..., 1, :]
+        even = modmul.addmod(u, v, q)
+        odd = modmul.mulmod_montgomery_limb_t(modmul.submod(u, v, q), s, q,
+                                              qinv)
+        x = torch.cat([even, odd], dim=-1).reshape((L,) + batch + (h, 2 * t))
+        t *= 2
+        h //= 2
+    x = x.reshape((L,) + batch + (n,))
+    fshape = (L,) + (1,) * (len(batch) + 1)
+    return modmul.mulmod_montgomery_limb_t(
+        x, sp.rows(sp.n_inv_mont, len(fshape), dev),
+        q.reshape(fshape), qinv.reshape(fshape))

@@ -133,7 +133,10 @@ def cbd_from_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (popcount21(a) - popcount21(b)).to(torch.int32)
 
 
-def cbd(seed128: int, stream: int, n: int, device=None):
+def cbd(seed128: int, stream: int, n: int, eta: int = 21, device=None):
+    """Centered binomial error: popcount(eta bits) - popcount(eta bits);
+    the draw always takes 21 bits a word, as the reference's does."""
+    assert eta <= 21
     a, b = random_u32(seed128, stream, n, words=2, device=device)
     return cbd_from_u32(a, b)
 

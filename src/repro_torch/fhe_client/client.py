@@ -304,13 +304,13 @@ class FHEClient:
         megakernel launch (K5)."""
         return kops.encode_encrypt_stream(
             (rh, rl, ih, il), self.keys.pk.b_mont, self.keys.pk.a_mont,
-            self.ctx, self.seed, nonce0)
+            self.ctx, self.seed, nonce0, datapath="df32")
 
     def _decrypt_core_mega32_impl(self, c0, c1, scale):
         """(B, 2, N) ciphertext views -> four (B, n_slots) float32 decoded
         planes: one megakernel launch (K6)."""
         return kops.decrypt_decode_stream(c0, c1, self.keys.sk.s_mont,
-                                          self.ctx, scale)
+                                          self.ctx, scale, datapath="df32")
 
     def _encrypt_core_mega_impl(self, re, im, nonce0: int):
         """(B, n_slots) float64 slot parts -> (c0, c1) (B, L, N): the df32
@@ -423,6 +423,18 @@ class FHEClient:
                     else self._decrypt_core_mega_impl)
         return (self._decrypt_core_dev32_impl if self.datapath == "df32"
                 else self._decrypt_core_dev_impl)
+
+    @property
+    def encrypt_core(self):
+        """The reference's name of the encrypt core (there a jitted
+        ``encrypt_impl``); the port runs eagerly, so it is ``encrypt_impl``.
+        """
+        return self.encrypt_impl
+
+    @property
+    def decrypt_core(self):
+        """The reference's name of the decrypt core: ``decrypt_impl``."""
+        return self.decrypt_impl
 
     # --- the two client operations -------------------------------------------
 

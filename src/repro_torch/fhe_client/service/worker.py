@@ -218,8 +218,12 @@ class MeshWorker:
 
     # -- frame loop ---------------------------------------------------------
 
-    def serve(self, frames: queue.Queue):
-        """Handle the frames ``_read_frames`` queues, one at a time."""
+    def serve(self):
+        """Start the frame reader (``_read_frames`` on a thread), then
+        handle the frames it queues, one at a time."""
+        frames = queue.Queue()
+        threading.Thread(target=_read_frames, args=(self.conn, frames),
+                         name="mesh-frames", daemon=True).start()
         while True:
             frame = frames.get()
             if frame is None:
@@ -274,16 +278,14 @@ def main(argv=None):
     conn = socket.create_connection(("127.0.0.1", args.port))
     try:
         # HELLO first: the router's startup wait ends here; the client
-        # build (keygen, tables) below is paid before the first chunk,
-        # while the reader already takes the router's frames
+        # build (keygen, tables) below is paid before the first chunk
+        # (a router send meanwhile waits in the socket until ``serve``
+        # starts the reader)
         send_frame(conn, OP_HELLO, aux=args.worker_id)
-        frames = queue.Queue()
-        threading.Thread(target=_read_frames, args=(conn, frames),
-                         name="mesh-frames", daemon=True).start()
         MeshWorker(conn, args.worker_id, params, buckets,
                    registry_capacity=args.registry_capacity,
                    die_after_submits=args.die_after_submits,
-                   device=args.device).serve(frames)
+                   device=args.device).serve()
     finally:
         conn.close()
 

@@ -465,6 +465,16 @@ def route(device) -> str:
     raise ValueError(f"no kernel for device {device}")
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``: the card when None. Raises when
+    the card is asked for and CUDA is absent (no hidden CPU fall-back)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the card by default and CUDA is "
+                           f"not available; pass device='cpu' for the CPU")
+    return dev
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
     `device` (what every kernel entry point takes)."""

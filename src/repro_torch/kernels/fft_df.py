@@ -15,7 +15,10 @@ Port of ``repro.kernels.fft_df``:
     TPU kernel ``_kernel`` and does the bit reversal in its loads and
     stores; counts its launches in ``LAUNCHES``), CPU tensors to
     ``special_fft_plain`` (a torch gather and ``fft_rows_plain``, the
-    stages the megakernels' plain versions run too).
+    stages the megakernels' plain versions run too);
+  * ``special_fft_rows`` / ``special_ifft_rows``: the same on (rows, n)
+    complex numpy arrays (split into df32 planes and collapsed back), on
+    the card unless the caller passes the CPU.
 """
 
 from __future__ import annotations
@@ -214,3 +217,26 @@ def special_ifft_planes(planes, m: int):
     """Encode-direction transform (1/n folded in) on four (rows, n)
     float32 df planes: the inverse stages, then bit-reversal."""
     return _special_fft(planes, m, inverse=True)
+
+
+def _to_planes(z: np.ndarray, device):
+    z = torch.as_tensor(np.asarray(z, np.complex128), device=device)
+    return dfl.dfc_to_planes(dfl.dfc_from_parts(z.real, z.imag))
+
+
+def _from_planes(planes) -> np.ndarray:
+    return dfl.dfc_to_complex(dfl.dfc_from_planes(planes)).cpu().numpy()
+
+
+def special_fft_rows(z: np.ndarray, m: int, device=None) -> np.ndarray:
+    """Decode-direction transform of (rows, n) complex through K4 (on the
+    card unless ``device`` is the CPU, then its plain version)."""
+    dev = common.resolve_device(device, "special_fft_rows")
+    return _from_planes(special_fft_planes(_to_planes(z, dev), m))
+
+
+def special_ifft_rows(z: np.ndarray, m: int, device=None) -> np.ndarray:
+    """Encode-direction transform (1/n included) of (rows, n) complex
+    through K4."""
+    dev = common.resolve_device(device, "special_ifft_rows")
+    return _from_planes(special_ifft_planes(_to_planes(z, dev), m))

@@ -7,7 +7,8 @@ kernel cannot be built or launched raises.
 
   * ``fourier``: the reconfigurable Fourier engine's mode switch between
     the limb-folded NTT (K1, ``ntt_limbs`` / ``intt_limbs``), the df32
-    SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``) and
+    SpecialFFT (K4, ``special_fft_planes`` / ``special_ifft_planes``;
+    ``special_fft`` / ``special_ifft`` on complex rows) and
     the complex128 numpy oracle (``core.fft``, on the host);
   * ``ntt_limbs`` / ``intt_limbs`` with ``path='matmul'``: the four-step
     NTT (K14, ``ntt_matmul``), natural-order output;
@@ -273,14 +274,33 @@ def special_ifft_planes(planes, m: int):
     return fft_df.special_ifft_planes(planes, m)
 
 
+def special_fft(z, m: int, device=None):
+    """(rows, n) or (n,) complex -> slots, through K4 (``fft_df``)."""
+    z = np.asarray(z)
+    squeeze = z.ndim == 1
+    out = fft_df.special_fft_rows(z[None] if squeeze else z, m, device)
+    return out[0] if squeeze else out
+
+
+def special_ifft(z, m: int, device=None):
+    """(rows, n) or (n,) slots -> coefficient side (1/n included)."""
+    z = np.asarray(z)
+    squeeze = z.ndim == 1
+    out = fft_df.special_ifft_rows(z[None] if squeeze else z, m, device)
+    return out[0] if squeeze else out
+
+
 # ---------------------------------------------------------------------------
 # Streaming megakernels: the whole client op in one launch (K5, K6)
 # ---------------------------------------------------------------------------
 
 
 def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
-                          seed: int, nonce0: int, datapath: str = "df32"):
-    """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N) int32."""
+                          seed: int | None = None, nonce0: int = 0,
+                          datapath: str = "f64"):
+    """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N) int32.
+    ``seed`` None is the profile's seed."""
+    seed = ctx.params.seed if seed is None else seed
     if common.route(planes[0].device) == "cuda":
         return client_stream.encode_encrypt_stream_cuda(
             planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
@@ -289,7 +309,7 @@ def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
 
 
 def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
-                          datapath: str = "df32"):
+                          datapath: str = "f64"):
     """(B, >=2, N) int32 ciphertext stacks, (B,) scales (float32 on the
     df32 datapath, float64 on the f64 one) -> four (B, n_slots) planes."""
     if common.route(c0.device) == "cuda":
@@ -312,7 +332,7 @@ def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
 
 def _server(name: str, x, *args, **kwargs):
     if common.route(x.device) == "cuda":
-        common.check_datapath(kwargs.pop("datapath", "df32"))
+        common.check_datapath(kwargs.pop("datapath", "f64"))
         args = tuple(a.contiguous() if hasattr(a, "contiguous") else a
                      for a in args)
         return getattr(server_eval, name + "_cuda")(*args, **kwargs)
@@ -327,25 +347,25 @@ def server_add_pt(c0, c1, pt, ctx: CKKSContext):
     return _server("add_pt", c0, c0, c1, pt, ctx)
 
 
-def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, rescale: bool = False,
-                  datapath: str = "df32"):
+def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, datapath: str = "f64",
+                  rescale: bool = False):
     """ct x pt (K7), or fused with the rescale that follows (K8b)."""
     return _server("mul_pt_rescale" if rescale else "mul_pt", c0, c0, c1,
                    pt_mont, ctx, datapath=datapath)
 
 
-def server_rescale(c0, c1, ctx: CKKSContext, datapath: str = "df32"):
+def server_rescale(c0, c1, ctx: CKKSContext, datapath: str = "f64"):
     return _server("rescale", c0, c0, c1, ctx, datapath=datapath)
 
 
 def server_mul_ct(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext,
-                  datapath: str = "df32"):
+                  datapath: str = "f64"):
     return _server("mul_ct_relin", a0, a0, a1, b0, b1, ksk_b, ksk_a, ctx,
                    datapath=datapath)
 
 
 def server_rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext,
-                  datapath: str = "df32"):
+                  datapath: str = "f64"):
     return _server("rotate", c0, c0, c1, perm, ksk_b, ksk_a, ctx,
                    datapath=datapath)
 
@@ -355,6 +375,6 @@ def server_ks_decompose(c1, ctx: CKKSContext):
 
 
 def server_ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext,
-                        datapath: str = "df32"):
+                        datapath: str = "f64"):
     return _server("ks_apply_rot", c0, c0, h, perm, ksk_b, ksk_a, ctx,
                    datapath=datapath)

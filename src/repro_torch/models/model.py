@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -42,16 +43,6 @@ from repro_torch.models.config import ArchConfig, SSMConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, F32
 
 GLOBAL_WINDOW = 1 << 30       # the window of a global layer
-
-
-def resolve_device(device, what: str) -> torch.device:
-    """``device`` as a ``torch.device``: the card when None. Raises when
-    the card is asked for and CUDA is absent (no hidden CPU fall-back)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{what} runs on the card by default and CUDA is "
-                           f"not available; pass device='cpu' for the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

@@ -91,8 +91,11 @@ def _dispatch(xt, topi, topv, e: int, cap: int, top_k_: int):
     sink = e * cap - 1
     target = torch.where(keep, slot, sink)
     last = torch.where(target == sink, same, -1).max()
-    at = last.clamp(min=0)
-    last_row = torch.where(keep[at], xc[st[at]], 0)
+    at = last.clamp(min=0).reshape(1)
+    # index_select, not a 0-d index: no host read of the position (the
+    # dry-run traces this under FakeTensorMode)
+    last_row = torch.where(keep.index_select(0, at)[0],
+                           xc.index_select(0, st.index_select(0, at))[0], 0)
     slab[sink] = torch.where(last >= 0, last_row, slab[sink])
     return slab.reshape(e, cap, d), (order, sw, keep, slot)
 
@@ -131,7 +134,9 @@ def _experts(p, slabs):
 def _aux(probs, topi, e: int):
     """Switch-style load-balance loss."""
     first = topi[..., 0].reshape(-1)
-    density = torch.bincount(first, minlength=e).to(F32) / first.numel()
+    counts = torch.zeros(e, dtype=torch.int64, device=first.device)
+    counts.scatter_add_(0, first, torch.ones_like(first))
+    density = counts.to(F32) / first.numel()
     router_prob = probs.reshape(-1, e).mean(0)
     return e * torch.sum(density * router_prob)
 

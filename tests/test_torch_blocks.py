@@ -6,7 +6,13 @@ NTT/INTT stage loops) are exact, so eager JAX is compared directly. The
 df32 blocks compare with the JAX side under ``jax.disable_jit()``: op by
 op, XLA has nothing to contract into an FMA, so it is IEEE-strict like the
 port. The constant tables are host numpy on both sides and are compared on
-``tiny``, ``test`` and ``paper``. Tolerance everywhere: 0 (words, or ULPs).
+``tiny``, ``test``, ``paper``, ``server``, ``tinyboot``, ``n14`` and
+``boot``. The host names of the reference's core and kernel modules that
+no client path runs (the stacked transforms and REDCs, the df FFTs, the
+context cache, the plan keys, the ``ref`` oracles, K4 on complex rows) are
+held against theirs at the end. Tolerance everywhere: 0 (words, or ULPs),
+but K4 on complex rows against the complex128 oracle (2^-40 of the rows'
+scale).
 """
 
 import numpy as np
@@ -15,7 +21,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.core import cache as jcache
 from repro.core import context as jctx
+from repro.core import fft as jfftc
 from repro.core import dfloat as jdfl
 from repro.core import encoder as jenc
 from repro.core import encryptor as jencr
@@ -25,8 +33,11 @@ from repro.core import prng as jprng
 from repro.core import rns as jrns
 from repro.kernels import common as jcommon
 from repro.kernels import fft_df as jfft
+from repro.kernels import ref as jref
 
+from repro_torch.core import cache as tcache
 from repro_torch.core import context as tctx
+from repro_torch.core import fft as tfftc
 from repro_torch.core import dfloat as tdfl
 from repro_torch.core import encoder as tenc
 from repro_torch.core import encryptor as tencr
@@ -36,6 +47,8 @@ from repro_torch.core import prng as tprng
 from repro_torch.core import rns as trns
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import fft_df as tfft
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 SEEDS = [0x243F6A8885A308D313198A2E03707344, (1 << 128) - 1, 12345]
 MASK32 = 0xFFFFFFFF
@@ -223,7 +236,8 @@ def test_ntt_intt_stages(profile, row):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("profile", ["tiny", "test", "paper"])
+@pytest.mark.parametrize("profile", ["tiny", "test", "paper", "server",
+                                     "tinyboot", "n14", "boot"])
 def test_constant_tables(profile):
     jc, tc = jctx.get_context(profile), tctx.get_context(profile)
     p = jc.params
@@ -380,3 +394,187 @@ def test_fft_stage_pipeline(inverse):
             torch.tensor(tw), offsets, n=n, inverse=inverse)
     for g, w in zip(tdfl.dfc_to_planes(got), jdfl.dfc_to_planes(want)):
         _same_bits(g, w)
+
+
+# ---------------------------------------------------------------------------
+# host names no client path runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("profile", ["tiny", "test"])
+def test_stacked_transforms_and_redc(profile):
+    """``intt_stacked`` (and ``ntt_stacked`` before it), the stacked REDCs
+    and ``StackedPlans.bcast`` == the reference's, word for word."""
+    jc, tc = jctx.get_context(profile), tctx.get_context(profile)
+    L, n = jc.params.n_limbs, jc.params.n
+    jsp, tsp = jc.stacked_plans(), tc.stacked_plans()
+    rng = np.random.default_rng(31)
+    q = np.array(jc.q_list, np.uint64)[:, None, None]
+    x = (rng.integers(0, 1 << 32, (L, 2, n), dtype=np.uint64) % q).astype(
+        np.uint32)
+    np.testing.assert_array_equal(
+        _u32(tntt.ntt_stacked(_i64(x), tsp)),
+        np.asarray(jntt.ntt_stacked(jnp.asarray(x), jsp)))
+    np.testing.assert_array_equal(
+        _u32(tntt.intt_stacked(_i64(x), tsp)),
+        np.asarray(jntt.intt_stacked(jnp.asarray(x), jsp)))
+    for i in (0, L - 1):
+        np.testing.assert_array_equal(
+            _u32(tntt.intt_stacked(_i64(x), tsp)[i]),
+            _u32(tntt.intt(_i64(x[i]), tc.plans[i])))
+    qb = tsp.bcast(tsp.q, 3)
+    assert qb.shape == (L, 1, 1) and qb.shape == jsp.bcast(jsp.q, 3).shape
+    np.testing.assert_array_equal(qb.astype(np.uint64), jsp.bcast(jsp.q, 3))
+    b = (rng.integers(0, 1 << 32, (L, 2, n), dtype=np.uint64) % q).astype(
+        np.uint32)
+    qi = jsp.bcast(jsp.qinv_neg, 3)
+    want = np.asarray(jmod.mulmod_montgomery_stacked(
+        jnp.asarray(x), jnp.asarray(b), jnp.asarray(jsp.bcast(jsp.q, 3)),
+        jnp.asarray(qi)))
+    tq = torch.as_tensor(qb)
+    tqi = torch.as_tensor(tsp.bcast(tsp.qinv_neg, 3))
+    for f in (tmod.mulmod_montgomery_stacked,
+              tmod.mulmod_montgomery_u64_stacked):
+        np.testing.assert_array_equal(_u32(f(_i64(x), _i64(b), tq, tqi)),
+                                      want)
+    np.testing.assert_array_equal(want, np.asarray(
+        jmod.mulmod_montgomery_u64_stacked(
+            jnp.asarray(x), jnp.asarray(b),
+            jnp.asarray(jsp.bcast(jsp.q, 3)), jnp.asarray(qi))))
+
+
+def test_polymul_seeds_and_stage_twiddles():
+    """``negacyclic_polymul`` == the O(N^2) oracle and the reference;
+    ``stage_twiddles_np`` and ``TwiddleSeeds.nbytes`` == the reference's."""
+    jc, tc = jctx.get_context("tiny"), tctx.get_context("tiny")
+    rng = np.random.default_rng(32)
+    for jp, tp in zip(jc.plans[:2], tc.plans[:2]):
+        q = jp.prime.q
+        a = rng.integers(0, q, jp.n, dtype=np.uint64)
+        b = rng.integers(0, q, jp.n, dtype=np.uint64)
+        got = tntt.negacyclic_polymul(_i64(a), _i64(b), tp).numpy()
+        np.testing.assert_array_equal(
+            got.astype(np.uint64), jntt.negacyclic_polymul_schoolbook(a, b,
+                                                                      q))
+        np.testing.assert_array_equal(got.astype(np.uint64), np.asarray(
+            jntt.negacyclic_polymul(jnp.asarray(a), jnp.asarray(b), jp)))
+        assert tp.seeds.nbytes() == jp.seeds.nbytes()
+        s = jp.seeds
+        for base, step in zip(s.fwd_base + s.inv_base,
+                              s.fwd_step + s.inv_step):
+            for m in (1, 8, jp.n // 2):
+                np.testing.assert_array_equal(
+                    tntt.stage_twiddles_np(base, step, m, q),
+                    jntt.stage_twiddles_np(base, step, m, q))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_special_fft_df(inverse):
+    """The df32 reference transforms == the reference's op by op (JAX
+    side under ``jax.disable_jit``), on every plane."""
+    p = jctx.get_context("test").params
+    rng = np.random.default_rng(33)
+    z = (rng.standard_normal((2, p.n_slots))
+         + 1j * rng.standard_normal((2, p.n_slots)))
+    jf = jfftc.special_ifft_df if inverse else jfftc.special_fft_df
+    tf = tfftc.special_ifft_df if inverse else tfftc.special_fft_df
+    with jax.disable_jit():
+        want = jf(jdfl.dfc_from(jnp.asarray(z)), p.m)
+    got = tf(tdfl.dfc_from(z), p.m)
+    for g, w in zip(tdfl.dfc_to_planes(got), jdfl.dfc_to_planes(want)):
+        _same_bits(g, w)
+
+
+def test_df_names():
+    """``df_neg``, ``dfc_from``, ``dfc_to_complex`` and ``DF.dtype`` ==
+    the reference's."""
+    rng = np.random.default_rng(34)
+    z = rng.standard_normal(64) + 1j * rng.standard_normal(64)
+    tz, jz = tdfl.dfc_from(z), jdfl.dfc_from(jnp.asarray(z))
+    for g, w in zip(tdfl.dfc_to_planes(tz), jdfl.dfc_to_planes(jz)):
+        _same_bits(g, w)
+    assert tz.re.dtype == torch.float32 and jz.re.dtype == jnp.float32
+    assert tdfl.dfc_from(z, tdfl.F64).im.dtype == torch.float64
+    neg = tdfl.df_neg(tz.re)
+    _same_bits(neg.hi, jdfl.df_neg(jz.re).hi)
+    _same_bits(neg.lo, jdfl.df_neg(jz.re).lo)
+    got = tdfl.dfc_to_complex(tz)
+    assert got.dtype == torch.complex128
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jdfl.dfc_to_complex(jz)))
+
+
+def test_context_names():
+    """``q_product`` / ``modulus_bits`` == the reference's; the bounded
+    context cache evicts down to its capacity and counts evictions, as the
+    reference's does; ``plan_key`` / ``plans_key`` are its keys."""
+    from repro_torch.core.context import CKKSParams
+    for profile in ("tiny", "paper"):
+        jc, tc = jctx.get_context(profile), tctx.get_context(profile)
+        for L in (2, jc.params.n_limbs):
+            assert tc.q_product(L) == jc.q_product(L)
+            assert tc.modulus_bits(L) == jc.modulus_bits(L)
+        assert tc.modulus_bits() == jc.modulus_bits()
+        assert tcache.plan_key(tc.plans[0]) == jcache.plan_key(jc.plans[0])
+        assert tcache.plans_key(tc.plans) == jcache.plans_key(jc.plans)
+    old = tctx.set_context_cache_capacity(2)
+    try:
+        ev = tctx.context_cache_evictions()
+        assert tctx.context_cache_len() <= 2
+        for k in range(3):
+            tctx.get_context(CKKSParams(logn=6, n_limbs=3, decrypt_limbs=2,
+                                        delta_bits=40, seed=k))
+        assert tctx.context_cache_len() == 2
+        assert tctx.context_cache_evictions() >= ev + 1
+    finally:
+        assert tctx.set_context_cache_capacity(old) == 2
+
+
+def test_ref_oracles():
+    """``ref.encrypt_pointwise`` / ``decrypt_pointwise`` and the complex
+    oracles == the reference's."""
+    jc, tc = jctx.get_context("tiny"), tctx.get_context("tiny")
+    L, n = jc.params.n_limbs, jc.params.n
+    rng = np.random.default_rng(35)
+    q = np.array(jc.q_list, np.uint64)[:, None]
+    w = [(rng.integers(0, 1 << 32, (L, n), dtype=np.uint64) % q).astype(
+        np.uint32) for _ in range(6)]
+    want = jref.encrypt_pointwise(*map(jnp.asarray, w), jc, L)
+    got = tref.encrypt_pointwise(*map(_i64, w), tc, L)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(_u32(g), np.asarray(x))
+    np.testing.assert_array_equal(
+        _u32(tref.decrypt_pointwise(*map(_i64, w[:3]), tc, 2)),
+        np.asarray(jref.decrypt_pointwise(*map(jnp.asarray, w[:3]), jc, 2)))
+    z = rng.standard_normal((2, 32)) + 1j * rng.standard_normal((2, 32))
+    m = jc.params.m
+    np.testing.assert_array_equal(tref.special_fft_rows(z, m),
+                                  jref.special_fft_rows(z, m))
+    np.testing.assert_array_equal(tref.special_ifft_rows(z, m),
+                                  jref.special_ifft_rows(z, m))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k4_on_complex_rows(inverse):
+    """``fft_df.special_fft_rows`` / ``special_ifft_rows`` and
+    ``ops.special_fft`` / ``special_ifft`` on the CPU (K4's plain version)
+    == the df32 planes route, within 2^-40 of the complex128 oracle; a
+    1-D input comes back 1-D."""
+    p = tctx.get_context("test").params
+    rng = np.random.default_rng(36)
+    z = rng.standard_normal((3, p.n_slots)) + 1j * rng.standard_normal(
+        (3, p.n_slots))
+    rows = tfft.special_ifft_rows if inverse else tfft.special_fft_rows
+    op = tops.special_ifft if inverse else tops.special_fft
+    oracle = tfftc.special_ifft if inverse else tfftc.special_fft
+    got = rows(z, p.m, "cpu")
+    planes = tdfl.dfc_to_planes(tdfl.dfc_from(z))
+    f = tfft.special_ifft_planes if inverse else tfft.special_fft_planes
+    np.testing.assert_array_equal(
+        got, tdfl.dfc_to_complex(tdfl.dfc_from_planes(f(planes, p.m))))
+    want = oracle(z, p.m)
+    assert np.max(np.abs(got - want)) <= 2.0 ** -40 * np.max(np.abs(want))
+    np.testing.assert_array_equal(op(z[1], p.m, "cpu"), got[1])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rows(z, p.m)

@@ -33,7 +33,12 @@
     substrate: ``init_params``, ``params_from_numpy``, ``ServingEngine``,
     ``serve``, ``private_inference.run`` and the two CLIs raise without
     CUDA unless given ``device='cpu'``;
-  * the port's ``fhe_client.service`` exports the reference's names.
+  * the port's ``fhe_client.service`` exports the reference's names, and
+    so do ``core`` and ``fhe_server``;
+  * the ops-level server and stream entries and ``prng.cbd`` take the
+    reference's positional parameters and defaults (read with ``ast``),
+    but for the named deviations (Pallas-only parameters dropped, a
+    ``device`` appended); ``MeshWorker.serve()`` takes no argument.
 """
 
 import ast
@@ -130,6 +135,18 @@ def test_scans_cover_training_modules():
                  "repro_torch.data.pipeline"}
     assert training <= names
     for name in training:
+        path = SRC.joinpath(*name.split(".")).with_suffix(".py")
+        assert not _tries_by_function(path), name
+
+
+def test_scans_cover_launch_modules():
+    """The quickstart, the mesh descriptions, the specs and the dry-run
+    are in the no-jax / no-try scans, and hold no ``try``."""
+    names = {_module_name(p) for p in MODULES}
+    launch = {f"repro_torch.launch.{m}" for m in (
+        "quickstart", "mesh", "specs", "dryrun")}
+    assert launch <= names
+    for name in launch:
         path = SRC.joinpath(*name.split(".")).with_suffix(".py")
         assert not _tries_by_function(path), name
 
@@ -674,3 +691,123 @@ def test_simulate_private_inference(tiny_client):
     assert info["roundtrip_err"] < 2.0 ** -19
     np.testing.assert_allclose(y, 2.0 * x[:, :7], atol=2.0 ** -17)
     assert tiny_client.ciphertext_bytes() == 2 * 3 * 64 * 4
+
+
+# The reference's signatures against the port's, read with ``ast`` (no JAX).
+# Allowed deviations: the reference's Pallas-only parameters are dropped,
+# and the port may append ``device``.
+PALLAS_ONLY = ("interpret", "block_rows", "batch_block")
+SIGNATURES = [("kernels/ops.py", "kernels.ops", name) for name in (
+    "server_add_ct", "server_add_pt", "server_mul_pt", "server_rescale",
+    "server_mul_ct", "server_rotate", "server_ks_decompose",
+    "server_ks_apply_rot", "encode_encrypt_stream",
+    "decrypt_decode_stream")] + [("core/prng.py", "core.prng", "cbd")]
+
+
+def _reference_signature(rel: str, name: str) -> list:
+    """[(name, default or ``inspect.Parameter.empty``)] of the reference's
+    module-level function ``name``, without its Pallas-only parameters."""
+    import inspect
+    path = SRC / "repro" / rel
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for fn in tree.body:
+        if isinstance(fn, ast.FunctionDef) and fn.name == name:
+            args = fn.args.posonlyargs + fn.args.args
+            defaults = [inspect.Parameter.empty] * (
+                len(args) - len(fn.args.defaults)) + [
+                ast.literal_eval(d) for d in fn.args.defaults]
+            return [(a.arg, d) for a, d in zip(args, defaults)
+                    if a.arg not in PALLAS_ONLY]
+    raise AssertionError(f"{name} not found in {path}")
+
+
+@pytest.mark.parametrize("rel,module,name", SIGNATURES,
+                         ids=[s[2] for s in SIGNATURES])
+def test_signatures_match_reference(rel, module, name):
+    """Each listed function takes the reference's positional parameters in
+    its order, with its defaults: a call written for the reference binds
+    the same way in the port."""
+    import importlib
+    import inspect
+    fn = getattr(importlib.import_module(f"repro_torch.{module}"), name)
+    params = inspect.signature(fn).parameters
+    got = [(n, p.default) for n, p in params.items()
+           if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    want = _reference_signature(rel, name)
+    if len(got) == len(want) + 1 and got[-1][0] == "device":
+        got = got[:-1]
+    assert got == want
+    assert not [n for n, p in params.items() if p.kind == p.KEYWORD_ONLY
+                and n != "device"]
+
+
+def test_cbd_takes_eta_as_reference():
+    """``cbd(seed, stream, n, 21)`` binds ``eta``, and eta above 21 fails
+    the reference's assert."""
+    from repro_torch.core import prng
+    a = prng.cbd(7, 3, 64, 21)
+    assert torch.equal(a, prng.cbd(7, 3, 64, device="cpu"))
+    with pytest.raises(AssertionError):
+        prng.cbd(7, 3, 64, 22)
+
+
+def test_server_mul_pt_binds_datapath_positionally(tiny_client):
+    """``server_mul_pt(c0, c1, pt, ctx, 'f64')`` names the datapath, as in
+    the reference, and keeps every limb (no fused rescale)."""
+    ctx = tiny_client.ctx
+    x = torch.zeros((1, 3, 64), dtype=torch.int32)
+    pt = torch.zeros((3, 64), dtype=torch.int32)
+    c0, c1 = ops.server_mul_pt(x, x, pt, ctx, "f64")
+    assert tuple(c0.shape) == tuple(c1.shape) == (1, 3, 64)
+    c0, _ = ops.server_mul_pt(x, x, pt, ctx, "f64", True)
+    assert tuple(c0.shape) == (1, 2, 64)
+
+
+def test_stream_entries_take_reference_defaults(tiny_client):
+    """The ops-level stream entries called as the reference's tests call
+    them (``nonce0=0``, no seed: the profile's): the f64 datapath by
+    default, the client's words."""
+    ctx = tiny_client.ctx
+    keys = tiny_client.keys
+    msgs = np.full((2, 32), 0.25 - 0.5j)
+    planes = tiny_client.encrypt_operands(msgs)
+    c0, c1 = ops.encode_encrypt_stream(planes, keys.pk.b_mont,
+                                       keys.pk.a_mont, ctx, nonce0=0)
+    w0, w1 = ops.encode_encrypt_stream(planes, keys.pk.b_mont,
+                                       keys.pk.a_mont, ctx, ctx.params.seed,
+                                       0, "f64")
+    assert torch.equal(c0, w0) and torch.equal(c1, w1)
+    scale = torch.full((2,), ctx.params.delta, dtype=torch.float64)
+    out = ops.decrypt_decode_stream(c0[:, :2], c1[:, :2], keys.sk.s_mont,
+                                    ctx, scale)
+    want = ops.decrypt_decode_stream(c0[:, :2], c1[:, :2], keys.sk.s_mont,
+                                     ctx, scale, "f64")
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("package", ["core", "fhe_server"])
+def test_package_exports_match_reference(package):
+    """``repro_torch.core`` and ``repro_torch.fhe_server`` export the
+    reference's names (``from repro_torch.core import keygen`` works), and
+    every name resolves."""
+    import importlib
+    port = importlib.import_module(f"repro_torch.{package}")
+    ref = _reference_all(SRC / "repro" / package / "__init__.py")
+    assert sorted(getattr(port, "__all__", [])) == sorted(ref)
+    for name in ref:
+        assert getattr(port, name) is not None
+
+
+def test_mesh_worker_serve_takes_no_argument():
+    """``MeshWorker.serve()`` takes what the reference's takes (nothing):
+    it starts its own frame reader."""
+    import inspect
+    from repro_torch.fhe_client.service.worker import MeshWorker
+    path = SRC / "repro" / "fhe_client" / "service" / "worker.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "MeshWorker")
+    fn = next(f for f in cls.body if isinstance(f, ast.FunctionDef)
+              and f.name == "serve")
+    assert [a.arg for a in fn.args.args] == ["self"]
+    assert list(inspect.signature(MeshWorker.serve).parameters) == ["self"]

@@ -19,7 +19,8 @@ four decoded planes must be identical words; the port decodes the
 reference's own ciphertexts, so each direction is held on its own. The
 port's ``ClientService`` (a CPU client, two logical streams) encrypts the
 B=16 case's messages from its nonce base to the JAX client's words too,
-and a request sequence (a closed loop, then an always-on run) to the JAX
+and so does the port's staged pipeline (encrypt and decode), and a
+request sequence (a closed loop, then an always-on run) to the JAX
 ``ClientService``'s words on the same sequence. Tolerance: 0.
 """
 
@@ -233,6 +234,31 @@ def test_service_full_bucket_matches_reference(jax_reference):
     planes = ref["planes"].astype(np.float64)
     np.testing.assert_array_equal(out, (planes[0] + planes[1])
                                   + 1j * (planes[2] + planes[3]))
+
+
+def test_staged_full_bucket_matches_reference(jax_reference):
+    """The B=16 case through the staged pipeline (``pipeline='staged'``:
+    K4, K1, K2 and K3, K4 again, as their plain versions on the CPU): its
+    ciphertexts are the JAX client's words from the same nonce base (8
+    below 2^32), and it decodes the JAX ciphertexts to the JAX planes'
+    words (the JAX package holds its staged and megakernel paths to the
+    same words)."""
+    _, profile, batch, seed, nonce0, _ = _case("tiny_b16")
+    ref = jax_reference["tiny_b16"]
+    client = FHEClient(profile, seed=seed, device="cpu", pipeline="staged")
+    client.nonce = nonce0
+    cts = client.encode_encrypt_batch(ref["msgs"])
+    assert client.nonce == nonce0 + batch
+    np.testing.assert_array_equal(_u32(cts.c0), ref["c0"])
+    np.testing.assert_array_equal(_u32(cts.c1), ref["c1"])
+    jcts = CiphertextBatch(
+        c0=torch.tensor(ref["c0"].view(np.int32)),
+        c1=torch.tensor(ref["c1"].view(np.int32)),
+        n_limbs=ref["c0"].shape[1], scale=client.ctx.params.delta)
+    got = np.stack([p.numpy() for p in client.decrypt_planes(
+        jcts.truncated(2))])
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  ref["planes"].view(np.uint32))
 
 
 @pytest.mark.parametrize("always_on", [False, True],
