@@ -192,7 +192,29 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      (the batch left out: its size is the cell's own); the dry-run reaches
      no kernel (the counters read 0 after (b) and (c)); prints the phase's
      JSON line;
- 15. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 15. the contracts the CPU mirrors of the reference's tests hold
+     (``tests/test_torch_{client_stream,device_fourier,ckks,server_ops,
+     rules}.py``), on the card at ``paper`` / ``server`` / ``boot``, each
+     with the counters set to 0 just before and read just after: (a) 16
+     B=1 ``encode_encrypt_batch`` calls from nonce base 0 == one B=16 call,
+     word for word, on the megakernel (K5, 17 launches) and the staged
+     df32 client (K2, 17), and the two walked from nonce base 300 give the
+     same words for 3 batches, both ending at 303; (b) ``decrypt_batch``
+     of 4 two-limb ciphertexts, rows 1 and 3 at twice the message and
+     twice the scale, through K6's per-row scale operand: within 1e-4;
+     (c) a B=16 round trip calls the host SpecialFFT / SpecialIFFT
+     (``core/fft.py``) and ``numpy.fft`` 0 times on both device pipelines
+     and at least once with ``fourier='host'``, each >= 19.29 bits; (d)
+     the megakernel's ciphertexts under a key of seed 0xDEADBEEF: < 5
+     bits; (e) the ``server`` preset at level 4: add_ct < 2^-15, mul_ct <
+     2^-13, rotate(1) < 2^-14 (``test_server_ops.py:669``), and at
+     ``boot`` level 6 a raw mul_pt (K7) then rescale (K8) == the fused
+     mul_pt + rescale (K8b), word for word; (f) on card tensors, rescale
+     at level 2, ``drop_to(1)``, a scale mismatch and mul_ct without a
+     relinearization key raise ``AssertionError`` (the reference's
+     asserts), a missing rotation key ``KeyError``, and no kernel
+     launches; prints the phase's JSON line;
+ 16. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
      service phase's, the private-inference loop's and the quickstart's,
@@ -3353,6 +3375,293 @@ def _launch_phase(dev, card: str, train_big: dict) -> dict:
     return out
 
 
+
+# --- phase 15: the reference tests' contracts on the card ---------------------
+# What tests/test_torch_{client_stream,device_fourier,ckks,server_ops,rules}.py
+# hold at tiny / test on the CPU, held on the card at the sizes users run:
+# (a) the nonce layout, (b) per-row scales, (c) no host FFT on the device
+# pipelines, (d) a wrong key, (e) the server preset sweep and raw mul_pt +
+# rescale == the fused K8b, (f) the reference's guards.
+
+MIRROR_NONCE_BASE, MIRROR_WALK = 300, 3     # (a) test_client_stream.py:239
+MIRROR_SCALED_ROWS = (1, 3)                 # (b) rows at twice the scale
+MIRROR_WRONG_SEED = 0xDEADBEEF              # (d) test_ckks.py:119
+MIRROR_WRONG_BITS = 5
+MIRROR_SWEEP_LEVEL = 4                      # (e) test_server_ops.py:669
+MIRROR_SWEEP_BUDGET = {"add_ct": 2.0 ** -15, "mul_ct": 2.0 ** -13,
+                       "rotate": 2.0 ** -14}
+MIRROR_BOOT_LEVEL = 6                       # (e) the boot flow's level
+HOST_FFTS = ("fft", "ifft", "rfft", "irfft", "fftn", "ifftn", "fft2", "ifft2")
+
+
+class _Raised:
+    """Lets an exception raised in its block go no further and records its
+    type: what (f) holds against the reference's. A check that fails still
+    ends the run through ``_fail``."""
+
+    type = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, et, ev, tb):
+        self.type = et
+        return et is not None and issubclass(et, Exception)
+
+
+@contextlib.contextmanager
+def _count_host_ffts():
+    """Counts calls of the port's host SpecialFFT / SpecialIFFT
+    (``core/fft.py``) and of ``numpy.fft``'s transforms while it is open."""
+    import numpy as np
+    from repro_torch.core import fft as fftmod
+    calls = {"special_fft": 0, "special_ifft": 0, "numpy.fft": 0}
+    saved = [(fftmod, n, getattr(fftmod, n))
+             for n in ("special_fft", "special_ifft")]
+    saved += [(np.fft, n, getattr(np.fft, n)) for n in HOST_FFTS]
+
+    def counting(mod, name, fn):
+        key = name if mod is fftmod else "numpy.fft"
+
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(mod, name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _mirror_phase(dev, card: str, mega, staged, setups) -> dict:
+    """Phase 15: the CPU mirrors' contracts on the card. (a) 16 B=1
+    ``encode_encrypt_batch`` calls from nonce base 0 == one B=16 call on
+    the megakernel (K5) and the staged df32 (K2) client at ``paper``, and
+    the two walked from base 300 give the same words, both ending at 303;
+    (b) ``decrypt_batch`` of 2-limb ciphertexts with per-row scales (K6's
+    scale operand) within 1e-4; (c) a B=16 round trip makes 0 host FFT
+    calls on both device pipelines, >= 1 with ``fourier='host'``; (d) a
+    key of another seed < 5 bits, the right key >= 19.29; (e) the
+    ``server`` sweep at level 4 within the reference's budgets, and at
+    ``boot`` level 6 a raw mul_pt then rescale == the fused K8b; (f)
+    ``AssertionError`` at the reference's asserts, ``KeyError`` for a
+    missing rotation key, on card tensors, with no kernel launched."""
+    import numpy as np
+    import torch
+    from repro_torch.core import encryptor
+    from repro_torch.core.encoder import boot_precision_bits
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.fhe_server import (ServerCiphertext, ServerEvaluator,
+                                        encode_plaintext)
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(fn):
+        """fn() with every counter set to 0 just before, read just after."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        used = {k: v for k, v in ops.launches().items() if v}
+        for k, v in used.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        return r, used
+
+    def needs(used: dict, want: dict, what: str) -> None:
+        for k, n in want.items():
+            if used.get(k, 0) < n:
+                _fail(f"{what}: {k} launched {used.get(k, 0)} times, "
+                      f"expected {n} ({used})")
+
+    p = mega.ctx.params
+    ns, b = p.n_slots, MAIN_BATCH
+
+    # (a) the nonce layout, K5 and K2
+    msgs = _messages(ns, b, 11)
+    out["nonce_layout"] = {}
+    for c, kernel in ((mega, "encode_encrypt_stream"),
+                      (staged, "encrypt_limbs")):
+        def rows_then_full(c=c):
+            c.nonce = 0
+            rows = [c.encode_encrypt_batch(msgs[i:i + 1]) for i in range(b)]
+            c.nonce = 0
+            return rows, c.encode_encrypt_batch(msgs)
+        (rows, full), used = counted(rows_then_full)
+        needs(used, {kernel: b + 1}, f"nonce layout ({c.pipeline})")
+        differ = (int((torch.cat([r.c0 for r in rows]) != full.c0).sum())
+                  + int((torch.cat([r.c1 for r in rows]) != full.c1).sum()))
+        if differ:
+            _fail(f"{c.pipeline}: 16 B=1 calls differ from one B=16 call "
+                  f"in {differ} words")
+        out["nonce_layout"][c.pipeline] = {"kernel": kernel,
+                                           "launches": used.get(kernel, 0),
+                                           "differing_words": differ}
+        del rows, full
+    mega.nonce = staged.nonce = MIRROR_NONCE_BASE
+    walk = 0
+    for k in range(MIRROR_WALK):
+        one = _messages(ns, 1, 20 + k)
+        bs, bm = staged.encode_encrypt_batch(one), mega.encode_encrypt_batch(
+            one)
+        walk += int((bs.c0 != bm.c0).sum()) + int((bs.c1 != bm.c1).sum())
+    if walk or not staged.nonce == mega.nonce == MIRROR_NONCE_BASE \
+            + MIRROR_WALK:
+        _fail(f"walk from nonce {MIRROR_NONCE_BASE}: {walk} differing "
+              f"words, nonces {staged.nonce} / {mega.nonce}")
+    out["nonce_walk"] = {"from": MIRROR_NONCE_BASE, "batches": MIRROR_WALK,
+                         "end": mega.nonce, "differing_words": walk}
+
+    # (b) per-row scales through K6's scale operand
+    rows4 = _messages(ns, 4, 5)
+    cts = []
+    for i in range(4):
+        twice = i in MIRROR_SCALED_ROWS
+        ct = mega.encode_encrypt_batch(rows4[i:i + 1] * (2 if twice else 1))
+        cts.append(encryptor.Ciphertext(
+            c0=ct.c0[0, :2], c1=ct.c1[0, :2], n_limbs=2,
+            scale=ct.scale * (2 if twice else 1)))
+    got, used = counted(lambda: mega.decrypt_batch(cts))
+    needs(used, {"decrypt_decode_stream": 1}, "per-row scales")
+    err = float(np.max(np.abs(got - rows4)))
+    if not err < 1e-4:
+        _fail(f"per-row scales: max error {err} >= 1e-4")
+    out["per_row_scales"] = {"rows": 4, "scales": [ct.scale for ct in cts],
+                             "max_err": err}
+    del cts
+
+    # (c) no host FFT on the device pipelines; (d) a wrong key
+    host = FHEClient(MAIN_PROFILE, seed=SEED, fourier="host", device=dev)
+    out["host_fft_calls"] = {}
+    for c in (mega, staged, host):
+        name = c.pipeline if c.fourier == "device" else "host"
+        with _count_host_ffts() as calls:
+            def round_trip(c=c):
+                x = c.encode_encrypt_batch(msgs)
+                return x, c.decrypt_decode_batch(x.truncated(2))
+            (x, z), _ = counted(round_trip)
+        bits = boot_precision_bits(msgs, z)
+        n_calls = sum(calls.values())
+        if not bits >= BOOT_PREC_BITS:
+            _fail(f"{name} round trip {bits} bits < {BOOT_PREC_BITS}")
+        if (name == "host") != (n_calls > 0):
+            _fail(f"{name} round trip made {calls} host FFT calls")
+        out["host_fft_calls"][name] = dict(calls)
+        out["round_trip_bits"] = dict(out.get("round_trip_bits", {}),
+                                      **{name: bits})
+        if c is mega:
+            mega_cts = x
+        del x, z
+    other = FHEClient(MAIN_PROFILE, seed=MIRROR_WRONG_SEED, device=dev)
+    wrong = boot_precision_bits(
+        msgs, other.decrypt_decode_batch(mega_cts.truncated(2)))
+    right = out["round_trip_bits"]["megakernel"]
+    if not (wrong < MIRROR_WRONG_BITS and right >= BOOT_PREC_BITS):
+        _fail(f"wrong key: {wrong} bits (bar < {MIRROR_WRONG_BITS}), right "
+              f"key {right}")
+    out["wrong_key"] = {"seed": MIRROR_WRONG_SEED, "bits": wrong,
+                        "right_key_bits": right}
+    del host, other, mega_cts
+
+    # (e) the server preset sweep; raw mul_pt + rescale == fused at boot
+    client, keys, ev = setups["server"]
+    sctx = client.ctx
+    rng = np.random.default_rng(41)
+    za = rng.uniform(-1, 1, sctx.params.n_slots)
+    zb = rng.uniform(-1, 1, sctx.params.n_slots)
+
+    def enc(cl, z):
+        return ServerCiphertext.from_batch(cl.encode_encrypt_batch(z[None]))
+
+    def dec(cl, ct):
+        return np.asarray(cl.decrypt_batch(list(ct.to_batch())))[0]
+
+    x = enc(client, za).drop_to(MIRROR_SWEEP_LEVEL)
+    y = enc(client, zb).drop_to(MIRROR_SWEEP_LEVEL)
+    sweep, used = counted(lambda: {
+        "add_ct": np.max(np.abs(dec(client, ev.add_ct(x, y)) - (za + zb))),
+        "mul_ct": np.max(np.abs(dec(client, ev.mul_ct(x, y)) - za * zb)),
+        "rotate": np.max(np.abs(dec(client, ev.rotate(x, 1))
+                                - np.roll(za, -1)))})
+    needs(used, {"add_ct": 1, "mul_ct": 1, "rotate": 1}, "server sweep")
+    for op, e in sweep.items():
+        if not e < MIRROR_SWEEP_BUDGET[op]:
+            _fail(f"server sweep: {op} error {e} >= "
+                  f"{MIRROR_SWEEP_BUDGET[op]}")
+    out["server_sweep"] = {"level": MIRROR_SWEEP_LEVEL,
+                           "err": {k: float(v) for k, v in sweep.items()},
+                           "budget": MIRROR_SWEEP_BUDGET}
+    bclient, _, bev = setups["boot"]
+    bctx = bclient.ctx
+    brng = np.random.default_rng(10)
+    bx = enc(bclient, brng.standard_normal(bctx.params.n_slots) * 0.5
+             ).drop_to(MIRROR_BOOT_LEVEL)
+    pt = encode_plaintext(
+        (brng.standard_normal(bctx.params.n_slots) * 0.5).astype(
+            np.complex128), bctx, MIRROR_BOOT_LEVEL,
+        float(bctx.q_list[MIRROR_BOOT_LEVEL - 1]), device=dev)
+    (fused, stepped), used = counted(lambda: (
+        bev.mul_pt(bx, pt), bev.rescale(bev.mul_pt(bx, pt, rescale=False))))
+    needs(used, {"mul_pt_rescale": 1, "mul_pt": 1, "rescale": 1},
+          "raw mul_pt + rescale")
+    if not (torch.equal(fused.c0, stepped.c0)
+            and torch.equal(fused.c1, stepped.c1)
+            and fused.scale == stepped.scale
+            and fused.level == stepped.level):
+        _fail("boot: raw mul_pt then rescale differs from the fused K8b")
+    out["raw_then_rescale"] = {"profile": "boot", "level": MIRROR_BOOT_LEVEL,
+                               "words_equal": True, "scale": fused.scale}
+
+    # (f) the reference's guards, on card tensors
+    x8 = enc(client, za)
+    norelin = ServerEvaluator(sctx, client.make_evaluation_keys(
+        rotations=(), include_relin=False))
+    guards = {
+        "rescale_at_level_2": (AssertionError,
+                               lambda: ev.rescale(x8.drop_to(2))),
+        "drop_to_1": (AssertionError, lambda: x8.drop_to(1)),
+        "add_ct_scale_mismatch": (AssertionError, lambda: ev.add_ct(
+            x8, ServerCiphertext(x8.c0, x8.c1, x8.level, 2 * x8.scale))),
+        "mul_ct_without_relin_key": (AssertionError,
+                                     lambda: norelin.mul_ct(x8, x8)),
+        "rotate_missing_key": (KeyError, lambda: ev.rotate(x8, 3)),
+    }
+    raised = {}
+
+    def run_guards():
+        for name, (want, fn) in guards.items():
+            with _Raised() as r:
+                fn()
+            raised[name] = r.type
+            if r.type is not want:
+                _fail(f"guard {name}: raised {r.type}, expected {want}")
+    _, used = counted(run_guards)
+    if used:
+        _fail(f"the guards launched kernels: {used}")
+    out["guards"] = {k: v.__name__ for k, v in raised.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    fft = {k: sum(v.values()) for k, v in out["host_fft_calls"].items()}
+    print(f"mirrors on the card: nonce layout 16 x B=1 == B=16 (K5 "
+          f"{out['nonce_layout']['megakernel']['launches']}, K2 "
+          f"{out['nonce_layout']['staged']['launches']} launches, 0 "
+          f"differing words), walk {MIRROR_NONCE_BASE} -> "
+          f"{out['nonce_walk']['end']}; "
+          f"per-row scales max err {err:.3g}; host FFT calls megakernel "
+          f"{fft['megakernel']}, staged {fft['staged']}, host "
+          f"{fft['host']}; wrong key {wrong:.2f} bits (right {right:.2f}); "
+          f"server l{MIRROR_SWEEP_LEVEL} add_ct {sweep['add_ct']:.3g} "
+          f"mul_ct {sweep['mul_ct']:.3g} rotate {sweep['rotate']:.3g}; boot "
+          f"l{MIRROR_BOOT_LEVEL} raw mul_pt + rescale == fused; guards "
+          f"{out['guards']}; phase {out['phase_s']:.1f} s  [{card}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3537,6 +3846,11 @@ def main() -> int:
     launch = _launch_phase(dev, card, train["big"])
     print(json.dumps({"launch": launch}), flush=True)
     qs_launches = launch["quickstart"]["launches"]
+
+    # --- 15. the reference tests' contracts on the card ---------------------
+    print(json.dumps({"mirrors": _mirror_phase(
+        dev, card, client_for(MAIN_PROFILE),
+        client_for(MAIN_PROFILE, "staged"), setups)}), flush=True)
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params

@@ -72,8 +72,8 @@ class CKKSContext:
         self.q_list: tuple[int, ...] = tuple(p.q for p in self.primes)
         self.plans: tuple[nttmod.NTTPlan, ...] = tuple(
             nttmod.make_plan(p, params.n) for p in self.primes)
-        if not params.delta < self.q_list[0] * self.q_list[1] / 4:
-            raise ValueError("Delta too large for 2-limb decrypt")
+        assert params.delta < self.q_list[0] * self.q_list[1] / 4, \
+            "Delta too large for 2-limb decrypt"
         self._n_plus_1 = n_plus_1
         self._special_plan: nttmod.NTTPlan | None = None
 
@@ -86,8 +86,7 @@ class CKKSContext:
             primes = find_ntt_friendly_primes(
                 p_bw=self.params.p_bw, n_plus_1=self._n_plus_1,
                 count=self.params.n_limbs + 1)
-            if primes[:-1] != self.primes:
-                raise AssertionError("prime search not prefix-stable")
+            assert primes[:-1] == self.primes, "prime search not prefix-stable"
             self._special_plan = nttmod.make_plan(primes[-1], self.params.n)
         return self._special_plan
 

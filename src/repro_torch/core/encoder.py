@@ -103,8 +103,7 @@ def slots_to_coeffs(z, ctx, fourier: str = "host", device=None):
         return slots_to_coeffs_device(torch.from_numpy(z.real.copy()).to(dev),
                                       torch.from_numpy(z.imag.copy()).to(dev),
                                       ctx)
-    if z.shape[-1] != p.n_slots:
-        raise ValueError(f"expected {p.n_slots} slots, got {z.shape[-1]}")
+    assert z.shape[-1] == p.n_slots
     w = fftmod.special_ifft(z, p.m)
     return np.concatenate([w.real, w.imag], axis=-1)
 
@@ -115,6 +114,7 @@ def slots_to_coeffs_device(re: torch.Tensor, im: torch.Tensor,
     df32 split, SpecialIFFT (K4), float64 collapse."""
     from repro_torch.kernels import ops as kops    # kernels import core
     ns = ctx.params.n_slots
+    assert re.shape[-1] == ns and re.shape == im.shape
     shp = re.shape
     z = dfl.dfc_from_parts(re.reshape(-1, ns), im.reshape(-1, ns))
     w = dfl.dfc_from_planes(kops.special_ifft_planes(dfl.dfc_to_planes(z),
@@ -153,6 +153,7 @@ def coeffs_to_slots_device(hi: torch.Tensor, lo: torch.Tensor, ctx,
     collapse."""
     from repro_torch.kernels import ops as kops
     n, ns = ctx.params.n, ctx.params.n_slots
+    assert hi.shape[-1] == n
     coeffs = hi / scale + lo / scale
     shp = coeffs[..., :ns].shape
     z = dfl.dfc_from_parts(coeffs[..., :n // 2].reshape(-1, ns),

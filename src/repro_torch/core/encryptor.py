@@ -214,9 +214,7 @@ def expand_seeded(ct: Ciphertext, ctx: CKKSContext,
                   seed: int | None = None) -> Ciphertext:
     """Regenerate c1 = a of a seeded ciphertext from its stream id (the
     receiver's side)."""
-    if ct.c1 is not None or ct.a_stream is None:
-        raise ValueError("expand_seeded needs a seeded ciphertext (c1 None, "
-                         "a_stream set)")
+    assert ct.c1 is None and ct.a_stream is not None
     seed = seed if seed is not None else ctx.params.seed
     a = _uniform_rows(seed, ct.a_stream, ctx, ct.n_limbs, ct.c0.device)
     return Ciphertext(c0=ct.c0, c1=modmul.i64_to_u32(a), n_limbs=ct.n_limbs,

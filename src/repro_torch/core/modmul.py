@@ -44,13 +44,11 @@ class MontgomeryConstants:
     @classmethod
     def make(cls, prime: NTTPrime) -> "MontgomeryConstants":
         q = prime.q
-        if q >= 1 << 31:
-            raise ValueError(f"q={q} must be below 2^31")
+        assert q < 1 << 31
         r = 1 << _R_BITS
         qinv = pow(q, -1, r)
         x = (1 << prime.p_bw) + prime.k * (1 << prime.n_plus_1)
-        if (1 - x) % r != qinv:
-            raise ValueError("eq.(11) closed form violated")
+        assert (1 - x) % r == qinv, "eq.(11) closed form violated"
         return cls(q=q, qinv_neg=(-qinv) % r, r2=(r * r) % q, r1=r % q,
                    mu=(1 << (2 * q.bit_length())) // q, p_bw=prime.p_bw,
                    n_plus_1=prime.n_plus_1, k_terms=prime.k_terms)
@@ -192,8 +190,7 @@ def mulmod_montgomery_sa_limb(a, b_mont, c: MontgomeryConstants):
     multiply; m = t_lo * (-q^-1) and m*q are shifts and adds of the prime's
     k-terms (q = 2^p_bw + k 2^(n+1) + 1). The same words as the reference
     and as every other correct REDC."""
-    if not (c.p_bw < 32 and 0 < c.n_plus_1 < 32):
-        raise ValueError("shift-add REDC needs p_bw < 32 and 0 < n+1 < 32")
+    assert c.p_bw < 32 and 0 < c.n_plus_1 < 32
     t_hi, t_lo = mul32x32(a, b_mont)
     # m = t_lo * (x - 1) mod 2^32,  x = 2^p_bw + k*2^(n+1)
     tk_lo = _mul_by_k64(t_lo, c.k_terms)[1]

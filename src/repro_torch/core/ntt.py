@@ -221,8 +221,7 @@ class StackedPlans:
 
 def stack_plans(plans) -> StackedPlans:
     n = plans[0].n
-    if any(p.n != n for p in plans):
-        raise ValueError("stacked plans must share N")
+    assert all(p.n == n for p in plans)
     return StackedPlans(
         n=n, n_limbs=len(plans),
         q=np.array([p.prime.q for p in plans], np.int64),

@@ -42,13 +42,9 @@ class ServerCiphertext:
     scale: float
 
     def __post_init__(self):
-        if not (self.c0.dim() == 3 and self.c0.shape == self.c1.shape):
-            raise ValueError(f"c0/c1 must be one (B, level, N) shape, got "
-                             f"{tuple(self.c0.shape)} / "
-                             f"{tuple(self.c1.shape)}")
-        if self.c0.shape[1] != self.level:
-            raise ValueError(f"limb axis {self.c0.shape[1]} != level "
-                             f"{self.level}")
+        assert self.c0.ndim == 3 and self.c0.shape == self.c1.shape
+        assert self.c0.shape[1] == self.level, \
+            f"limb axis {self.c0.shape[1]} != level {self.level}"
 
     @property
     def batch(self) -> int:
@@ -68,9 +64,7 @@ class ServerCiphertext:
 
     def drop_to(self, level: int) -> "ServerCiphertext":
         """Exact mod-switch by limb truncation (scale unchanged); a view."""
-        if not 2 <= level <= self.level:
-            raise ValueError(f"cannot drop from level {self.level} to "
-                             f"{level}")
+        assert 2 <= level <= self.level, (level, self.level)
         if level == self.level:
             return self
         return ServerCiphertext(c0=self.c0[:, :level], c1=self.c1[:, :level],
@@ -89,6 +83,4 @@ class ServerPlaintext:
     scale: float
 
     def __post_init__(self):
-        if self.data.shape[-2] != self.level:
-            raise ValueError(f"limb axis {self.data.shape[-2]} != level "
-                             f"{self.level}")
+        assert self.data.shape[-2] == self.level

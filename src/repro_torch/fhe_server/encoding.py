@@ -33,8 +33,7 @@ def encode_plaintext(z, ctx: CKKSContext, level: int, scale: float,
     from repro_torch.kernels import ops as kops      # kernels import core
     coeffs = np.asarray(encoder.slots_to_coeffs(z, ctx), dtype=np.float64)
     scaled = np.rint(coeffs * scale)
-    if not np.all(np.abs(scaled) < 2 ** 62):
-        raise ValueError("encoded value overflows int64")
+    assert np.all(np.abs(scaled) < 2 ** 62), "encoded value overflows int64"
     iv = scaled.astype(np.int64)
     res = np.stack([(iv % np.int64(q)).astype(np.uint32)
                     for q in ctx.q_list[:level]])        # (level, ..., N)

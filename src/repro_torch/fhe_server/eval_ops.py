@@ -37,11 +37,6 @@ def _scales_match(a: float, b: float) -> bool:
     return abs(a - b) <= 1e-9 * max(abs(a), abs(b))
 
 
-def _check_scales(a: float, b: float) -> None:
-    if not _scales_match(a, b):
-        raise ValueError(f"scales differ: {a!r} vs {b!r}")
-
-
 class ServerEvaluator:
     """Evaluator bound to (context, evaluation keys). Ciphertexts, keys and
     plaintexts must lie on one device; the kernels run where they lie."""
@@ -95,15 +90,13 @@ class ServerEvaluator:
     def add_ct(self, x: ServerCiphertext, y: ServerCiphertext):
         lvl = min(x.level, y.level)
         x, y = x.drop_to(lvl), y.drop_to(lvl)
-        _check_scales(x.scale, y.scale)
+        assert _scales_match(x.scale, y.scale), (x.scale, y.scale)
         c0, c1 = kops.server_add_ct(x.c0, x.c1, y.c0, y.c1, self.ctx)
         return ServerCiphertext(c0, c1, lvl, x.scale)
 
     def add_pt(self, x: ServerCiphertext, pt: ServerPlaintext):
-        if pt.level != x.level or pt.data.dim() != 2:
-            raise ValueError(f"plaintext level {pt.level} / shape "
-                             f"{tuple(pt.data.shape)} for level {x.level}")
-        _check_scales(x.scale, pt.scale)
+        assert pt.level == x.level and pt.data.ndim == 2
+        assert _scales_match(x.scale, pt.scale), (x.scale, pt.scale)
         c0, c1 = kops.server_add_pt(x.c0, x.c1, pt.data, self.ctx)
         return ServerCiphertext(c0, c1, x.level, x.scale)
 
@@ -113,9 +106,7 @@ class ServerEvaluator:
                rescale: bool = True):
         """ct x pt, fused with the rescale that follows unless `rescale` is
         False (accumulate products first, rescale once)."""
-        if pt.level != x.level or pt.data.dim() != 2:
-            raise ValueError(f"plaintext level {pt.level} / shape "
-                             f"{tuple(pt.data.shape)} for level {x.level}")
+        assert pt.level == x.level and pt.data.ndim == 2
         c0, c1 = kops.server_mul_pt(x.c0, x.c1, pt.data_mont, self.ctx,
                                     rescale=rescale, datapath=self.datapath)
         if rescale:
@@ -127,8 +118,7 @@ class ServerEvaluator:
                                 combined_scale(x.scale, pt.scale))
 
     def rescale(self, x: ServerCiphertext):
-        if x.level < 3:
-            raise ValueError("rescale below the 2-limb decrypt floor")
+        assert x.level >= 3, "rescale below the 2-limb decrypt floor"
         c0, c1 = kops.server_rescale(x.c0, x.c1, self.ctx,
                                      datapath=self.datapath)
         return ServerCiphertext(
@@ -136,8 +126,8 @@ class ServerEvaluator:
             combined_scale(x.scale, divisor=self._q_drop(x.level)))
 
     def mul_ct(self, x: ServerCiphertext, y: ServerCiphertext):
-        if self.keys is None or self.keys.relin is None:
-            raise ValueError("ct x ct needs a relinearization key")
+        assert self.keys is not None and self.keys.relin is not None, \
+            "ct x ct needs a relinearization key"
         lvl = min(x.level, y.level)
         x, y = x.drop_to(lvl), y.drop_to(lvl)
         kb, ka = self._sliced_key(self.keys.relin, lvl)

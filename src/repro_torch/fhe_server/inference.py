@@ -28,8 +28,7 @@ from repro_torch.fhe_server.eval_ops import ServerEvaluator
 def replicate_slots(x: np.ndarray, n_slots: int) -> np.ndarray:
     """(d,) real vector -> (n_slots,) block-replicated complex slots."""
     d = x.shape[-1]
-    if n_slots % d:
-        raise ValueError(f"d={d} must divide n_slots={n_slots}")
+    assert n_slots % d == 0, (d, n_slots)
     return np.tile(np.asarray(x, np.float64),
                    n_slots // d).astype(np.complex128)
 
@@ -44,11 +43,9 @@ def encrypted_matvec(ev: ServerEvaluator, ct: ServerCiphertext,
     """W @ x (+ bias) on a block-replicated ciphertext. Takes 1 level; the
     output scale equals the input scale exactly."""
     d = w.shape[0]
-    if w.shape != (d, d):
-        raise ValueError(f"W must be square, got {w.shape}")
+    assert w.shape == (d, d)
     ns = ev.ctx.params.n_slots
-    if ns % d:
-        raise ValueError(f"d={d} must divide n_slots={ns}")
+    assert ns % d == 0, f"d={d} must divide n_slots={ns}"
     q_drop = float(ev.ctx.q_list[ct.level - 1])
     idx = np.arange(ns)
     dev = ct.c0.device

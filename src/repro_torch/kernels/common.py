@@ -160,6 +160,7 @@ class StackedKernelConsts:
 
 def stacked_kernel_consts(plans) -> StackedKernelConsts:
     """Memoised by plan content ((prime, N) per limb)."""
+    assert all(p.n == plans[0].n for p in plans)
     return _stacked_kc(tuple((p.prime, p.n) for p in plans))
 
 
@@ -167,8 +168,6 @@ def stacked_kernel_consts(plans) -> StackedKernelConsts:
 def _stacked_kc(keys) -> StackedKernelConsts:
     pcs = [_plan_consts(prime, n) for prime, n in keys]
     n, logn = pcs[0].n, pcs[0].logn
-    if any(pc.n != n for pc in pcs):
-        raise ValueError("stacked plans must share N")
     fwd_off, inv_off = [], []
     cur = _OFF_STAGES
     for s in range(logn):
@@ -414,8 +413,7 @@ def balanced_digits_np(v: np.ndarray) -> np.ndarray:
         over = d >= 128
         out[i] = np.where(over, d - 256, d).astype(np.int8)
         x = (x >> 8) + over.astype(np.int64)
-    if not np.all(x == 0):
-        raise ValueError("value exceeded 4 balanced digits")
+    assert np.all(x == 0), "value exceeded 4 balanced digits"
     return out
 
 

@@ -86,8 +86,7 @@ def apply_mrope(x, positions3, theta: float, sections=None):
         h = (half - t) // 2
         sections = (t, h, half - t - h)
     sec = np.asarray(sections)
-    if sec.sum() != hd // 2:
-        raise ValueError("M-RoPE sections must cover head_dim/2")
+    assert sec.sum() == hd // 2, "M-RoPE sections must cover head_dim/2"
     sec_id = torch.as_tensor(np.repeat(np.arange(3), sec), device=x.device)
     pos = positions3.to(F32)[:, :, sec_id]               # (B,S,hd/2)
     return _rotate(x, pos * freqs)

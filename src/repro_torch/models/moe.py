@@ -178,8 +178,7 @@ def _moe_fwd_grouped(p, x, cfg: MoEConfig, capacity_factor, groups: int):
     device the reshard is the identity)."""
     b, s, d = x.shape
     t = b * s
-    if t % groups:
-        raise ValueError(f"{t} tokens do not split into {groups} groups")
+    assert t % groups == 0
     tg = t // groups
     e = cfg.n_experts
     capacity_factor = (cfg.capacity_factor if capacity_factor is None

@@ -25,8 +25,7 @@ PERF = {
 
 def set_perf(**kw):
     for k, v in kw.items():
-        if k not in PERF:
-            raise KeyError(k)
+        assert k in PERF, k
         PERF[k] = v
 
 

@@ -39,8 +39,7 @@ class Request:
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params, slots: int = 4,
                  cache_len: int = 256, *, device=None):
-        if cfg.frontend:
-            raise ValueError("engine demo uses token-input archs")
+        assert not cfg.frontend, "engine demo uses token-input archs"
         self.device = M.resolve_device(device, "ServingEngine")
         where = {leaf.device for leaf in M.tree_leaves(params)}
         if any(d.type != self.device.type for d in where):

@@ -586,7 +586,7 @@ def test_seeded_encryption_matches_jax(jax_ref, enc_runs, profile):
     for name in ("s_c0", "s_c1", "s_dec"):
         np.testing.assert_array_equal(_u(got[name]),
                                       ref[f"enc_{profile}_{name}"])
-    with pytest.raises(ValueError, match="seeded"):
+    with pytest.raises(AssertionError):        # the reference's assert
         encryptor.expand_seeded(encryptor.Ciphertext(
             got["c0"], got["c1"], got["seeded"].n_limbs, 1.0), get_context(
                 profile))

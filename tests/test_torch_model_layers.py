@@ -138,7 +138,10 @@ def test_rope_and_mrope_match_reference(theta):
            TL.apply_mrope(qt, torch.as_tensor(p3), theta))
     _exact(JL.apply_mrope(qj, jnp.asarray(p3), theta, (4, 4, 8)),
            TL.apply_mrope(qt, torch.as_tensor(p3), theta, (4, 4, 8)))
-    with pytest.raises(ValueError, match="sections"):
+    # the reference's assert, its type and message
+    with pytest.raises(AssertionError, match="sections must cover"):
+        JL.apply_mrope(qj, jnp.asarray(p3), theta, (4, 4, 4))
+    with pytest.raises(AssertionError, match="sections must cover"):
         TL.apply_mrope(qt, torch.as_tensor(p3), theta, (4, 4, 4))
 
 
@@ -378,12 +381,17 @@ def test_moe_grouped_dispatch_matches_reference(groups):
         TT.reset_perf()
     _close(jo, to, ULP)
     assert abs(float(ja) - float(ta)) <= 1e-6 * abs(float(ja))
-    with pytest.raises(ValueError, match="groups"):
-        TT.set_perf(moe_local_dispatch=5)
-        try:
+    # 32 tokens in 5 groups: the reference's assert in both packages
+    JT.set_perf(moe_local_dispatch=5)
+    TT.set_perf(moe_local_dispatch=5)
+    try:
+        with pytest.raises(AssertionError):
+            JMOE.moe_fwd(jp, xj, jc)
+        with pytest.raises(AssertionError):
             TMOE.moe_fwd(tp, xt, tc)
-        finally:
-            TT.reset_perf()
+    finally:
+        JT.reset_perf()
+        TT.reset_perf()
 
 
 def test_tuning_knobs_match_reference():
@@ -392,7 +400,9 @@ def test_tuning_knobs_match_reference():
     assert TT.PERF["ssd_bf16"] and TT.PERF["moe_capacity"] == 1.5
     TT.reset_perf()
     assert TT.PERF == JT.PERF
-    with pytest.raises(KeyError):
+    with pytest.raises(AssertionError, match="no_such_knob"):
+        JT.set_perf(no_such_knob=1)
+    with pytest.raises(AssertionError, match="no_such_knob"):
         TT.set_perf(no_such_knob=1)
     x = torch.ones(3)
     assert TT.wsc(x, "data", None) is x

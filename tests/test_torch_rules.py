@@ -38,7 +38,13 @@
   * the ops-level server and stream entries and ``prng.cbd`` take the
     reference's positional parameters and defaults (read with ``ast``),
     but for the named deviations (Pallas-only parameters dropped, a
-    ``device`` appended); ``MeshWorker.serve()`` takes no argument.
+    ``device`` appended); ``MeshWorker.serve()`` takes no argument;
+  * the guards: every function of the reference that holds an ``assert``
+    has, at the same path and qualified name in the port, at least as
+    many (read with ``ast``; no allowed deviation), and on the same bad
+    input the reference (JAX, in-process) and the port raise the same
+    exception type. The reference's ``assert`` stays an ``assert``; the
+    port's own device and generator checks raise ``ValueError``.
 """
 
 import ast
@@ -811,3 +817,131 @@ def test_mesh_worker_serve_takes_no_argument():
               and f.name == "serve")
     assert [a.arg for a in fn.args.args] == ["self"]
     assert list(inspect.signature(MeshWorker.serve).parameters) == ["self"]
+
+
+# The reference's ``assert`` guards against the port's, read with ``ast``:
+# where a function of the reference guards with ``assert``, the function of
+# the same qualified name at the same relative path of the port holds at
+# least as many ``assert`` statements, so a caller that expects the
+# reference's ``AssertionError`` sees it (and ``python -O`` drops the same
+# checks in both). The port's own device and generator checks stay
+# ``ValueError``: the reference has no assert there. Allowed deviations,
+# "rel::qualname" -> one-line reason:
+ASSERT_DEVIATIONS: dict = {}
+
+
+def _asserts_by_function(path: Path) -> dict:
+    """{qualified name: number of ``assert`` statements in its body}."""
+    counts = {}
+
+    def walk(node, prefix):
+        for ch in ast.iter_child_nodes(node):
+            if isinstance(ch, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = prefix + ch.name
+                counts[name] = sum(isinstance(n, ast.Assert)
+                                   for n in ast.walk(ch))
+                walk(ch, name + ".")
+            elif isinstance(ch, ast.ClassDef):
+                walk(ch, prefix + ch.name + ".")
+
+    walk(ast.parse(path.read_text(), filename=str(path)), "")
+    return counts
+
+
+REF_ASSERT_SITES = sorted(
+    (str(p.relative_to(SRC / "repro")), name, n)
+    for p in (SRC / "repro").rglob("*.py")
+    for name, n in _asserts_by_function(p).items() if n)
+
+
+def test_reference_assert_sites_found():
+    """The scan sees the reference's guarded functions (29 at this port)."""
+    assert len(REF_ASSERT_SITES) >= 29
+    assert ("fhe_server/eval_ops.py", "ServerEvaluator.rescale", 1) \
+        in REF_ASSERT_SITES
+
+
+@pytest.mark.parametrize("rel,name,n", REF_ASSERT_SITES,
+                         ids=[f"{r}::{q}" for r, q, _ in REF_ASSERT_SITES])
+def test_asserts_match_reference(rel, name, n):
+    if f"{rel}::{name}" in ASSERT_DEVIATIONS:
+        return
+    port = PORT / rel
+    assert port.exists(), f"no port of {rel}"
+    got = _asserts_by_function(port)
+    assert name in got, f"{rel} of the port has no {name}"
+    assert got[name] >= n, (
+        f"{rel}::{name}: the reference asserts {n} time(s), the port "
+        f"{got[name]}")
+
+
+def _guard_env(which: str):
+    """The names a guard case needs, from the reference (JAX, in-process)
+    or from the port (CPU tensors)."""
+    from types import SimpleNamespace
+    if which == "ref":
+        import jax.numpy as jnp
+        from repro.core import encoder, get_context
+        from repro.fhe_server import (ServerCiphertext, ServerEvaluator,
+                                      ServerPlaintext)
+        from repro.models import layers, tuning
+        return SimpleNamespace(
+            encoder=encoder, ctx=get_context("tiny"), CT=ServerCiphertext,
+            PT=ServerPlaintext, Ev=ServerEvaluator, layers=layers,
+            tuning=tuning, words=lambda s: jnp.zeros(s, jnp.uint32),
+            floats=lambda s, dt="f64": jnp.zeros(
+                s, jnp.float64 if dt == "f64" else jnp.float32),
+            ints=lambda s: jnp.zeros(s, jnp.int32))
+    from repro_torch.core import encoder, get_context
+    from repro_torch.fhe_server import (ServerCiphertext, ServerEvaluator,
+                                        ServerPlaintext)
+    from repro_torch.models import layers, tuning
+    return SimpleNamespace(
+        encoder=encoder, ctx=get_context("tiny"), CT=ServerCiphertext,
+        PT=ServerPlaintext, Ev=ServerEvaluator, layers=layers,
+        tuning=tuning, words=lambda s: torch.zeros(s, dtype=torch.int32),
+        floats=lambda s, dt="f64": torch.zeros(
+            s, dtype=torch.float64 if dt == "f64" else torch.float32),
+        ints=lambda s: torch.zeros(s, dtype=torch.int32))
+
+
+def _ct(e, level, scale=None):
+    n = e.ctx.params.n
+    return e.CT(e.words((1, level, n)), e.words((1, level, n)), level,
+                e.ctx.params.delta if scale is None else scale)
+
+
+GUARD_CASES = {
+    "rescale_at_level_2": lambda e: e.Ev(e.ctx).rescale(_ct(e, 2)),
+    "drop_to_1": lambda e: _ct(e, 3).drop_to(1),
+    "add_ct_scale_mismatch": lambda e: e.Ev(e.ctx).add_ct(
+        _ct(e, 3), _ct(e, 3, 2 * e.ctx.params.delta)),
+    "add_pt_scale_mismatch": lambda e: e.Ev(e.ctx).add_pt(
+        _ct(e, 3), e.PT(e.words((3, e.ctx.params.n)),
+                        e.words((3, e.ctx.params.n)), 3,
+                        2 * e.ctx.params.delta)),
+    "mul_ct_without_relin_key": lambda e: e.Ev(e.ctx).mul_ct(
+        _ct(e, 3), _ct(e, 3)),
+    "apply_mrope_bad_sections": lambda e: e.layers.apply_mrope(
+        e.floats((1, 2, 1, 32), "f32"), e.ints((1, 2, 3)), 1e4, (4, 4, 4)),
+    "set_perf_unknown_knob": lambda e: e.tuning.set_perf(no_such_knob=1),
+    "slots_to_coeffs_device_shapes": lambda e: (
+        e.encoder.slots_to_coeffs_device(
+            e.floats((2, e.ctx.params.n_slots)),
+            e.floats((3, e.ctx.params.n_slots)), e.ctx)),
+    "coeffs_to_slots_device_width": lambda e: (
+        e.encoder.coeffs_to_slots_device(
+            e.floats((1, e.ctx.params.n + 2)),
+            e.floats((1, e.ctx.params.n + 2)), e.ctx, 1.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GUARD_CASES))
+def test_guards_raise_as_reference(case):
+    """The reference and the port, on the same bad input, raise the same
+    exception type (the reference's ``assert``: ``AssertionError``)."""
+    with pytest.raises(Exception) as want:
+        GUARD_CASES[case](_guard_env("ref"))
+    with pytest.raises(Exception) as got:
+        GUARD_CASES[case](_guard_env("port"))
+    assert got.type is want.type, f"{case}: {want.type} vs {got.type}"

@@ -28,6 +28,7 @@ ciphertext and op output; 0 differing bits for the decoded float64 slots.
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -449,19 +450,23 @@ def test_unported_options_raise(tiny):
 
 
 def test_evaluator_bookkeeping_refuses_bad_inputs(tiny):
+    """The reference's guards, with its types: its ``assert``s raise
+    ``AssertionError`` (with its messages where it gives one), a missing
+    rotation key ``KeyError``."""
     ev, x = tiny["ev"], tiny["x"]
     ctx = tiny["client"].ctx
-    with pytest.raises(ValueError, match="scales"):
+    bad = re.escape(repr(x.scale * 2))
+    with pytest.raises(AssertionError, match=bad):
         ev.add_ct(x, ServerCiphertext(x.c0, x.c1, x.level, x.scale * 2))
-    with pytest.raises(ValueError, match="level"):
+    with pytest.raises(AssertionError):
         ev.add_pt(x, encoding.encode_scalar(1.0, ctx, 2, x.scale,
                                                   device="cpu"))
-    with pytest.raises(ValueError, match="floor"):
+    with pytest.raises(AssertionError, match="2-limb decrypt floor"):
         ev.rescale(x.drop_to(2))
     with pytest.raises(KeyError, match="r=3"):
         ev.rotate(x, 3)
     assert ev.rotate(x, ctx.params.n_slots) is x
-    with pytest.raises(ValueError):
+    with pytest.raises(AssertionError):
         x.drop_to(1)
 
 

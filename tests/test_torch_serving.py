@@ -181,7 +181,7 @@ def test_engine_tokens_match_reference(setup):
 def test_engine_rejects_frontend_archs_and_foreign_params(setup):
     cfg, _, _, params = setup
     vl = reduced_config(get_arch("qwen2-vl-2b"))
-    with pytest.raises(ValueError, match="token-input"):
+    with pytest.raises(AssertionError, match="token-input"):
         ServingEngine(vl, params, device="cpu")
     meta = M.tree_map(lambda t: t.to("meta"), params)
     with pytest.raises(ValueError, match="params live on"):
