@@ -214,7 +214,30 @@ Drives the port (``src/repro_torch``, never the JAX package) on the card:
      relinearization key raise ``AssertionError`` (the reference's
      asserts), a missing rotation key ``KeyError``, and no kernel
      launches; prints the phase's JSON line;
- 16. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
+ 16. the paper's analytic models against the card, at ``paper``: (a)
+     ``CKKSContext``'s four memory terms (twiddle tables, their OTF seeds,
+     key material, mask and errors a ciphertext) beside the bytes of K5's
+     and K6's device tables by part; K5's NTT seed table must equal its
+     host table and stay under 0.5 % of the twiddle tables; (b) one K5
+     call at B=16 after a warm-up, both in a private memory pool, the
+     counters set to 0 just before: one launch, and its peak allocation
+     above what was allocated before it (``reset_peak_memory_stats`` /
+     ``max_memory_allocated``) within 1 MiB of its outputs and five
+     scratch tensors reckoned from the shapes, its peak requested bytes
+     equal to them;
+     NTT(v)'s scratch printed beside 16 masks of ``mask_error_bytes``;
+     (c) ``special_fft_quantized`` round trips (the reference bench's
+     sweep: n = 2^12, mantissas 30-52; n_slots = 2^15 at 43 and the df32
+     pair's 49 bits) beside K4's df32 round trip at n_slots = 2^15
+     (``ops.special_ifft`` then ``special_fft``, seed 3, two launches),
+     every row at 43 bits or more >= 19.29 bits; (d) each of the 15 routed
+     entries under the reference's names (``client_stream``,
+     ``client_pointwise``, ``ntt_butterfly``, ``server_eval``) on card
+     tensors, with the reference's positional arguments, the client ones
+     at ``test`` B=2, the server ones at ``server`` level 4 B=1 on random
+     words: one launch of its kernel each, 0 words differing from its
+     plain version; prints the phase's JSON line;
+ 17. prints the ``kernels`` JSON line (launches, max_abs_err, times, the
      bound; for K5 / K6, K1 - K4, the server kernels K8-K11 and K12 - K14
      also the device kernels per call; K5 / K6's launches include the
      service phase's, the private-inference loop's and the quickstart's,
@@ -1027,19 +1050,21 @@ FLOW_LAUNCHES = {"ks_decompose": 1, "ks_apply_rot": FLOW_DIM - 1,
 
 @contextlib.contextmanager
 def _plain_server_ops():
-    """Route ``kernels.ops.server_*`` to the plain versions, also for CUDA
-    tensors: the reference flow the kernel flow is held against."""
-    from repro_torch.kernels import ops, server_eval
-    kernel_route = ops._server
+    """Route ``kernels.ops.server_*`` (through ``server_eval``'s routed
+    entries) to the plain versions, also for CUDA tensors: the reference
+    flow the kernel flow is held against."""
+    from repro_torch.kernels import server_eval
+    kernel_route = server_eval._routed
 
-    def plain(name, x, *args, **kwargs):
-        return getattr(server_eval, name + "_plain")(*args, **kwargs)
+    def plain(cuda_fn, plain_fn, args, datapath=None):
+        return plain_fn(*args) if datapath is None else plain_fn(*args,
+                                                                 datapath)
 
-    ops._server = plain
+    server_eval._routed = plain
     try:
         yield
     finally:
-        ops._server = kernel_route
+        server_eval._routed = kernel_route
 
 
 def _server_operands(client, keys, ev, level: int, batch: int, seed: int):
@@ -1065,7 +1090,7 @@ def _server_operands(client, keys, ev, level: int, batch: int, seed: int):
     o["kb"], o["ka"] = ev._sliced_key(keys.relin, level)
     o["rb"], o["ra"] = ev._rot_key(5, level)
     o["perm"] = ev._perm(5, dev)
-    o["h"] = server_eval.ks_decompose_cuda(o["a1"], ctx)
+    o["h"] = server_eval.ks_decompose(o["a1"], ctx)
     torch.cuda.synchronize()
     return o
 
@@ -1159,7 +1184,7 @@ def _random_server_operands(profile: str, level: int, batch: int,
         o[k] = words((level, level + 1, n))
     perm = skeys.galois_perm_ntt(skeys.galois_element(5, n), n)
     o["perm"] = torch.from_numpy(perm.reshape(1, n)).to(dev)
-    o["h"] = server_eval.ks_decompose_cuda(o["a1"], ctx)
+    o["h"] = server_eval.ks_decompose(o["a1"], ctx)
     torch.cuda.synchronize()
     return ctx, o
 
@@ -3662,6 +3687,305 @@ def _mirror_phase(dev, card: str, mega, staged, setups) -> dict:
     return out
 
 
+# --- phase 16: the analytic models against the card ----------------------------
+# The paper's models that the port's ``core`` carries (the memory terms of
+# §IV-B / Fig. 6b, the Fig. 3c quantized FFT, the df pair's mantissa) beside
+# what the port keeps and writes on the card, and the kernel modules' routed
+# entries under the reference's names: (a) the memory terms against K5's and
+# K6's device tables, (b) what one K5 call allocates, (c) the precision model
+# against K4's df32 round trip, (d) each routed entry launches its kernel
+# once and gives its plain version's words.
+
+ANALYTIC_SEED_SHARE = 5e-3               # (a) seed table / twiddle tables
+ANALYTIC_PEAK_TOL = 1 << 20              # (b) bytes, peak vs the shapes
+ANALYTIC_SWEEP_N = 1 << 12               # (c) bench_precision.py's sweep
+ANALYTIC_SWEEP_MBITS = (30, 35, 40, 43, 45, 48, 52)
+ANALYTIC_MBITS_BAR = 43                  # (c) rows from here: >= 19.29 bits
+ANALYTIC_SWEEP_SEED, ANALYTIC_K4_SEED = 7, 3
+ENTRY_CLIENT = ("test", 2)               # (d) profile, batch
+ENTRY_SERVER = ("server", 4, 1)          # (d) profile, level, batch
+ENTRY_COUNTERS = {
+    "encode_encrypt_stream": "encode_encrypt_stream",
+    "decrypt_decode_stream": "decrypt_decode_stream",
+    "encrypt_limbs": "encrypt_limbs", "decrypt_limbs": "decrypt_limbs",
+    "ntt_limb_rows": "ntt_limbs", "intt_limb_rows": "intt_limbs",
+    "add_ct": "add_ct", "add_pt": "add_pt", "mul_pt": "mul_pt",
+    "rescale": "rescale", "mul_pt_rescale": "mul_pt_rescale",
+    "mul_ct_relin": "mul_ct", "rotate": "rotate",
+    "ks_decompose": "ks_decompose", "ks_apply_rot": "ks_apply_rot"}
+
+
+def _quantized_round_trip_bits(n: int, mbits: int) -> float:
+    """bench_precision.py's round trip: SpecialIFFT then SpecialFFT of n
+    seeded slots with every operation rounded to `mbits` mantissa bits."""
+    import numpy as np
+    from repro_torch.core import fft as fftmod
+    from repro_torch.core.encoder import boot_precision_bits
+    rng = np.random.default_rng(ANALYTIC_SWEEP_SEED)
+    z = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    w = fftmod.special_fft_quantized(z, 4 * n, mbits, inverse=True)
+    return boot_precision_bits(
+        z, fftmod.special_fft_quantized(w, 4 * n, mbits))
+
+
+def _differing_words(got, want) -> int:
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    n = 0
+    for g, w in zip(got, want, strict=True):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        n += int((g != w).sum())
+    return n
+
+
+def _entry_calls(dev) -> dict:
+    """(d): {entry: (routed call with the reference's positional arguments,
+    plain call on the same tensors)}; the client entries at ``test`` B=2,
+    the server ones at ``server`` level 4 B=1 on random words."""
+    import torch
+    from repro_torch.fhe_client.client import FHEClient
+    from repro_torch.kernels import client_pointwise as cp
+    from repro_torch.kernels import client_stream as cs
+    from repro_torch.kernels import ntt_butterfly as nb
+    from repro_torch.kernels import server_eval as se
+    profile, b = ENTRY_CLIENT
+    c = FHEClient(profile, seed=SEED, device=dev)
+    ctx, p = c.ctx, c.ctx.params
+    pkb, pka, s = c.keys.pk.b_mont, c.keys.pk.a_mont, c.keys.sk.s_mont
+    planes = c.encrypt_operands(_messages(p.n_slots, b, 31))
+    c0, c1 = cs.encode_encrypt_stream_plain(planes, pkb, pka, ctx, c.seed, 5)
+    scale = torch.full((b,), p.delta, dtype=torch.float32, device=dev)
+    pt = _rand_words(ctx, (p.n_limbs, b, p.n), 32, dev).transpose(0, 1)
+    x = _rand_words(ctx, (p.n_limbs, b, p.n), 33, dev)
+    plans = ctx.plans[:p.n_limbs]
+    calls = {
+        "encode_encrypt_stream": (
+            lambda: cs.encode_encrypt_stream(planes, pkb, pka, ctx, c.seed,
+                                             5, "df32"),
+            lambda: cs.encode_encrypt_stream_plain(planes, pkb, pka, ctx,
+                                                   c.seed, 5, "df32")),
+        "decrypt_decode_stream": (
+            lambda: cs.decrypt_decode_stream(c0[:, :2], c1[:, :2], s, ctx,
+                                             scale, "df32"),
+            lambda: cs.decrypt_decode_stream_plain(c0[:, :2], c1[:, :2], s,
+                                                   ctx, scale, "df32")),
+        "encrypt_limbs": (
+            lambda: cp.encrypt_limbs(pt, pkb, pka, ctx, c.seed),
+            lambda: cp.encrypt_limbs_plain(pt.contiguous(), pkb, pka, ctx,
+                                           c.seed, 0)),
+        "decrypt_limbs": (lambda: cp.decrypt_limbs(c0, c1, s, ctx),
+                          lambda: cp.decrypt_limbs_plain(c0, c1, s, ctx)),
+        "ntt_limb_rows": (lambda: nb.ntt_limb_rows(x, plans),
+                          lambda: nb.limb_rows_plain(x, plans, False)),
+        "intt_limb_rows": (lambda: nb.intt_limb_rows(x, plans),
+                           lambda: nb.limb_rows_plain(x, plans, True)),
+    }
+    sprof, level, sb = ENTRY_SERVER
+    sctx, o = _random_server_operands(sprof, level, sb, 34, dev)
+    a0, a1, b0, b1, kb, ka, rb, ra, perm, h = (o[k] for k in (
+        "a0", "a1", "b0", "b1", "kb", "ka", "rb", "ra", "perm", "h"))
+    calls.update({
+        "add_ct": (lambda: se.add_ct(a0, a1, b0, b1, sctx),
+                   lambda: se.add_ct_plain(a0, a1, b0, b1, sctx)),
+        "add_pt": (lambda: se.add_pt(a0, a1, o["pt"], sctx),
+                   lambda: se.add_pt_plain(a0, a1, o["pt"], sctx)),
+        "mul_pt": (lambda: se.mul_pt(a0, a1, o["pm"], sctx),
+                   lambda: se.mul_pt_plain(a0, a1, o["pm"], sctx, "f64")),
+        "rescale": (lambda: se.rescale(a0, a1, sctx),
+                    lambda: se.rescale_plain(a0, a1, sctx, "f64")),
+        "mul_pt_rescale": (
+            lambda: se.mul_pt_rescale(a0, a1, o["pm"], sctx),
+            lambda: se.mul_pt_rescale_plain(a0, a1, o["pm"], sctx, "f64")),
+        "mul_ct_relin": (
+            lambda: se.mul_ct_relin(a0, a1, b0, b1, kb, ka, sctx),
+            lambda: se.mul_ct_relin_plain(a0, a1, b0, b1, kb, ka, sctx,
+                                          "f64")),
+        "rotate": (lambda: se.rotate(a0, a1, perm, rb, ra, sctx),
+                   lambda: se.rotate_plain(a0, a1, perm, rb, ra, sctx,
+                                           "f64")),
+        "ks_decompose": (lambda: se.ks_decompose(a1, sctx),
+                         lambda: se.ks_decompose_plain(a1, sctx)),
+        "ks_apply_rot": (
+            lambda: se.ks_apply_rot(a0, h, perm, rb, ra, sctx),
+            lambda: se.ks_apply_rot_plain(a0, h, perm, rb, ra, sctx,
+                                          "f64")),
+    })
+    return calls
+
+
+def _analytic_phase(dev, card: str, mega) -> dict:
+    """Phase 16: the analytic models against the card, at ``paper`` (the
+    client ``mega``'s context): (a) the four ``CKKSContext`` memory terms
+    and the bytes of K5's and K6's device tables, the NTT seed table ==
+    its host table and < 0.5 % of ``twiddle_table_bytes()``; (b) the peak
+    allocation of one K5 call at B=16 after a warm-up == its outputs and
+    five scratch tensors reckoned from the shapes, within 1 MiB (its
+    requested bytes exactly), one launch; NTT(v)'s scratch beside 16 masks
+    of ``mask_error_bytes()``;
+    (c) ``special_fft_quantized`` round trips (bench_precision.py's sweep
+    at n = 2^12; 43 and the df32 pair's 49 bits at n_slots = 2^15) beside
+    K4's df32 round trip at n_slots = 2^15 (two launches), every row at 43
+    bits or more >= 19.29 bits; (d) each of the 15 routed entries on card
+    tensors: one launch of its kernel, 0 words differing from its plain
+    version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dfloat as dfl
+    from repro_torch.core.encoder import boot_precision_bits
+    from repro_torch.kernels import client_stream, ops
+
+    t_phase = time.perf_counter()
+    ctx, p = mega.ctx, mega.ctx.params
+    L, n, ns = p.n_limbs, p.n, p.n_slots
+    out = {"profile": MAIN_PROFILE, "card": card}
+
+    # (a) the memory terms against the device tables
+    terms = {t: getattr(ctx, t)() for t in (
+        "twiddle_table_bytes", "twiddle_seed_bytes", "key_material_bytes",
+        "mask_error_bytes")}
+    parts = ("fft_twiddles", "bitrev", "seed_table", "digit_consts")
+    k5 = client_stream.device_tables(ctx, L, True, dev)
+    k6 = client_stream.device_tables(ctx, 2, False, dev)
+    tables = {name: {part: t.nbytes for part, t in zip(parts, ts)}
+              for name, ts in (("K5", k5), ("K6", k6))}
+    for t in tables.values():
+        t["total"] = sum(t.values())
+    host_seed = client_stream.stream_consts(ctx, L, True)[0].table.nbytes
+    share = tables["K5"]["seed_table"] / terms["twiddle_table_bytes"]
+    if tables["K5"]["seed_table"] != host_seed:
+        _fail(f"K5's seed table holds {tables['K5']['seed_table']} B on "
+              f"the card, {host_seed} B on the host")
+    if not share < ANALYTIC_SEED_SHARE:
+        _fail(f"seed table / twiddle tables {share} >= {ANALYTIC_SEED_SHARE}")
+    out["memory_terms"] = terms
+    out["device_tables"] = tables
+    out["seed_share"] = share
+
+    # (b) what one K5 call allocates, after a warm-up
+    planes = mega.encrypt_operands(_messages(ns, MAIN_BATCH, 41))
+    pkb, pka = mega.keys.pk.b_mont, mega.keys.pk.a_mont
+
+    def k5_call():
+        return client_stream.encode_encrypt_stream(planes, pkb, pka, ctx,
+                                                   mega.seed, 0, "df32")
+    # In a private pool: its segments hold nothing but this call's blocks,
+    # so each block is the size it asked for (a free block of the shared
+    # pool, left split by earlier phases, can hand a request up to 1 MiB
+    # more). The warm-up lays the segments out; the call takes its blocks
+    # back at their sizes.
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        k5_call()                              # warm-up, outputs dropped
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        requested = torch.cuda.memory_stats(dev)[
+            "requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        c0, c1 = k5_call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        requested = torch.cuda.memory_stats(dev)[   # the requests' own
+            "requested_bytes.all.peak"] - requested  # bytes, unrounded
+        k5_used = {k: v for k, v in ops.launches().items() if v}
+        del c0, c1
+    del pool
+    torch.cuda.empty_cache()
+    b = MAIN_BATCH
+    shapes = {"c0_c1": 2 * b * L * n * 4, "ntt_twiddle_heaps": L * n * 4,
+              "noise_int8": b * 3 * n, "fft_points": b * 4 * ns * 4,
+              "digits": b * 3 * n * 4, "ntt_v": b * L * n * 4}
+    want = sum(shapes.values())
+    if k5_used != {"encode_encrypt_stream": 1}:
+        _fail(f"one K5 call launched {k5_used}")
+    if not abs(peak - want) <= ANALYTIC_PEAK_TOL:
+        _fail(f"one K5 call allocated {peak} B at its peak, the shapes "
+              f"{want} B ({shapes})")
+    if requested != want:
+        _fail(f"one K5 call requested {requested} B at its peak, the "
+              f"shapes {want} B ({shapes})")
+    masks = b * terms["mask_error_bytes"]
+    out["k5_call"] = {"batch": b, "peak_bytes": peak,
+                      "peak_requested_bytes": requested,
+                      "shapes_bytes": want, "by_tensor": shapes,
+                      "launches": k5_used,
+                      "masks_if_fetched_bytes": masks,
+                      "ntt_v_over_masks": shapes["ntt_v"] / masks}
+    del planes
+
+    # (c) precision: the quantized model beside K4's df32 round trip
+    sweep = {mb: _quantized_round_trip_bits(ANALYTIC_SWEEP_N, mb)
+             for mb in ANALYTIC_SWEEP_MBITS}
+    df_bits = dfl.effective_mantissa_bits(torch.float32)
+    at_ns = {mb: _quantized_round_trip_bits(ns, mb)
+             for mb in (ANALYTIC_MBITS_BAR, df_bits)}
+    rng = np.random.default_rng(ANALYTIC_K4_SEED)
+    z = rng.standard_normal((1, ns)) + 1j * rng.standard_normal((1, ns))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    back = ops.special_fft(ops.special_ifft(z, 4 * ns, dev), 4 * ns, dev)
+    torch.cuda.synchronize()
+    k4_used = {k: v for k, v in ops.launches().items() if v}
+    k4_bits = boot_precision_bits(z, back)
+    if k4_used != {"special_fft": 1, "special_ifft": 1}:
+        _fail(f"K4's round trip launched {k4_used}")
+    rows = [(f"n=2^{ANALYTIC_SWEEP_N.bit_length() - 1} {mb}b", mb, bits)
+            for mb, bits in sweep.items()]
+    rows += [(f"n=2^{ns.bit_length() - 1} {mb}b", mb, bits)
+             for mb, bits in at_ns.items()]
+    rows.append((f"K4 df32 n=2^{ns.bit_length() - 1}", df_bits, k4_bits))
+    for what, mb, bits in rows:
+        if mb >= ANALYTIC_MBITS_BAR and not bits >= BOOT_PREC_BITS:
+            _fail(f"precision {what}: {bits} bits < {BOOT_PREC_BITS}")
+    out["precision"] = {"sweep_n": ANALYTIC_SWEEP_N, "sweep_bits": sweep,
+                        "n_slots": ns, "model_bits_at_n_slots": at_ns,
+                        "effective_mantissa_bits": df_bits,
+                        "k4_df32_bits": k4_bits, "k4_launches": k4_used}
+
+    # (d) the routed entries on card tensors
+    entries = {}
+    for name, (entry, plain) in _entry_calls(dev).items():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = entry()
+        torch.cuda.synchronize()
+        used = {k: v for k, v in ops.launches().items() if v}
+        differ = _differing_words(got, plain())
+        if used != {ENTRY_COUNTERS[name]: 1} or differ:
+            _fail(f"routed entry {name}: launched {used}, {differ} words "
+                  f"differ from its plain version")
+        entries[name] = {"kernel": ENTRY_COUNTERS[name],
+                         "launches": used.get(ENTRY_COUNTERS[name], 0),
+                         "differing_words": differ}
+    out["entries"] = entries
+    out["phase_s"] = time.perf_counter() - t_phase
+    t5 = tables["K5"]
+    print(f"analytic models at {MAIN_PROFILE}: twiddle tables "
+          f"{terms['twiddle_table_bytes']} B, seeds "
+          f"{terms['twiddle_seed_bytes']} B, key material "
+          f"{terms['key_material_bytes']} B, mask + errors "
+          f"{terms['mask_error_bytes']} B a ciphertext; on the card K5 "
+          f"tables {t5['total']} B (FFT twiddles {t5['fft_twiddles']}, bit "
+          f"reversal {t5['bitrev']}, seed table {t5['seed_table']}, digit "
+          f"consts {t5['digit_consts']}), K6 {tables['K6']['total']} B; "
+          f"seed table / twiddle tables {share:.3e}  [{card}]", flush=True)
+    print(f"K5 call at {MAIN_PROFILE} B={b}: peak {peak} B allocated "
+          f"({requested} B requested), the shapes {want} B (outputs "
+          f"{shapes['c0_c1']}, scratch {want - shapes['c0_c1']}), launches "
+          f"{k5_used}; NTT(v) scratch "
+          f"{shapes['ntt_v']} B beside {b} masks fetched "
+          f"{masks} B ({shapes['ntt_v'] / masks:.4f})  [{card}]", flush=True)
+    print("precision (Fig. 3c): " + ", ".join(
+        f"{what} {bits:.2f}" for what, _, bits in rows)
+        + f" bits; K4 launches {k4_used}  [{card}]", flush=True)
+    print(f"routed entries on the card: {len(entries)} entries, each one "
+          f"launch, 0 differing words; phase {out['phase_s']:.1f} s  "
+          f"[{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3851,6 +4175,10 @@ def main() -> int:
     print(json.dumps({"mirrors": _mirror_phase(
         dev, card, client_for(MAIN_PROFILE),
         client_for(MAIN_PROFILE, "staged"), setups)}), flush=True)
+
+    # --- 16. the analytic models against the card ---------------------------
+    print(json.dumps({"analytic": _analytic_phase(
+        dev, card, client_for(MAIN_PROFILE))}), flush=True)
 
     # --- 5. times -------------------------------------------------------------
     p = mc.ctx.params

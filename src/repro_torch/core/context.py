@@ -5,7 +5,10 @@ reference's, value for value: a port client and a JAX client built from the
 same profile draw the same primes, plans and seeds, and ``special_plan``
 the same key-switching prime P. Contexts are memoised in a bounded LRU
 (``set_context_cache_capacity``, ``context_cache_len``,
-``context_cache_evictions``), as in the reference.
+``context_cache_evictions``), as in the reference. ``CKKSContext`` also
+carries the paper's memory terms (§IV-B / Fig. 6b: the twiddle tables
+against their OTF seeds, the key material and the per-encryption mask
+and errors if they were fetched from memory).
 """
 
 from __future__ import annotations
@@ -105,6 +108,22 @@ class CKKSContext:
     def modulus_bits(self, n_limbs: int | None = None) -> float:
         n_limbs = n_limbs if n_limbs is not None else self.params.n_limbs
         return sum(math.log2(q) for q in self.q_list[:n_limbs])
+
+    # --- memory accounting (paper §IV-B / Fig. 6b terms) -------------------
+
+    def twiddle_table_bytes(self) -> int:
+        return sum(p.table_nbytes() for p in self.plans)
+
+    def twiddle_seed_bytes(self) -> int:
+        return sum(p.seeds.nbytes() for p in self.plans)
+
+    def key_material_bytes(self) -> int:
+        """Public key (b, a) across limbs, uint32 words."""
+        return 2 * self.params.n_limbs * self.n * 4
+
+    def mask_error_bytes(self) -> int:
+        """Per-encryption randomness (v, e0, e1) if fetched from memory."""
+        return 3 * self.params.n_limbs * self.n * 4
 
 
 @functools.lru_cache(maxsize=16)

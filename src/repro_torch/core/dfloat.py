@@ -9,13 +9,15 @@ every operation is the reference's, and each operation is a separate eager
 op, so nothing can contract a multiply and an add into an FMA (which would
 change the low word). Never run these under ``torch.compile``. Scalars enter
 as Python floats exactly representable in the operands' dtype, or as
-tensors of that dtype.
+tensors of that dtype. ``effective_mantissa_bits`` is the worst-case
+mantissa of a pair (49 bits for df32, 107 for df64).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -160,6 +162,17 @@ def dfc_mul(a: DFComplex, b: DFComplex) -> DFComplex:
     ad = df_mul(a.re, b.im)
     bc = df_mul(a.im, b.re)
     return DFComplex(df_sub(ac, bd), df_add(ad, bc))
+
+
+def effective_mantissa_bits(dtype) -> int:
+    """Worst-case effective mantissa of a df pair (2p+1 bits). ``dtype`` a
+    torch or a numpy float dtype."""
+    if isinstance(dtype, torch.dtype):
+        is_f32 = dtype == F32
+    else:
+        is_f32 = np.dtype(dtype) == np.float32
+    p = 24 if is_f32 else 53
+    return 2 * p + 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """Host tables of the CKKS canonical-embedding SpecialFFT, and its
 complex128 numpy oracle.
 
-Port of ``repro.core.fft`` without the quantized variant: the 5^j
-rotation group, the unit roots and the forward stage indices
-(``kernels.fft_df.packed_twiddles`` packs them into the df32 planes both
-FFT directions read); ``special_fft`` / ``special_ifft``, the host
-transforms the server's plaintext encoder runs
-(``fhe_server.encoding.encode_plaintext``); and ``special_fft_df`` /
+Port of ``repro.core.fft``: the 5^j rotation group, the unit roots and
+the forward stage indices (``kernels.fft_df.packed_twiddles`` packs them
+into the df32 planes both FFT directions read); ``special_fft`` /
+``special_ifft``, the host transforms the server's plaintext encoder runs
+(``fhe_server.encoding.encode_plaintext``); ``special_fft_df`` /
 ``special_ifft_df``, the double-float reference of the df32 datapath on
-``DFComplex`` tensors, in the reference's operation order.
+``DFComplex`` tensors, in the reference's operation order; and
+``special_fft_quantized``, the paper's Fig. 3c precision model (numpy
+float64, every operation rounded to a given mantissa width; a model, not a
+device path).
 """
 
 from __future__ import annotations
@@ -148,3 +150,62 @@ def special_ifft_df(z: dfl.DFComplex, m: int, dtype=dfl.F32) -> dfl.DFComplex:
                                                   device=dev)], x)
     inv_n = dfl.df_const(1.0 / n, device=dev, dtype=dtype)
     return dfl.DFComplex(dfl.df_mul(x.re, inv_n), dfl.df_mul(x.im, inv_n))
+
+
+# ---------------------------------------------------------------------------
+# quantized-mantissa path (paper Fig. 3c sweep)
+# ---------------------------------------------------------------------------
+
+
+def _quantize(x: np.ndarray, mbits: int) -> np.ndarray:
+    """Round-to-nearest to `mbits` mantissa bits (float64 container)."""
+    mant, expo = np.frexp(x)
+    scale = 2.0 ** mbits
+    return np.ldexp(np.round(mant * scale) / scale, expo)
+
+
+def _qc(x: np.ndarray, mbits: int) -> np.ndarray:
+    return _quantize(x.real, mbits) + 1j * _quantize(x.imag, mbits)
+
+
+def _qc_mul(a, b, mbits):
+    # four real multiplies + two adds, each rounded — models the FP datapath
+    re = _quantize(_quantize(a.real * b.real, mbits)
+                   - _quantize(a.imag * b.imag, mbits), mbits)
+    im = _quantize(_quantize(a.real * b.imag, mbits)
+                   + _quantize(a.imag * b.real, mbits), mbits)
+    return re + 1j * im
+
+
+def special_fft_quantized(vals: np.ndarray, m: int, mbits: int,
+                          inverse: bool = False) -> np.ndarray:
+    """Transform with every FP op rounded to `mbits` mantissa bits."""
+    n = vals.shape[-1]
+    roots = _qc(unit_roots(m), mbits)
+    x = _qc(np.asarray(vals, np.complex128).copy(), mbits)
+    if not inverse:
+        x = x[..., bitrev_indices(n)]
+        length = 2
+        while length <= n:
+            lenh = length // 2
+            w = roots[_stage_indices(n, m, length)]
+            shp = x.shape[:-1]
+            x = x.reshape(shp + (n // length, 2, lenh))
+            u, v = x[..., 0, :], _qc_mul(x[..., 1, :], w, mbits)
+            x = np.stack([_qc(u + v, mbits), _qc(u - v, mbits)],
+                         axis=-2).reshape(shp + (n,))
+            length *= 2
+        return x
+    length = n
+    while length >= 2:
+        lenh, lenq = length // 2, length * 4
+        rg = rot_group(n, m)[:lenh]
+        w = roots[(lenq - (rg % lenq)) * (m // lenq)]
+        shp = x.shape[:-1]
+        x = x.reshape(shp + (n // length, 2, lenh))
+        u, v = x[..., 0, :], x[..., 1, :]
+        x = np.stack([_qc(u + v, mbits), _qc_mul(_qc(u - v, mbits), w, mbits)],
+                     axis=-2).reshape(shp + (n,))
+        length //= 2
+    x = x[..., bitrev_indices(n)] / n
+    return _qc(x, mbits)

@@ -7,7 +7,8 @@ NTT-friendly shift-add ``mulmod_montgomery_sa_limb`` of paper eq. 9-11),
 Barrett on limbs, ``addmod``/``submod``, the u32 word-pair helpers, and the
 u64 oracles (``mulmod_naive_u64``, ``mulmod_montgomery_u64``,
 ``to_mont_u64``, ``from_mont_u64``) with their stacked-limb forms
-(``mulmod_montgomery_u64_stacked``, ``mulmod_montgomery_stacked``). The
+(``mulmod_montgomery_u64_stacked``, ``mulmod_montgomery_stacked``), and
+``OP_COSTS``, the engines' multiply counts (paper Table I). The
 reference computes in uint32 and
 wraps modulo 2^32; here every value is a non-negative int64 below 2^32 and
 each wrapping step masks with ``MASK32``. No limb product exceeds 2^48, so
@@ -205,6 +206,19 @@ def mulmod_montgomery_sa_limb(a, b_mont, c: MontgomeryConstants):
     mq_hi, _ = _add64(mq_hi, mq_lo, torch.zeros_like(m), m)
     u = (t_hi + mq_hi + (t_lo != 0).to(torch.int64)) & MASK32
     return torch.where(u >= c.q, u - c.q, u)
+
+
+# Static op costs per modmul (the paper's Table-I analogue). "mul" counts the
+# 16x16 general multiplies of the 16-bit-limb engines above (the reference's,
+# which these plain versions copy op for op): ``mulmod_barrett_limb`` 12,
+# ``mulmod_montgomery_limb`` 11, ``mulmod_montgomery_sa_limb`` 4; "corrections"
+# the conditional subtractions. tests/test_torch_analytic.py counts the
+# multiplies of each engine's run against this table.
+OP_COSTS = {
+    "barrett": {"mul": 12, "corrections": 2},
+    "montgomery": {"mul": 11, "corrections": 1},
+    "ntt_friendly": {"mul": 4, "corrections": 1},
+}
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ Montgomery-form psi / psi^-1 tables), the exact transforms ``ntt`` /
 ``intt`` (table twiddles, the u64 REDC oracle carried as int64),
 ``negacyclic_polymul`` through the transform domain and
 ``negacyclic_polymul_schoolbook`` (the O(N^2) oracle), ``stage_twiddles_np``
-(the OTF doubling generator), and ``ntt_stacked`` / ``intt_stacked``, the
-table-twiddle transforms of a whole limb stack (keygen runs the forward). The reference's u64 REDC
+(the OTF doubling generator), ``ntt_stacked`` / ``intt_stacked``, the
+table-twiddle transforms of a whole limb stack (keygen runs the forward),
+``NTTPlan.table_nbytes`` and the paper's Fig. 4 multiplier models
+(``flowgraph_multiply_count``, ``mdc_multiplier_count``). The reference's u64 REDC
 and the 16-bit-limb REDC used in ``ntt_stacked`` return the same words (the
 reference itself switches to the limb engine without x64), so keys are
 bit-identical.
@@ -75,6 +77,11 @@ class NTTPlan:
     psi_brv_mont: np.ndarray       # Psi[j] = psi^{bitrev(j)} * R mod q
     psi_inv_brv_mont: np.ndarray   # the same for psi^-1
     n_inv_mont: int
+
+    def table_nbytes(self) -> int:
+        """Bytes of the full psi / psi^-1 tables: what the "fetch from
+        memory" baseline (ABC-FHE_Base, Fig. 6b) stores per prime."""
+        return self.psi_brv_mont.nbytes + self.psi_inv_brv_mont.nbytes
 
 
 @functools.lru_cache(maxsize=128)
@@ -290,3 +297,52 @@ def intt_stacked(a: torch.Tensor, sp: StackedPlans) -> torch.Tensor:
     return modmul.mulmod_montgomery_limb_t(
         x, sp.rows(sp.n_inv_mont, len(fshape), dev),
         q.reshape(fshape), qinv.reshape(fshape))
+
+
+# ---------------------------------------------------------------------------
+# Multiplier-count analysis (paper Fig. 4): design-space model
+# ---------------------------------------------------------------------------
+
+
+def flowgraph_multiply_count(logn: int, merged: bool) -> int:
+    """Total twiddle multiplications in one N-point negacyclic transform.
+
+    Merged (Roy/Poppelmann scheduling): every butterfly carries a non-unity
+    Psi twiddle -> (N/2)*log2(N) exactly (the paper's Fig. 4a '12' for N=8).
+    Unmerged: separate psi^i pre-processing pass (N-1 non-trivial) plus the
+    cyclic NTT whose W^0 positions are free: (N/2)*log2(N) - (N-1) + (N-1).
+    The totals coincide; what differs is the *hardware column* structure
+    (``mdc_multiplier_count``) — merging removes an entire multiplier column.
+    """
+    n = 1 << logn
+    if merged:
+        return (n // 2) * logn
+    return (n // 2) * logn - (n - 1) + (n - 1)
+
+
+def mdc_multiplier_count(logn: int, p_lanes: int, radix_log2: int,
+                         merged: bool = True) -> float:
+    """Modular-multiplier *units* in a P-lane MDC pipelined negacyclic NTT.
+
+    Model (stated assumptions):
+      * each pipeline stage column owns P/2 butterflies; a stage whose
+        twiddles vary per-cycle needs P/2 general modular multipliers;
+      * within a radix-2^r group, only the first stage carries general
+        multipliers; the remaining r-1 stages carry *resident-constant*
+        multipliers (twiddle fixed over long bursts — the paper's consistent
+        radix-2^n pattern), which the shift-add Montgomery datapath realises
+        at ~half a general multiplier;
+      * an unmerged design spends one extra full column (P units) on the
+        nega-cyclic psi pre-processing.
+
+    The paper reports 29.7% / 22.3% reductions for its radix-2^n vs radix-2 /
+    radix-2^2; this transparent model lands in the same regime (exact
+    figures depend on proprietary design details).
+    """
+    half = p_lanes / 2
+    full_stages = -(-logn // radix_log2)          # first stage of each group
+    const_stages = logn - full_stages
+    units = half * full_stages + 0.5 * half * const_stages
+    if not merged:
+        units += p_lanes
+    return units

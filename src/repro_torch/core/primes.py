@@ -128,6 +128,28 @@ def find_ntt_friendly_primes(
     return tuple(primes[:count])
 
 
+def census_paper_claim(n_plus_1: int = 17) -> dict[int, int]:
+    """Reproduce the paper's §IV-A claim: 'the required 32-36 bit primes
+    amount to a total of 443' for N = 2^16.
+
+    Returns {bitwidth: count} over the eq. (8) family with 3-term k.
+    """
+    found: set[int] = set()
+    for p_bw in range(31, 37):
+        for k, _terms in _signed_power_sums(max_exp=p_bw - n_plus_1 - 1,
+                                            n_terms=3):
+            q = (1 << p_bw) + k * (1 << n_plus_1) + 1
+            if q <= 1:
+                continue
+            if 32 <= q.bit_length() <= 36 and is_prime(q):
+                found.add(q)
+    hist: dict[int, int] = {}
+    for q in found:
+        hist[q.bit_length()] = hist.get(q.bit_length(), 0) + 1
+    hist["total"] = len(found)  # type: ignore[index]
+    return hist
+
+
 def primitive_2nth_root(q: int, two_n: int) -> int:
     """Smallest-generator primitive (2N)-th root of unity mod q."""
     assert (q - 1) % two_n == 0, "q-1 must be divisible by 2N"

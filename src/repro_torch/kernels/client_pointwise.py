@@ -15,8 +15,9 @@ Port of ``repro.kernels.client_pointwise``:
     ``encrypt_limbs_plain`` / ``decrypt_limbs_plain`` are the same
     functions composed from the stages, limb by limb. Both take and return
     int32 tensors holding uint32 words; each CUDA wrapper counts its
-    launches in ``LAUNCHES``. ``ops.encrypt_fused`` / ``decrypt_fused``
-    pick one by the tensors' device;
+    launches in ``LAUNCHES``. ``encrypt_limbs`` / ``decrypt_limbs`` (the
+    reference's names; ``ops.encrypt_fused`` / ``decrypt_fused`` call
+    them) pick one by the tensors' device;
   * K13, the port of ``encrypt_limb`` / ``decrypt_limb`` (the TPU kernels
     ``_encrypt_kernel`` / ``_decrypt_kernel``): one limb of a (B, N) batch,
     one launch per limb, the shift-add REDC of paper eq. 9-11.
@@ -213,6 +214,26 @@ def decrypt_limbs_cuda(c0, c1, s_mont, ctx):
                   tw_heap.data_ptr(), batch, n_limbs, kc.logn, kc.n_scalars)
     LAUNCHES["decrypt_limbs"] += 1
     return m
+
+
+def encrypt_limbs(pt, b_mont, a_mont, ctx, seed: int, nonce0: int = 0):
+    """Fused encrypt of a (B, L, N) batch, all limbs in one launch: K2 on
+    CUDA tensors (pt read through its strides), the plain version on CPU
+    tensors. Returns (c0, c1), each (B, L, N), contiguous; row r encrypts
+    under nonce nonce0 + r."""
+    if common.route(pt.device) == "cuda":
+        return encrypt_limbs_cuda(pt, b_mont, a_mont, ctx, seed, nonce0)
+    return encrypt_limbs_plain(pt.contiguous(), b_mont, a_mont, ctx, seed,
+                               nonce0)
+
+
+def decrypt_limbs(c0, c1, s_mont, ctx):
+    """Fused decrypt of a (B, L_dec, N) batch, all limbs in one launch: K3
+    on CUDA tensors, the plain version on CPU tensors. Returns the
+    coefficient-domain residues (B, L_dec, N)."""
+    f = (decrypt_limbs_cuda if common.route(c0.device) == "cuda"
+         else decrypt_limbs_plain)
+    return f(c0, c1, s_mont, ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ the reference. Each branch counts its launches under its own name.
 The plain versions run the same stage functions in the same order as the
 reference kernel bodies, so on the CPU they are held bit for bit against
 the JAX package; on the card ``chip_smoke.py`` holds each kernel bit for
-bit against its plain version. ``ops`` picks one by the tensors' device.
+bit against its plain version. The routed entries under the reference's
+names, ``encode_encrypt_stream`` / ``decrypt_decode_stream``, pick one by
+the tensors' device (``ops`` calls them).
 
 Layouts are the reference's: slot planes four (B, N/2) float32, keys
 (L, N) and ciphertexts (B, L, N) int32 tensors holding uint32 words.
@@ -253,3 +255,31 @@ def decrypt_decode_stream_cuda(c0, c1, s_mont, ctx: CKKSContext, scale,
                   *rns.crt2_inverses(q0, q1), qq, half)
     LAUNCHES[_counter("decrypt_decode_stream", datapath)] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# Routed entries: the reference's names and parameters
+# ---------------------------------------------------------------------------
+
+
+def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
+                          seed: int, nonce0: int = 0, datapath: str = "f64"):
+    """The whole encode+encrypt chain in one launch: K5 on CUDA tensors,
+    the plain version on CPU tensors. Four (B, n_slots) float32 slot
+    planes -> (c0, c1), each (B, L, N) int32, row r under nonce nonce0 + r.
+    The reference's parameters without its Pallas-only ``batch_block`` /
+    ``interpret``; ``datapath`` defaults to 'f64' as there."""
+    f = (encode_encrypt_stream_cuda if common.route(planes[0].device)
+         == "cuda" else encode_encrypt_stream_plain)
+    return f(planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
+
+
+def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
+                          datapath: str = "f64"):
+    """The whole decrypt+decode chain in one launch: K6 on CUDA tensors,
+    the plain version on CPU tensors. (B, >=2, N) int32 ciphertext stacks,
+    (B,) scales (float32 on the df32 datapath, float64 on the f64 one) ->
+    four (B, n_slots) float32 planes."""
+    f = (decrypt_decode_stream_cuda if common.route(c0.device) == "cuda"
+         else decrypt_decode_stream_plain)
+    return f(c0, c1, s_mont, ctx, scale, datapath)

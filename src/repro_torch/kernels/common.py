@@ -88,6 +88,14 @@ class PlanConsts:
     psi_inv: int
     r_mod_q: int                            # R mod q = Montgomery form of 1
 
+    def seed_scalar_count(self) -> int:
+        """Scalars of the OTF seed state: the per-stage seeds and
+        doubling factors of both directions, q and N^-1 (~log^2(N) per
+        prime, the paper's unified OTF TF Gen state)."""
+        return (len(self.fwd_base_mont) + len(self.inv_base_mont)
+                + sum(len(f) for f in self.fwd_factors)
+                + sum(len(f) for f in self.inv_factors) + 2)
+
 
 def plan_consts(plan: NTTPlan) -> PlanConsts:
     """Memoised by plan content: (prime, N) determines every constant."""

@@ -15,6 +15,7 @@ natural order out, N^-1 folded in.
   * ``limb_rows_plain`` runs ``common.ntt_stages_t`` / ``intt_stages_t``
     limb by limb, the schedule the kernel follows.
 
+``ntt_limb_rows`` / ``intt_limb_rows`` (the reference's names) and
 ``ops.ntt_limbs`` / ``intt_limbs`` pick one by the tensor's device.
 
 K12 is the port of ``ntt_rows`` / ``intt_rows`` (the TPU kernels
@@ -77,6 +78,20 @@ def limb_rows_cuda(x: torch.Tensor, plans, inverse: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # K12: single-prime NTT / INTT with the shift-add REDC
 # ---------------------------------------------------------------------------
+
+
+def ntt_limb_rows(x: torch.Tensor, plans) -> torch.Tensor:
+    """Forward negacyclic NTT of (L, rows, N) int32 words, all limbs in one
+    launch (bit-reversed out): K1 on a CUDA tensor, the plain version on
+    the CPU."""
+    f = limb_rows_cuda if common.route(x.device) == "cuda" else limb_rows_plain
+    return f(x, plans, False)
+
+
+def intt_limb_rows(x: torch.Tensor, plans) -> torch.Tensor:
+    """Inverse of ``ntt_limb_rows`` (bit-reversed in, N^-1 folded in)."""
+    f = limb_rows_cuda if common.route(x.device) == "cuda" else limb_rows_plain
+    return f(x, plans, True)
 
 
 def rows_plain(x: torch.Tensor, plan, inverse: bool) -> torch.Tensor:

@@ -141,13 +141,9 @@ def encrypt_fused(pt_data, pk_b_mont, pk_a_mont, ctx: CKKSContext,
     seed = ctx.params.seed if seed is None else seed
     squeeze = pt_data.dim() == 2
     pt = pt_data[None] if squeeze else pt_data
-    if common.route(pt.device) == "cuda":
-        # K2 reads a strided view (the staged client's transpose) in place
-        c0, c1 = client_pointwise.encrypt_limbs_cuda(
-            pt, pk_b_mont, pk_a_mont, ctx, seed, nonce0)
-    else:
-        c0, c1 = client_pointwise.encrypt_limbs_plain(
-            pt.contiguous(), pk_b_mont, pk_a_mont, ctx, seed, nonce0)
+    # K2 reads a strided view (the staged client's transpose) in place
+    c0, c1 = client_pointwise.encrypt_limbs(pt, pk_b_mont, pk_a_mont, ctx,
+                                            seed, nonce0)
     if squeeze:
         return c0[0], c1[0]
     return c0, c1
@@ -160,10 +156,8 @@ def decrypt_fused(c0, c1, s_mont, ctx: CKKSContext, n_limbs: int = 2):
     squeeze = c0.dim() == 2
     c0b = c0[None] if squeeze else c0
     c1b = c1[None] if squeeze else c1
-    f = (client_pointwise.decrypt_limbs_cuda
-         if common.route(c0b.device) == "cuda"
-         else client_pointwise.decrypt_limbs_plain)
-    out = f(c0b[:, :n_limbs], c1b[:, :n_limbs], s_mont, ctx)
+    out = client_pointwise.decrypt_limbs(c0b[:, :n_limbs], c1b[:, :n_limbs],
+                                         s_mont, ctx)
     return out[0] if squeeze else out
 
 
@@ -301,22 +295,16 @@ def encode_encrypt_stream(planes, pk_b_mont, pk_a_mont, ctx: CKKSContext,
     """Four (B, n_slots) float32 slot planes -> (c0, c1) (B, L, N) int32.
     ``seed`` None is the profile's seed."""
     seed = ctx.params.seed if seed is None else seed
-    if common.route(planes[0].device) == "cuda":
-        return client_stream.encode_encrypt_stream_cuda(
-            planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
-    return client_stream.encode_encrypt_stream_plain(
-        planes, pk_b_mont, pk_a_mont, ctx, seed, nonce0, datapath)
+    return client_stream.encode_encrypt_stream(planes, pk_b_mont, pk_a_mont,
+                                               ctx, seed, nonce0, datapath)
 
 
 def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
                           datapath: str = "f64"):
     """(B, >=2, N) int32 ciphertext stacks, (B,) scales (float32 on the
     df32 datapath, float64 on the f64 one) -> four (B, n_slots) planes."""
-    if common.route(c0.device) == "cuda":
-        return client_stream.decrypt_decode_stream_cuda(c0, c1, s_mont, ctx,
-                                                        scale, datapath)
-    return client_stream.decrypt_decode_stream_plain(c0, c1, s_mont, ctx,
-                                                     scale, datapath)
+    return client_stream.decrypt_decode_stream(c0, c1, s_mont, ctx, scale,
+                                               datapath)
 
 
 # ---------------------------------------------------------------------------
@@ -330,51 +318,41 @@ def decrypt_decode_stream(c0, c1, s_mont, ctx: CKKSContext, scale,
 # words). The kernels run the u64 REDC on both and take no datapath.
 
 
-def _server(name: str, x, *args, **kwargs):
-    if common.route(x.device) == "cuda":
-        common.check_datapath(kwargs.pop("datapath", "f64"))
-        args = tuple(a.contiguous() if hasattr(a, "contiguous") else a
-                     for a in args)
-        return getattr(server_eval, name + "_cuda")(*args, **kwargs)
-    return getattr(server_eval, name + "_plain")(*args, **kwargs)
-
-
 def server_add_ct(c0a, c1a, c0b, c1b, ctx: CKKSContext):
-    return _server("add_ct", c0a, c0a, c1a, c0b, c1b, ctx)
+    return server_eval.add_ct(c0a, c1a, c0b, c1b, ctx)
 
 
 def server_add_pt(c0, c1, pt, ctx: CKKSContext):
-    return _server("add_pt", c0, c0, c1, pt, ctx)
+    return server_eval.add_pt(c0, c1, pt, ctx)
 
 
 def server_mul_pt(c0, c1, pt_mont, ctx: CKKSContext, datapath: str = "f64",
                   rescale: bool = False):
     """ct x pt (K7), or fused with the rescale that follows (K8b)."""
-    return _server("mul_pt_rescale" if rescale else "mul_pt", c0, c0, c1,
-                   pt_mont, ctx, datapath=datapath)
+    f = server_eval.mul_pt_rescale if rescale else server_eval.mul_pt
+    return f(c0, c1, pt_mont, ctx, datapath)
 
 
 def server_rescale(c0, c1, ctx: CKKSContext, datapath: str = "f64"):
-    return _server("rescale", c0, c0, c1, ctx, datapath=datapath)
+    return server_eval.rescale(c0, c1, ctx, datapath)
 
 
 def server_mul_ct(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext,
                   datapath: str = "f64"):
-    return _server("mul_ct_relin", a0, a0, a1, b0, b1, ksk_b, ksk_a, ctx,
-                   datapath=datapath)
+    return server_eval.mul_ct_relin(a0, a1, b0, b1, ksk_b, ksk_a, ctx,
+                                    datapath)
 
 
 def server_rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext,
                   datapath: str = "f64"):
-    return _server("rotate", c0, c0, c1, perm, ksk_b, ksk_a, ctx,
-                   datapath=datapath)
+    return server_eval.rotate(c0, c1, perm, ksk_b, ksk_a, ctx, datapath)
 
 
 def server_ks_decompose(c1, ctx: CKKSContext):
-    return _server("ks_decompose", c1, c1, ctx)
+    return server_eval.ks_decompose(c1, ctx)
 
 
 def server_ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext,
                         datapath: str = "f64"):
-    return _server("ks_apply_rot", c0, c0, h, perm, ksk_b, ksk_a, ctx,
-                   datapath=datapath)
+    return server_eval.ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx,
+                                    datapath)

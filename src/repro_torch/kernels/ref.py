@@ -5,9 +5,10 @@ Port of ``repro.kernels.ref``: ``ntt_rows`` / ``intt_rows`` run
 (rows, N) int32 tensors holding uint32 words; ``encrypt_pointwise`` /
 ``decrypt_pointwise`` are the per-limb pointwise encrypt and decrypt under
 the u64 REDC; ``special_fft_rows`` / ``special_ifft_rows`` the complex128
-oracle of the SpecialFFT. The reference's
-``fourstep_permutation`` is the identity (the four-step output is in
-natural order, out[k] = a(psi^(2k+1))), so it has no counterpart here.
+oracle of the SpecialFFT; ``fourstep_permutation``, the reference's flat
+(k1, k2) -> k1*N2 + k2 slot map of the four-step output, which is the
+identity (the four-step output is in natural order, out[k] =
+a(psi^(2k+1))).
 """
 
 from __future__ import annotations
@@ -31,6 +32,17 @@ def ntt_rows(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
 def intt_rows(x: torch.Tensor, plan: NTTPlan) -> torch.Tensor:
     """Inverse of ``ntt_rows`` (bit-reversed input), exact path."""
     return modmul.i64_to_u32(nttmod.intt(modmul.u32_to_i64(x), plan))
+
+
+def fourstep_permutation(n: int, n1: int) -> np.ndarray:
+    """The flat index k1*N2 + k2 of each four-step output slot (k1, k2),
+    N2 = n // n1: the identity permutation of arange(n), as in the
+    reference. The four-step path is validated by round trip and by
+    negacyclic polymul against the schoolbook oracle, which do not depend
+    on the output order."""
+    n2 = n // n1
+    k1, k2 = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+    return (k1 * n2 + k2).reshape(-1)
 
 
 def special_fft_rows(z: np.ndarray, m: int) -> np.ndarray:

@@ -25,8 +25,11 @@ Port of ``repro.kernels.server_eval``:
 Inputs and outputs are int32 tensors holding uint32 words: ciphertexts (B,
 l, N) in the NTT domain, plaintexts (l, N), key-switch keys (l, l+1, N)
 (rows [0:l] + [L] of a full key), Galois permutations (1, N) int32, the
-hoisted digit stack (B, l+1, l, N). ``ops.server_*`` picks the kernel or
-the plain version by the tensors' device.
+hoisted digit stack (B, l+1, l, N). The routed entries under the
+reference's names (``add_ct``, ``add_pt``, ``mul_pt``, ``rescale``,
+``mul_pt_rescale``, ``mul_ct_relin``, ``rotate``, ``ks_decompose``,
+``ks_apply_rot``; ``ops.server_*`` calls them) pick the kernel or the plain
+version by the tensors' device.
 
   K7   add_ct / add_pt / mul_pt          _add_ct/_add_pt/_mul_pt_kernel
   K8   rescale                           _rescale_kernel
@@ -545,3 +548,70 @@ def ks_apply_rot_cuda(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext):
                   batch, level, sc.kc.logn, sc.ncols, sc.off_pinv)
     LAUNCHES["ks_apply_rot"] += 1
     return o0, o1
+
+
+# ---------------------------------------------------------------------------
+# Routed entries: the reference's names and parameters
+# ---------------------------------------------------------------------------
+# Each takes the reference's positional parameters (without its Pallas-only
+# ``interpret``) and runs the kernel on CUDA tensors, the plain version on
+# CPU tensors. ``datapath`` defaults to 'f64' as in the reference and is
+# validated on both routes; the kernels run the u64 REDC for both.
+
+
+def _routed(cuda_fn, plain_fn, args, datapath: str | None = None):
+    """``cuda_fn`` on CUDA tensors (operands made contiguous: a
+    ``drop_to`` view or a key slice is copied), ``plain_fn`` on the CPU."""
+    if datapath is not None:
+        common.check_datapath(datapath)
+    if common.route(args[0].device) == "cuda":
+        return cuda_fn(*(a.contiguous() if isinstance(a, torch.Tensor) else a
+                         for a in args))
+    return plain_fn(*args) if datapath is None else plain_fn(*args, datapath)
+
+
+def add_ct(c0a, c1a, c0b, c1b, ctx: CKKSContext):
+    return _routed(add_ct_cuda, add_ct_plain, (c0a, c1a, c0b, c1b, ctx))
+
+
+def add_pt(c0, c1, pt, ctx: CKKSContext):
+    return _routed(add_pt_cuda, add_pt_plain, (c0, c1, pt, ctx))
+
+
+def mul_pt(c0, c1, pt_mont, ctx: CKKSContext, datapath: str = "f64"):
+    """ct x pt WITHOUT rescale (accumulation-friendly: sum products first,
+    rescale once)."""
+    return _routed(mul_pt_cuda, mul_pt_plain, (c0, c1, pt_mont, ctx),
+                   datapath)
+
+
+def rescale(c0, c1, ctx: CKKSContext, datapath: str = "f64"):
+    return _routed(rescale_cuda, rescale_plain, (c0, c1, ctx), datapath)
+
+
+def mul_pt_rescale(c0, c1, pt_mont, ctx: CKKSContext,
+                   datapath: str = "f64"):
+    return _routed(mul_pt_rescale_cuda, mul_pt_rescale_plain,
+                   (c0, c1, pt_mont, ctx), datapath)
+
+
+def mul_ct_relin(a0, a1, b0, b1, ksk_b, ksk_a, ctx: CKKSContext,
+                 datapath: str = "f64"):
+    return _routed(mul_ct_relin_cuda, mul_ct_relin_plain,
+                   (a0, a1, b0, b1, ksk_b, ksk_a, ctx), datapath)
+
+
+def rotate(c0, c1, perm, ksk_b, ksk_a, ctx: CKKSContext,
+           datapath: str = "f64"):
+    return _routed(rotate_cuda, rotate_plain,
+                   (c0, c1, perm, ksk_b, ksk_a, ctx), datapath)
+
+
+def ks_decompose(c1, ctx: CKKSContext):
+    return _routed(ks_decompose_cuda, ks_decompose_plain, (c1, ctx))
+
+
+def ks_apply_rot(c0, h, perm, ksk_b, ksk_a, ctx: CKKSContext,
+                 datapath: str = "f64"):
+    return _routed(ks_apply_rot_cuda, ks_apply_rot_plain,
+                   (c0, h, perm, ksk_b, ksk_a, ctx), datapath)

@@ -35,10 +35,17 @@
     CUDA unless given ``device='cpu'``;
   * the port's ``fhe_client.service`` exports the reference's names, and
     so do ``core`` and ``fhe_server``;
-  * the ops-level server and stream entries and ``prng.cbd`` take the
+  * the ops-level server and stream entries, the kernel modules' routed
+    entries under the reference's names and ``prng.cbd`` take the
     reference's positional parameters and defaults (read with ``ast``),
     but for the named deviations (Pallas-only parameters dropped, a
     ``device`` appended); ``MeshWorker.serve()`` takes no argument;
+  * the names rule: every public function, class, method and module
+    constant of each reference module has a same-named counterpart in the
+    port's module of the same path (read with ``ast``, one case per
+    module), but for 11 named deviations, each with its reason (Pallas
+    block specs and interpret plumbing, jnp dtype aliases, jit-cache
+    probes, an HLO-text parser);
   * the guards: every function of the reference that holds an ``assert``
     has, at the same path and qualified name in the port, at least as
     many (read with ``ast``; no allowed deviation), and on the same bad
@@ -707,7 +714,15 @@ SIGNATURES = [("kernels/ops.py", "kernels.ops", name) for name in (
     "server_add_ct", "server_add_pt", "server_mul_pt", "server_rescale",
     "server_mul_ct", "server_rotate", "server_ks_decompose",
     "server_ks_apply_rot", "encode_encrypt_stream",
-    "decrypt_decode_stream")] + [("core/prng.py", "core.prng", "cbd")]
+    "decrypt_decode_stream")] + [("core/prng.py", "core.prng", "cbd")] + [
+    (f"kernels/{mod}.py", f"kernels.{mod}", name) for mod, names in (
+        ("client_stream", ("encode_encrypt_stream", "decrypt_decode_stream")),
+        ("client_pointwise", ("encrypt_limbs", "decrypt_limbs")),
+        ("ntt_butterfly", ("ntt_limb_rows", "intt_limb_rows")),
+        ("server_eval", ("add_ct", "add_pt", "mul_pt", "rescale",
+                         "mul_pt_rescale", "mul_ct_relin", "rotate",
+                         "ks_decompose", "ks_apply_rot")))
+    for name in names]
 
 
 def _reference_signature(rel: str, name: str) -> list:
@@ -727,8 +742,10 @@ def _reference_signature(rel: str, name: str) -> list:
     raise AssertionError(f"{name} not found in {path}")
 
 
-@pytest.mark.parametrize("rel,module,name", SIGNATURES,
-                         ids=[s[2] for s in SIGNATURES])
+@pytest.mark.parametrize(
+    "rel,module,name", SIGNATURES,
+    ids=[s[2] if s[1] in ("kernels.ops", "core.prng")
+         else f"{s[1].split('.')[-1]}.{s[2]}" for s in SIGNATURES])
 def test_signatures_match_reference(rel, module, name):
     """Each listed function takes the reference's positional parameters in
     its order, with its defaults: a call written for the reference binds
@@ -802,6 +819,79 @@ def test_package_exports_match_reference(package):
     assert sorted(getattr(port, "__all__", [])) == sorted(ref)
     for name in ref:
         assert getattr(port, name) is not None
+
+
+# The names rule: every public name the reference's modules define (top-level
+# functions, classes, class methods, module constants; no leading ``_``) has
+# a same-named counterpart in the port's module of the same path, defined or
+# imported there. The deviations, each by design:
+NAME_DEVIATIONS = {
+    ("kernels/common.py", "row_block_spec"):
+        "a Pallas BlockSpec; the CUDA launches take pointers and strides",
+    ("kernels/common.py", "row_grid"):
+        "a Pallas grid; each CUDA wrapper sizes its own launch",
+    ("kernels/common.py", "table_block_spec"):
+        "a Pallas BlockSpec of a VMEM-resident table",
+    ("kernels/common.py", "balanced_digits_jnp"):
+        "the jnp twin of balanced_digits_np; the port's is balanced_digits",
+    ("kernels/ops.py", "default_interpret"):
+        "Pallas interpret-mode plumbing; the port routes by device",
+    ("core/modmul.py", "U32"): "a jnp dtype alias",
+    ("core/modmul.py", "U64"): "a jnp dtype alias",
+    ("core/prng.py", "U32"): "a jnp dtype alias",
+    ("telemetry/probe.py", "CLIENT_CORE_ATTRS"):
+        "names jit caches; the port has DEVICE_CLIENTS_ATTR",
+    ("telemetry/probe.py", "jit_cache_entries"):
+        "counts jit caches; the port has table_cache_entries",
+    ("launch/dryrun.py", "collective_bytes"):
+        "parses compiled HLO text; the port's dryrun.collectives models the "
+        "placements and returns the same keys",
+}
+REF_MODULES = sorted(p.relative_to(SRC / "repro").as_posix()
+                     for p in (SRC / "repro").rglob("*.py"))
+
+
+def _public_names(path: Path, imports: bool) -> set:
+    """The public names ``path`` defines at top level, with its classes'
+    methods as ``Class.method``; with ``imports``, also the names its
+    top-level imports bind."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            out |= {f"{node.name}.{m.name}" for m in node.body
+                    if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out.add(node.target.id)
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in out if not any(p.startswith("_")
+                                      for p in n.split("."))}
+
+
+def test_public_name_deviations_are_exact():
+    """Each named deviation is a reference name with no counterpart."""
+    for rel, name in NAME_DEVIATIONS:
+        assert name in _public_names(SRC / "repro" / rel, imports=False)
+        assert name not in _public_names(PORT / rel, imports=True)
+
+
+@pytest.mark.parametrize("rel", REF_MODULES)
+def test_public_names_match_reference(rel):
+    """Every public name of the reference module has a counterpart in the
+    port's module of the same path, but for the named deviations."""
+    port = PORT / rel
+    assert port.is_file(), f"no port module {rel}"
+    missing = (_public_names(SRC / "repro" / rel, imports=False)
+               - _public_names(port, imports=True)
+               - {n for r, n in NAME_DEVIATIONS if r == rel})
+    assert not missing, f"{rel}: no counterpart for {sorted(missing)}"
 
 
 def test_mesh_worker_serve_takes_no_argument():
